@@ -1,0 +1,111 @@
+"""Build and load the hand-written CUDA kernels under ``ops/csrc/``.
+
+The ``.cu`` sources expose a plain C interface; ``nvcc`` compiles them for
+Hopper (``sm_90a``) into one shared library, loaded with ``ctypes``. The
+build happens at first use, into ``ops/csrc/build/`` (git-ignored), under a
+file lock so concurrent processes build once. The library's name carries a
+hash of the sources and flags, so an edited source is rebuilt.
+
+There is no fallback: when ``nvcc`` is missing or the build fails,
+:func:`load` raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+
+CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(CSRC_DIR, "build")
+SOURCES = ("sdf_grid.cu", "sdf_points.cu")
+HEADERS = ("sdf_trunk.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: on PATH, else under CUDA_HOME or /usr/local/cuda."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(candidate):
+        return candidate
+    raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): "
+                       "the CUDA kernels cannot be built")
+
+
+def library_path() -> str:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            digest.update(name.encode() + f.read())
+    return os.path.join(BUILD_DIR, f"libsdf_kernels_{digest.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile the kernels if this source revision has no library yet;
+    returns the library's path. The compiler's output (with ``-Xptxas -v``:
+    registers, shared memory and spills per kernel) is kept beside it in a
+    ``.log`` file."""
+    lib_path = library_path()
+    if os.path.exists(lib_path):
+        return lib_path
+    nvcc = nvcc_path()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, "build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if os.path.exists(lib_path):  # another process built it meanwhile
+                return lib_path
+            tmp_path = f"{lib_path}.tmp.{os.getpid()}"
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp_path,
+                   *(os.path.join(CSRC_DIR, s) for s in SOURCES)]
+            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+            with open(lib_path[:-3] + ".log", "w") as log:
+                log.write(proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                                   f"{proc.stdout}{proc.stderr}")
+            os.replace(tmp_path, lib_path)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return lib_path
+
+
+def build_log() -> str:
+    """The compiler output of the current library's build, if it is kept."""
+    path = library_path()[:-3] + ".log"
+    if not os.path.exists(path):
+        return ""
+    with open(path) as f:
+        return f.read()
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> ctypes.CDLL:
+    """The kernel library with its C signatures declared (built if needed)."""
+    lib = ctypes.CDLL(build())
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.sdf_grid_forward.argtypes = [ptr] * 8 + [i32, i32, i32, ptr]
+    lib.sdf_grid_forward.restype = i32
+    lib.sdf_points_forward.argtypes = [ptr] * 9 + [i32, i32, ptr]
+    lib.sdf_points_forward.restype = i32
+    lib.sdf_error_string.argtypes = [i32]
+    lib.sdf_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib: ctypes.CDLL, name: str, code: int) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA error {code} "
+                           f"({lib.sdf_error_string(code).decode()})")

@@ -1,0 +1,152 @@
+#!/usr/bin/env python3
+"""Where the generation slice's time goes, on one GPU.
+
+    python -m shapegan_tpu_torch.profile_slice [iters=N]
+
+With the bundled trained network at full width, it prints, beside the card's
+name and power limit:
+
+* slice A, ``generate_volumes_inference`` on 16 codes at 64^3: the median
+  wall time on the host clock (synchronized) and the grid kernel's median
+  CUDA-event time on the same operands;
+* slice B, one ``demo_sdf_net`` mesh frame at 128^3 / 256^2, split into
+  its phases on the host clock (each synchronized), medians over ``iters``
+  frames;
+* ``torch.profiler`` over one ``get_mesh``: device time, the device's busy
+  share of the wall time, and the operations that take the most device
+  time.
+
+It needs CUDA and builds the kernels if they are not built yet.
+"""
+
+from __future__ import annotations
+
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from shapegan_tpu.data.mesh_io import TriangleMesh
+from shapegan_tpu_torch import checkpoints
+from shapegan_tpu_torch.core.config import parse_cli
+from shapegan_tpu_torch.demo_sdf_net import catmull_rom, render_mesh, write_png
+from shapegan_tpu_torch.models import LATENT_CODES_FILENAME
+from shapegan_tpu_torch.models.sdf_net import SDFNet
+from shapegan_tpu_torch.ops import sdf_mlp_kernels as K
+from shapegan_tpu_torch.ops.coords import voxel_coordinates
+from shapegan_tpu_torch.ops.mesh_extract import extract_mesh
+from shapegan_tpu_torch.train.hybrid_gan import generate_volumes_inference
+
+EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "shapegan_tpu", "examples")
+
+
+def _host_ms(fn: Callable[[], object]) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _event_ms(fn: Callable[[], object]) -> float:
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def frame_phases(net: SDFNet, code: torch.Tensor, voxel_resolution: int, resolution: int,
+                 png_path: str) -> Dict[str, float]:
+    """One mesh frame, as ``demo_sdf_net`` renders it, timed phase by phase
+    (host clock, ms)."""
+    out: Dict[str, object] = {}
+    size = 2.0
+
+    def voxels():
+        out["voxels"] = net.get_voxels(code, voxel_resolution)
+
+    def extract():  # the rest of SDFNet.get_mesh
+        padded = torch.nn.functional.pad(out["voxels"], (1,) * 6, value=1.0)
+        vertices, faces = extract_mesh(padded, spacing=size / voxel_resolution)
+        out["mesh"] = TriangleMesh(vertices - size / 2.0, faces)
+
+    def render():
+        out["image"] = render_mesh(out["mesh"], resolution)
+
+    phases = {
+        "get_voxels (points kernel, device)": _host_ms(voxels),
+        "extract_mesh (device, copy to host)": _host_ms(extract),
+        "render_mesh (mesh arrays + C++ rasterizer, host)": _host_ms(render),
+        "write_png (host)": _host_ms(lambda: write_png(png_path, out["image"])),
+    }
+    phases["frame total"] = sum(phases.values())
+    return phases
+
+
+def profile_get_mesh(net: SDFNet, code: torch.Tensor, voxel_resolution: int, top: int = 6):
+    """torch.profiler over one get_mesh: (wall ms, device ms, [(op, device ms)])."""
+    from torch.profiler import ProfilerActivity, profile
+
+    net.get_mesh(code, voxel_resolution)  # warm
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = _host_ms(lambda: net.get_mesh(code, voxel_resolution))
+
+    # Kernels and copies as the device ran them; a host operation's device
+    # time repeats theirs, so only device-side events are counted.
+    events = sorted((e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.self_device_time_total, reverse=True)
+    total = sum(e.self_device_time_total for e in events) / 1e3
+    return wall, total, [(e.key, e.self_device_time_total / 1e3) for e in events[:top]]
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    if not torch.cuda.is_available():
+        print("profile_slice: CUDA is not available", file=sys.stderr)
+        return 1
+    iters = int(parse_cli(argv).extras.get("iters", 5))
+    device = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(f"card: {smi.splitlines()[0]}")
+
+    net = SDFNet(checkpoints.load("sdf_net", base=EXAMPLES, device=device))
+    codes = checkpoints.load_array(LATENT_CODES_FILENAME, base=EXAMPLES)
+    latents = torch.tensor(catmull_rom(codes, 2)[:16].astype(np.float32), device=device)
+    grid = voxel_coordinates(64, device=device)
+
+    wall = [_host_ms(lambda: generate_volumes_inference(net, grid, latents, 64))
+            for _ in range(iters + 2)][2:]
+    ops = K.grid_operands(net.param_dict(), grid, latents)
+    kernel = [_event_ms(lambda: K.grid_forward_cuda(*ops)) for _ in range(iters + 2)][2:]
+    del ops
+    print(f"slice A, generate_volumes_inference 16 x 64^3: wall {statistics.median(wall):.3f} ms "
+          f"(host clock, median of {iters}); grid kernel {statistics.median(kernel):.3f} ms "
+          f"(CUDA events, median of {iters})")
+
+    code = latents[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        frames = [frame_phases(net, code, 128, 256, os.path.join(tmp, "frame.png"))
+                  for _ in range(iters + 1)][1:]
+    print(f"slice B, one mesh frame at 128^3 / 256^2, medians of {iters} (host clock, ms):")
+    for phase in frames[0]:
+        print(f"  {phase}: {statistics.median(f[phase] for f in frames):.3f}")
+
+    wall_ms, device_ms, top = profile_get_mesh(net, code, 128)
+    print(f"torch.profiler, one get_mesh at 128^3: wall {wall_ms:.3f} ms, device "
+          f"{device_ms:.3f} ms, busy share {device_ms / wall_ms:.3f}")
+    for key, ms in top:
+        print(f"  {ms:.3f} ms  {key}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
