@@ -3,9 +3,10 @@
 Same vocabulary as :mod:`shapegan_tpu.core.config`: bare tokens
 (``continue``, ``nogui``, ``show_slice``, ``verbose``, ``classic``, ``cpu``,
 ``synthetic``), ``name=value`` pairs and ``--name value`` flags. Only the
-settings a ported entry point reads are fields of :class:`TrainConfig`;
-every other name lands in ``extras`` under its field name in the JAX
-package (``continue`` → ``resume``). The one difference is what ``cpu``
+settings a ported entry point reads are fields of :class:`TrainConfig`,
+under the JAX package's names and defaults; every other name lands in
+``extras`` under its field name in the JAX package (``continue`` →
+``resume``). The one difference is what ``cpu``
 means: here it selects ``device="cpu"`` explicitly. Without it the device
 is ``cuda``, and :func:`resolve_device` raises when CUDA is missing instead
 of carrying on on the CPU.
@@ -22,8 +23,19 @@ import torch
 
 @dataclasses.dataclass
 class TrainConfig:
+    resume: bool = False          # 'continue'
+    nogui: bool = True            # 'gui' asks for the viewer, which is not ported
+    show_slice: bool = False
+    verbose: bool = False
+    iteration: int = 0            # progressive growth iteration
+    epochs: Optional[int] = None
+    category: str = "chairs"
     cpu: bool = False             # run on the CPU instead of the GPU
+    synthetic: int = 0            # train on N synthetic analytic shapes
+    batch_size: Optional[int] = None
+    data_dir: str = "data"
     model_dir: str = "models"
+    plot_dir: str = "plots"
     seed: int = 0
     extras: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
@@ -33,6 +45,7 @@ class TrainConfig:
 
 
 _FIELDS = {f.name for f in dataclasses.fields(TrainConfig)} - {"extras"}
+_INT_KEYS = {"iteration", "epochs", "synthetic", "batch_size", "seed"}
 
 # bare token → (name, value)
 _BOOL_TOKENS = {
@@ -100,10 +113,10 @@ def _assign(cfg: TrainConfig, key: str, value: str) -> None:
         key = "resume"
     if key not in _FIELDS:
         cfg.extras[key] = _coerce(value)
-    elif key == "seed":
-        cfg.seed = int(value)
-    elif key == "cpu":
-        cfg.cpu = value.lower() in ("1", "true", "yes")
+    elif key in _INT_KEYS:
+        setattr(cfg, key, int(value))
+    elif isinstance(getattr(cfg, key), bool):
+        setattr(cfg, key, value.lower() in ("1", "true", "yes"))
     else:
         setattr(cfg, key, value)
 

@@ -24,7 +24,9 @@ from shapegan_tpu_torch.ops.sdf_mlp_kernels import apply_grid_best
 
 class SDFNet(nn.Module):
     """The DeepSDF MLP's parameters (the JAX package's keys and ``[in, out]``
-    layout, float32) and the user-facing inference helpers."""
+    layout, float32) and the user-facing inference helpers. The parameters
+    are trainable (a trainer updates them in place); the inference helpers
+    run under ``no_grad``."""
 
     def __init__(self, params: Optional[sdf_mlp.Params] = None, *,
                  generator: Optional[torch.Generator] = None, device=None):
@@ -44,8 +46,7 @@ class SDFNet(nn.Module):
         if want.type != have.type or want.index not in (None, have.index):
             raise ValueError(f"SDFNet parameters lie on {have}, not on {want}")
         self.params = nn.ParameterDict(
-            {k: nn.Parameter(v.to(dtype=torch.float32), requires_grad=False)
-             for k, v in params.items()})
+            {k: nn.Parameter(v.detach().to(dtype=torch.float32)) for k, v in params.items()})
 
     @property
     def device(self) -> torch.device:

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels under ``ops/csrc/``.
 
 The ``.cu`` sources expose a plain C interface; ``nvcc`` compiles them for
-Hopper (``sm_90a``) into one shared library, loaded with ``ctypes``. The
+Hopper (``sm_90a``), one process per source, all started together, and
+links the objects into one shared library, loaded with ``ctypes``. The
 build happens at first use, into ``ops/csrc/build/`` (git-ignored), under a
 file lock so concurrent processes build once. The library's name carries a
 hash of the sources and flags, so an edited source is rebuilt.
@@ -22,11 +23,11 @@ import subprocess
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(CSRC_DIR, "build")
-SOURCES = ("sdf_grid.cu", "sdf_points.cu")
+SOURCES = ("sdf_grid.cu", "sdf_points.cu", "sdf_grid_bwd.cu")
 HEADERS = ("sdf_trunk.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -67,14 +68,34 @@ def build() -> str:
             if os.path.exists(lib_path):  # another process built it meanwhile
                 return lib_path
             tmp_path = f"{lib_path}.tmp.{os.getpid()}"
-            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp_path,
-                   *(os.path.join(CSRC_DIR, s) for s in SOURCES)]
-            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+            objects = [f"{tmp_path}.{name}.o" for name in SOURCES]
+            compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC_DIR, name)]
+                        for name, obj in zip(SOURCES, objects)]
+            procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True) for cmd in compiles]
+            try:
+                outputs = [proc.communicate(timeout=900)[0] for proc in procs]
+            finally:
+                for proc in procs:
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+            log_text = "".join(outputs)
+            failed = [(cmd, proc.returncode) for cmd, proc in zip(compiles, procs) if proc.returncode]
+            if not failed:
+                link = [nvcc, "-shared", "-o", tmp_path, *objects]
+                proc = subprocess.run(link, capture_output=True, text=True, timeout=300)
+                log_text += proc.stdout + proc.stderr
+                if proc.returncode:
+                    failed = [(link, proc.returncode)]
+            for obj in objects:
+                if os.path.exists(obj):
+                    os.remove(obj)
             with open(lib_path[:-3] + ".log", "w") as log:
-                log.write(proc.stdout + proc.stderr)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                                   f"{proc.stdout}{proc.stderr}")
+                log.write(log_text)
+            if failed:
+                cmd, code = failed[0]
+                raise RuntimeError(f"nvcc failed ({code}):\n{' '.join(cmd)}\n{log_text}")
             os.replace(tmp_path, lib_path)
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
@@ -99,6 +120,12 @@ def load() -> ctypes.CDLL:
     lib.sdf_grid_forward.restype = i32
     lib.sdf_points_forward.argtypes = [ptr] * 9 + [i32, i32, ptr]
     lib.sdf_points_forward.restype = i32
+    lib.sdf_grid_backward.argtypes = [ptr] * 18 + [i32, i32, i32, i32, ptr]
+    lib.sdf_grid_backward.restype = i32
+    lib.sdf_grid_backward_chunk_shapes.argtypes = [i32, i32]
+    lib.sdf_grid_backward_chunk_shapes.restype = i32
+    lib.sdf_grid_backward_scratch_bytes.argtypes = [i32, i32]
+    lib.sdf_grid_backward_scratch_bytes.restype = ctypes.c_longlong
     lib.sdf_error_string.argtypes = [i32]
     lib.sdf_error_string.restype = ctypes.c_char_p
     return lib

@@ -38,6 +38,7 @@ _PARAM_SHAPES = (
     ("w7", 0, ("b", "b")), ("b7", 0, ("b",)),
     ("w8", 0, ("b", 1)), ("b8", 0, (1,)),
 )
+PARAM_KEYS = tuple(key for key, _, _ in _PARAM_SHAPES)
 
 
 def init(generator: torch.Generator, latent_size: int = LATENT_CODE_SIZE,

@@ -1,21 +1,25 @@
-"""Forward kernels of the DeepSDF MLP for the H100 (counterpart of the
-forward half of :mod:`shapegan_tpu.ops.sdf_mlp_pallas`).
+"""Kernels of the DeepSDF MLP for the H100 (counterpart of
+:mod:`shapegan_tpu.ops.sdf_mlp_pallas`).
 
-Two hand-written CUDA kernels (sources in ``ops/csrc/``):
+Three hand-written CUDA kernels (sources in ``ops/csrc/``):
 
 * the **grid kernel** (``sdf_grid.cu``, replaces ``_kernel`` /
   ``apply_grid_fused``): B shape latents over one shared point grid
   → [B, P];
 * the **points kernel** (``sdf_points.cu``, replaces ``_points_kernel`` /
   ``apply_points_fused``): one latent, raw points, both fan-in projections
-  in the kernel → [1, N].
+  in the kernel → [1, N];
+* the **grid backward kernel** (``sdf_grid_bwd.cu``, replaces
+  ``_bwd_kernel`` / ``_trainable_bwd``): the recompute backward of the grid
+  kernel, behind the autograd function :func:`apply_grid_trainable`.
 
 Each kernel has a thin wrapper (``*_cuda``: checks, allocates, launches on
 the current stream, counts its launches in ``launch_count``) and a plain
 PyTorch version (``*_plain``) of the same math at the same bf16 rounding
-points. The dispatchers (``grid_forward``, ``points_forward``) take the
-plain version only for tensors on the CPU; a CUDA tensor goes to the kernel,
-which raises if it cannot run. There is no fallback.
+points. The dispatchers (``grid_forward``, ``points_forward``,
+``grid_backward``) take the plain version only for tensors on the CPU; a
+CUDA tensor goes to the kernel, which raises if it cannot run. There is no
+fallback.
 
 Operand layout (shared with the kernels, see ``csrc/sdf_trunk.cuh``):
 ``w`` [6, 256(out), 256(in)] bf16 — w2, w3, w4, w5h, w6, w7 transposed;
@@ -30,7 +34,7 @@ from typing import Callable, Tuple
 import torch
 
 from shapegan_tpu_torch.ops import _build
-from shapegan_tpu_torch.ops.sdf_mlp import Params
+from shapegan_tpu_torch.ops.sdf_mlp import PARAM_KEYS, Params
 
 BF16 = torch.bfloat16
 WIDTH = 256
@@ -100,6 +104,59 @@ def points_forward_plain(pts, w1p, w5p, zz1, zz5, w, b, w8) -> torch.Tensor:
     pp5 = (p @ w5p.float()).to(BF16)
     x = torch.relu(pp1 + zz1)
     return _trunk_plain(x, lambda h: h + pp5 + zz5, w, b, w8)
+
+
+def grid_backward_plain(pp1, pp5, zz1, zz5, w, b, w8, g):
+    """Plain PyTorch version of the grid backward kernel (the math of
+    ``_bwd_kernel``), one shape at a time so memory stays bounded. Returns
+    float32 (d_pp1 [P, 256], d_pp5 [P, 256], d_zz1 [B, 256], d_zz5 [B, 256],
+    d_w [6, 256(in), 256(out)], d_b [8, 256], d_w8 [256], d_b8 [1]).
+
+    Its rounding points are not the forward's: each rebuilt layer adds its
+    bias (layer 5: pp5, then zz5) to the float32 product and rounds once;
+    each dz is rounded to bf16 before it is used; dh and dx1 stay float32.
+    Products take bf16 operands in float32 (``a.float() @ b.float()``), exact
+    per product, so a float32 result is never rounded to bf16 on the way."""
+    f32 = torch.float32
+    points, width = pp1.shape
+    wf = w.float()
+    bf = b.float()
+    w8f = w8.float()
+    d_pp1 = torch.zeros((points, width), dtype=f32, device=pp1.device)
+    d_pp5 = torch.zeros_like(d_pp1)
+    d_zz1 = torch.zeros(zz1.shape, dtype=f32, device=pp1.device)
+    d_zz5 = torch.zeros_like(d_zz1)
+    d_w = torch.zeros(wf.shape, dtype=f32, device=pp1.device)
+    d_b = torch.zeros((8, width), dtype=f32, device=pp1.device)
+    d_w8 = torch.zeros(width, dtype=f32, device=pp1.device)
+    d_b8 = torch.zeros(1, dtype=f32, device=pp1.device)
+    for s in range(zz1.shape[0]):
+        h = [torch.relu(pp1.float() + zz1[s].float()).to(BF16)]
+        for layer in range(len(TRUNK_KEYS)):
+            acc = h[-1].float() @ wf[layer].t()
+            if layer == SKIP_LAYER:
+                acc = acc + pp5.float() + zz5[s].float()
+            else:
+                acc = acc + bf[layer]
+            h.append(torch.relu(acc).to(BF16))
+        out = torch.tanh(h[-1].float() @ w8f + bf[HEAD_BIAS_ROW, 0])
+        gz = g[s].float() * (1.0 - out * out)
+        d_w8 += h[-1].float().t() @ gz
+        d_b8 += gz.sum()
+        dh = gz[:, None] * w8f[None, :]
+        for layer in reversed(range(len(TRUNK_KEYS))):
+            dz = (dh * (h[layer + 1] > 0)).to(BF16).float()
+            d_w[layer] += h[layer].float().t() @ dz
+            if layer == SKIP_LAYER:
+                d_pp5 += dz
+                d_zz5[s] = dz.sum(0)
+            else:
+                d_b[layer] += dz.sum(0)
+            dh = dz @ wf[layer]
+        dx1 = dh * (h[0] > 0)
+        d_pp1 += dx1
+        d_zz1[s] = dx1.sum(0)
+    return d_pp1, d_pp5, d_zz1, d_zz5, d_w, d_b, d_w8, d_b8
 
 
 # ------------------------------------------------------------ kernel wrappers
@@ -179,6 +236,45 @@ def points_forward_cuda(pts, w1p, w5p, zz1, zz5, w, b, w8) -> torch.Tensor:
 points_forward_cuda.launch_count = 0
 
 
+def grid_backward_cuda(pp1, pp5, zz1, zz5, w, b, w8, g):
+    """Launch the grid backward kernel (``csrc/sdf_grid_bwd.cu``); returns
+    what :func:`grid_backward_plain` returns. The scratch it needs (about
+    2 GB for a chunk of 262,144 rows) is allocated here, per call."""
+    device = _cuda_device(pp1)
+    points, batch = pp1.shape[0], zz1.shape[0]
+    _check("pp1", device, pp1, (points, WIDTH), BF16)
+    _check("pp5", device, pp5, (points, WIDTH), BF16)
+    _check("zz1", device, zz1, (batch, WIDTH), BF16)
+    _check("zz5", device, zz5, (batch, WIDTH), BF16)
+    _check_trunk(device, w, b, w8)
+    _check("g", device, g, (batch, points), torch.float32)
+    if batch == 0 or points == 0:
+        raise ValueError(f"grid backward needs B > 0 and P > 0, got B={batch} P={points}")
+
+    def buffer(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=device)
+
+    outs = (buffer(points, WIDTH), buffer(points, WIDTH), buffer(batch, WIDTH),
+            buffer(batch, WIDTH), buffer(len(TRUNK_KEYS), WIDTH, WIDTH), buffer(8, WIDTH),
+            buffer(WIDTH), buffer(1))  # zeroed by the kernel
+    lib = _build.load()
+    chunk = lib.sdf_grid_backward_chunk_shapes(points, batch)
+    scratch = torch.empty(lib.sdf_grid_backward_scratch_bytes(points, chunk),
+                          dtype=torch.uint8, device=device)
+    wt = w.transpose(1, 2).contiguous()  # [6, in, out]: the backward products' operand
+    code = lib.sdf_grid_backward(
+        pp1.data_ptr(), pp5.data_ptr(), zz1.data_ptr(), zz5.data_ptr(), w.data_ptr(),
+        wt.data_ptr(), b.data_ptr(), w8.data_ptr(), g.data_ptr(),
+        *(t.data_ptr() for t in outs), scratch.data_ptr(),
+        batch, points, chunk, device.index, torch.cuda.current_stream(device).cuda_stream)
+    _build.check(lib, "sdf_grid_backward", code)
+    grid_backward_cuda.launch_count += 1
+    return outs
+
+
+grid_backward_cuda.launch_count = 0
+
+
 def grid_forward(pp1, pp5, zz1, zz5, w, b, w8) -> torch.Tensor:
     """Grid kernel on CUDA tensors, its plain version on CPU tensors."""
     if pp1.device.type == "cpu":
@@ -191,6 +287,13 @@ def points_forward(pts, w1p, w5p, zz1, zz5, w, b, w8) -> torch.Tensor:
     if pts.device.type == "cpu":
         return points_forward_plain(pts, w1p, w5p, zz1, zz5, w, b, w8)
     return points_forward_cuda(pts, w1p, w5p, zz1, zz5, w, b, w8)
+
+
+def grid_backward(pp1, pp5, zz1, zz5, w, b, w8, g):
+    """Grid backward kernel on CUDA tensors, its plain version on CPU tensors."""
+    if pp1.device.type == "cpu":
+        return grid_backward_plain(pp1, pp5, zz1, zz5, w, b, w8, g)
+    return grid_backward_cuda(pp1, pp5, zz1, zz5, w, b, w8, g)
 
 
 # ------------------------------------------------------------- entry points
@@ -231,3 +334,47 @@ def apply_grid_best(params: Params, grid_points: torch.Tensor, latents: torch.Te
     if latents.shape[0] == 1:
         return apply_points_fused(params, grid_points, latents[0])
     return apply_grid_fused(params, grid_points, latents)
+
+
+class _GridTrainable(torch.autograd.Function):
+    """The grid kernel forward with the grid backward kernel as its
+    gradient (the custom VJP of the JAX package's ``apply_grid_trainable``).
+    Inputs: grid points [P, 3], latents [B, L], then the 19 parameters in
+    ``PARAM_KEYS`` order."""
+
+    @staticmethod
+    def forward(ctx, grid_points, latents, *values):
+        ctx.save_for_backward(grid_points, latents, *values)
+        params = dict(zip(PARAM_KEYS, values))
+        return grid_forward(*grid_operands(params, grid_points, latents))
+
+    @staticmethod
+    def backward(ctx, g):
+        grid_points, latents, *values = ctx.saved_tensors
+        params = dict(zip(PARAM_KEYS, values))
+        ops = grid_operands(params, grid_points, latents)
+        d_pp1, d_pp5, d_zz1, d_zz5, d_w, d_b, d_w8, d_b8 = grid_backward(
+            *ops, g.float().contiguous())
+        # The closing products of _trainable_bwd, in float32.
+        pts = grid_points.float()
+        lat = latents.float()
+        d = {
+            "w1p": pts.t() @ d_pp1, "w1z": lat.t() @ d_zz1, "b1": d_zz1.sum(0),
+            "w5p": pts.t() @ d_pp5, "w5z": lat.t() @ d_zz5, "b5": d_zz5.sum(0),
+            "w8": d_w8[:, None], "b8": d_b8,
+        }
+        for layer, key in enumerate(TRUNK_KEYS):
+            d[key] = d_w[layer]
+            if layer != SKIP_LAYER:
+                d["b" + key[1:]] = d_b[layer]
+        d_grid = d_pp1 @ params["w1p"].float().t() + d_pp5 @ params["w5p"].float().t()
+        d_latents = d_zz1 @ params["w1z"].float().t() + d_zz5 @ params["w5z"].float().t()
+        return (d_grid.to(grid_points.dtype), d_latents.to(latents.dtype),
+                *(d[k].to(params[k].dtype) for k in PARAM_KEYS))
+
+
+def apply_grid_trainable(params: Params, grid_points: torch.Tensor, latents: torch.Tensor) -> torch.Tensor:
+    """Differentiable grid evaluation [P, 3] x [B, L] → [B, P] float32: the
+    grid kernel forward, the grid backward kernel for the gradients of the
+    parameters, the points and the latents."""
+    return _GridTrainable.apply(grid_points, latents, *(params[k] for k in PARAM_KEYS))

@@ -14,7 +14,10 @@ name and power limit:
   frames;
 * ``torch.profiler`` over one ``get_mesh``: device time, the device's busy
   share of the wall time, and the operations that take the most device
-  time.
+  time;
+* slice C, the progressive WGAN-GP trainer's steps at 64^3, batch 16
+  (``make_steps`` of iteration 3, fresh weights): G-step and D-step medians
+  on the host clock, and ``torch.profiler`` over one of each, as above.
 
 It needs CUDA and builds the kernels if they are not built yet.
 """
@@ -92,13 +95,14 @@ def frame_phases(net: SDFNet, code: torch.Tensor, voxel_resolution: int, resolut
     return phases
 
 
-def profile_get_mesh(net: SDFNet, code: torch.Tensor, voxel_resolution: int, top: int = 6):
-    """torch.profiler over one get_mesh: (wall ms, device ms, [(op, device ms)])."""
+def profile_device(fn: Callable[[], object], top: int = 6):
+    """torch.profiler over one fn() after a warm-up call: (wall ms, device
+    ms, [(op, device ms)])."""
     from torch.profiler import ProfilerActivity, profile
 
-    net.get_mesh(code, voxel_resolution)  # warm
+    fn()  # warm
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall = _host_ms(lambda: net.get_mesh(code, voxel_resolution))
+        wall = _host_ms(fn)
 
     # Kernels and copies as the device ran them; a host operation's device
     # time repeats theirs, so only device-side events are counted.
@@ -140,12 +144,40 @@ def main(argv: Optional[List[str]] = None) -> int:
     for phase in frames[0]:
         print(f"  {phase}: {statistics.median(f[phase] for f in frames):.3f}")
 
-    wall_ms, device_ms, top = profile_get_mesh(net, code, 128)
-    print(f"torch.profiler, one get_mesh at 128^3: wall {wall_ms:.3f} ms, device "
-          f"{device_ms:.3f} ms, busy share {device_ms / wall_ms:.3f}")
+    report("one get_mesh at 128^3", *profile_device(lambda: net.get_mesh(code, 128)))
+    profile_train_steps(device, iters)
+    return 0
+
+
+def report(what: str, wall_ms: float, device_ms: float, top) -> None:
+    print(f"torch.profiler, {what}: wall {wall_ms:.3f} ms, device {device_ms:.3f} ms, "
+          f"busy share {device_ms / wall_ms:.3f}")
     for key, ms in top:
         print(f"  {ms:.3f} ms  {key}")
-    return 0
+
+
+def profile_train_steps(device: torch.device, iters: int, iteration: int = 3) -> None:
+    """Slice C: the trainer's G and D steps (batch 16) at
+    ``RESOLUTIONS[iteration]``, with PyTorch's default TF32 settings."""
+    from shapegan_tpu_torch import LATENT_CODE_SIZE
+    from shapegan_tpu_torch.optim import RMSprop
+    from shapegan_tpu_torch.train import hybrid_progressive_gan as T
+
+    res = T.RESOLUTIONS[iteration]
+    net, disc = T.create_models(0, device)
+    g_step, d_step = T.make_steps(net, disc, RMSprop(net.param_dict(), T.LEARN_RATE),
+                                  RMSprop(dict(disc.named_parameters()), T.LEARN_RATE), iteration)
+    gen = torch.Generator(device=device).manual_seed(0)
+    batch = torch.rand((16, res, res, res), generator=gen, device=device) * 0.2 - 0.1
+    z = torch.randn((16, LATENT_CODE_SIZE), generator=gen, device=device)
+    alpha = torch.rand((16, 1, 1, 1), generator=gen, device=device)
+    steps = {"G step": lambda: g_step(z, 1.0), "D step": lambda: d_step(batch, z, alpha, 1.0)}
+    for name, fn in steps.items():
+        times = [_host_ms(fn) for _ in range(iters + 2)][2:]
+        print(f"slice C, {name} at {res}^3, batch 16: {statistics.median(times):.3f} ms "
+              f"(host clock, median of {iters})")
+    for name, fn in steps.items():
+        report(f"one {name} at {res}^3", *profile_device(fn, top=8))
 
 
 if __name__ == "__main__":

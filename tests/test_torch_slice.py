@@ -153,8 +153,9 @@ def test_png_writer_roundtrip(tmp_path):
 
 def test_cli_device_selection():
     assert resolve_device(parse_cli(["cpu", "samples=3"])) == torch.device("cpu")
-    cfg = parse_cli(["iteration=2", "--category", "planes", "continue", "seed=3"])
-    assert cfg.extras == {"iteration": 2, "category": "planes", "resume": True}
+    cfg = parse_cli(["iteration=2", "--category", "planes", "continue", "seed=3", "g_every=2"])
+    assert (cfg.iteration, cfg.category, cfg.resume) == (2, "planes", True)
+    assert cfg.extras == {"g_every": 2}
     assert (cfg.seed, cfg.device) == (3, "cuda")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
