@@ -8,22 +8,40 @@ Phases, each fatal on failure (nothing is caught):
   2. build the CUDA kernels from ops/csrc/ (nvcc, sm_90a) and print the time
      and the compiler's register/spill report;
   3. each kernel against its plain PyTorch version on the card, with the
-     bundled trained weights at full width (8x256, L=128), at the main
-     path's shapes and at an odd shape with a padded tail;
-  4. median times of kernel and plain version at the main path's shapes;
-  5. the generation path, with every launch count set to 0 first: slice A,
-     generate_volumes_inference on 16 codes at 64^3 (the grid kernel), and
-     slice B, the demo_sdf_net entry point in mesh mode at 128^3 (the points
-     kernel) in a temporary directory; outputs checked, and the counts must
-     show both kernels ran;
-  6. the training path: the progressive WGAN-GP trainer's entry point for
+     bundled weights at full width (8x256, L=128), at the main path's
+     shapes and at an odd shape with a padded tail; the trace kernel with a
+     chair network fitted on the card (shapegan_tpu_torch.examples), on
+     primary rays at 1600^2, shadow rays with per-lane escape heights, and
+     an odd N with pre-resolved lanes;
+  4. median times of kernel and plain version at the main path's shapes,
+     and of 20 per-iteration points-kernel trace steps beside the trace
+     kernel's 20;
+  5. the generation path: slice A, generate_volumes_inference on 16 codes
+     at 64^3, whose counts must show the grid kernel ran, and slice B, the
+     demo_sdf_net entry point in mesh mode at 128^3 in a temporary
+     directory, whose counts must show the points kernel ran; outputs
+     checked;
+  6. the raymarch path: the fitted chair and a one-row code table saved
+     into a temporary models/, the demo_sdf_net entry point in raymarch mode
+     (2 frames at 800^2, ssaa 2), then render_image (4 frames, the median of
+     the last 3 timed) with the fused trace switch off, then on. In each of
+     the three runs the grid and grid backward kernels (the normals) must
+     have launched; with the switch on the trace kernel must have launched
+     and the points kernel not (every bucket at 800^2 holds >= 2048 lanes),
+     with it off the reverse. PNGs, the frame's coverage, the two switch
+     settings' agreement and the hit points' distance to the analytic chair
+     checked;
+  7. the training path: the progressive WGAN-GP trainer's entry point for
      iterations 0 -> 3 in turn (synthetic=32, epochs=1, batch 16, nogui) in
-     a temporary directory, each iteration with the launch counts set to 0
-     just before it; its losses, checkpoints and CSV checked, and the counts
-     must show the grid kernel and the grid backward kernel ran in every
-     iteration;
-  7. the trainer's G-step and D-step times at each resolution (host clock
+     a temporary directory; its losses, checkpoints and CSV checked, and the
+     counts must show the grid kernel and the grid backward kernel ran in
+     every iteration;
+  8. the trainer's G-step and D-step times at each resolution (host clock
      after a synchronize, median of 5).
+Each run of a path in phases 5-7 starts with every launch count set to 0
+and reads the counts just after; launches made to compare a kernel with its
+plain version or to time it are never counted. The kernels line gives each
+kernel's launches summed over those runs, and per run.
 The last lines are a JSON object of the kernels, the card's name and power
 limit, and {"ok": true, "device": {...}}. Without CUDA, or without the repo
 beside it, the script exits non-zero before printing any result.
@@ -57,9 +75,37 @@ KERNEL_MEAN_ABS = 1e-6
 BWD_L2 = 1e-2
 BWD_MAX = 5e-2
 BWD_NAMES = ("d_pp1", "d_pp5", "d_zz1", "d_zz5", "d_w", "d_b", "d_w8", "d_b8")
-# bf16 path vs the float32 reference math on the bundled trained network:
-# measured <= 2.5e-4 at 64^3 and 128^3 (bf16's relative step is 2^-8).
+# bf16 path vs the float32 reference math on the bundled network (not a
+# trained shape: about -0.02 everywhere, PERF.md section 6): measured
+# <= 2.5e-4 at 64^3 and 128^3 (bf16's relative step is 2^-8).
 BF16_VS_F32_MAX_ABS = 1e-3
+# The trace kernel (B4) vs its plain version on the same operands. The SDF of
+# a lane differs by float32 rounding (the head's summation order, tanhf), so
+# a lane's float32 point can differ by an ulp, and rarely that flips the
+# point's bf16 rounding, which moves the lane's later SDF by ~1e-3 and can
+# flip its status. Bounds: the share of lanes whose status agrees, the
+# largest |dp| over lanes whose status agrees, and the share of those with
+# |dp| > 1e-6. Measured on the H100 (all three cases): agreement 1.0, max
+# |dp| 1.9e-3, share 3.6e-5. Three wrong kernels each fail these bounds in
+# a run with them (PERF.md, section 6): the miss test before the hit test
+# (agreement 0.989 on the odd case), no bf16 rounding of the trunk input
+# (agreement 0.983, max |dp| 0.47), an FMA advance (max |dp| 1.3e-2, share
+# 4.6e-3 on the primary rays, share 6.9e-3 on the shadow rays).
+TRACE_AGREE = 0.999
+TRACE_MAX_DP = 0.01
+TRACE_MOVED_SHARE = 1e-3
+# The raymarch frame: its share of non-background pixels (the chair plus
+# its ground shadow), the share of pixels on which the two switch settings'
+# frames differ, and the hit points' distance to the analytic chair.
+FRAME_COVERAGE = (0.05, 0.6)
+SWITCH_PIXELS_DIFFER = 0.01
+HIT_SURFACE_DIST = 0.02
+HIT_SURFACE_SHARE = 0.95
+# Sizes: the trace kernel's rays (the frame's 800^2 x ssaa 2), the demo's
+# frames, and the hit-point check.
+TRACE_SIZE = 1600
+FRAME_RESOLUTION = 800
+HIT_CHECK_SIZE = 400
 
 
 def log(msg: str) -> None:
@@ -71,6 +117,34 @@ def nvidia_smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def launch_counters() -> dict:
+    """Each kernel's wrapper under the name the paths report it by; a
+    wrapper adds one to its ``launch_count`` where it launches its kernel."""
+    from shapegan_tpu_torch.ops import sdf_mlp_kernels as K
+
+    return {"grid": K.grid_forward_cuda, "grid_bwd": K.grid_backward_cuda,
+            "points": K.points_forward_cuda, "trace": K.trace_steps_cuda}
+
+
+def reset_counts() -> None:
+    for fn in launch_counters().values():
+        fn.launch_count = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launch_count for name, fn in launch_counters().items()}
+
+
+def check_counts(path: str, counts: dict, launched=(), idle=()) -> None:
+    """Fails unless every kernel in ``launched`` ran at least once in the
+    path's run and none in ``idle`` ran."""
+    log(f"  launches in {path}: {counts}")
+    wrong = [k for k in launched if counts[k] < 1] + [k for k in idle if counts[k] != 0]
+    if wrong:
+        raise AssertionError(f"{path}: launches {counts}; expected >= 1 of {list(launched)} "
+                             f"and none of {list(idle)}")
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -134,40 +208,212 @@ def compare_backward(name: str, got, want) -> float:
     return worst_abs
 
 
-def train_chain() -> list:
-    """Phase 6: the trainer's entry point for iterations 0 -> 3 in a
-    temporary directory; returns the launches per iteration."""
+def trace_cases(chair, device) -> list:
+    """B4's operands at the main path's shapes: (name, pts, dirs, status,
+    escape, keywords)."""
+    import torch
+    from shapegan_tpu_torch.ops import sdf_mlp_kernels as K
+    from shapegan_tpu_torch.render import raymarching as rm
+
+    cam = torch.tensor(rm.CAMERA_POSITION, dtype=torch.float32, device=device)
+    pts, dirs, entered = rm.camera_rays(cam, TRACE_SIZE)
+    status = torch.where(entered, K.TRACE_ACTIVE, K.TRACE_MISS).to(torch.int32)
+    primary_kw = dict(k=20, shadow=False, threshold=0.0005, step_clamp=0.02, sdf_offset=0.0,
+                      radius=1.0)
+    weights = K.point_weights(chair, dirs[0, :0])
+    # Shadow rays from where the primary rays are after 20 plain steps,
+    # toward the light; escape heights 1.0 and 1.6 on alternate lanes.
+    start, _ = K.trace_steps_plain(pts, dirs, status, None, *weights, **primary_kw)
+    light = torch.tensor(rm.LIGHT_POSITION, dtype=torch.float32, device=device)
+    to_light = light[None, :] - start
+    to_light = to_light / torch.linalg.norm(to_light, dim=1, keepdim=True)
+    escape = torch.where(torch.arange(pts.shape[0], device=device) % 2 == 0, 1.0, 1.6)
+    # An odd N with pre-resolved lanes (every 10th HIT, every 10th MISS):
+    # radius 0.5 and threshold = step clamp put many lanes both outside and
+    # in the hit window at once, where a hit must win.
+    gen = torch.Generator().manual_seed(3)
+    odd = torch.randn((3001, 3), generator=gen)
+    odd_dirs = torch.randn((3001, 3), generator=gen)
+    odd = odd / torch.linalg.norm(odd, dim=1, keepdim=True) * torch.rand((3001, 1), generator=gen) ** (1 / 3)
+    odd_dirs = odd_dirs / torch.linalg.norm(odd_dirs, dim=1, keepdim=True)
+    lane = torch.arange(3001)
+    odd_status = torch.where(lane % 10 == 3, K.TRACE_HIT,
+                             torch.where(lane % 10 == 7, K.TRACE_MISS, K.TRACE_ACTIVE)).to(torch.int32)
+    return [
+        (f"primary {TRACE_SIZE}^2 k=20", pts, dirs, status, None, primary_kw),
+        (f"shadow {TRACE_SIZE}^2 k=20 escape 1.0/1.6", start + to_light * 0.1, to_light, status,
+         escape.float(), dict(primary_kw, shadow=True, threshold=0.001, step_clamp=0.1)),
+        ("odd N=3001 k=20 pre-resolved", odd.to(device), odd_dirs.to(device),
+         odd_status.to(device), None,
+         dict(k=20, shadow=False, threshold=0.02, step_clamp=0.02, sdf_offset=0.0, radius=0.5)),
+    ]
+
+
+def compare_trace(name: str, got, want, start) -> float:
+    """B4 against its plain version by the bounds above; pre-resolved lanes
+    must keep their points and status exactly. Returns max |dp| over the
+    lanes whose status agrees."""
+    import torch
+    from shapegan_tpu_torch.ops import sdf_mlp_kernels as K
+
+    torch.cuda.synchronize()
+    (g_pts, g_st), (w_pts, w_st) = got, want
+    if g_pts.shape != w_pts.shape or g_st.shape != w_st.shape or not torch.isfinite(g_pts).all():
+        raise AssertionError(f"{name}: shapes {tuple(g_pts.shape)} {tuple(g_st.shape)}, "
+                             f"finite={bool(torch.isfinite(g_pts).all())}")
+    same = g_st == w_st
+    agree = float(same.float().mean())
+    dp = (g_pts - w_pts).abs().amax(1)[same]
+    max_dp = float(dp.max())
+    moved = float((dp > 1e-6).float().mean())
+    differ = float((dp > 0).float().mean())
+    resolved = start[1] != K.TRACE_ACTIVE
+    frozen = bool((g_pts[resolved] == start[0][resolved]).all()
+                  and (g_st[resolved] == start[1][resolved]).all())
+    counts = [int((g_st == c).sum()) for c in (K.TRACE_ACTIVE, K.TRACE_HIT, K.TRACE_MISS)]
+    log(f"  trace {name}: status agree {agree:.6f} (>= {TRACE_AGREE}), max|dp| on agreeing "
+        f"lanes {max_dp:.3e} (<= {TRACE_MAX_DP}), share with |dp| > 1e-6 {moved:.2e} "
+        f"(<= {TRACE_MOVED_SHARE}), "
+        f"with dp != 0 {differ:.2e}; "
+        f"pre-resolved lanes unchanged: {frozen}; active/hit/miss {counts}")
+    if agree < TRACE_AGREE or max_dp > TRACE_MAX_DP or moved > TRACE_MOVED_SHARE or not frozen:
+        raise AssertionError(f"trace {name}: kernel disagrees with its plain version")
+    return max_dp
+
+
+def check_raymarch_counts(path: str, counts: dict, fused: bool) -> None:
+    """The normals launch the grid kernel and its backward; the traces
+    launch the trace kernel with the fused switch on (every bucket of an
+    800^2 x ssaa 2 frame holds >= FUSED_MIN_LANES lanes, so no points-kernel
+    step runs) and the points kernel with it off."""
+    traced, idle = ("trace", "points") if fused else ("points", "trace")
+    check_counts(path, counts, launched=("grid", "grid_bwd", traced), idle=(idle,))
+
+
+def raymarch_path(chair, code, kind: str) -> dict:
+    """Phase 6: the demo in raymarch mode on the fitted chair in a temporary
+    directory, then render_image timed with the fused trace switch off and
+    on, each run with its own launch counts; returns the counts per run and
+    the readings."""
+    import numpy as np
+    import torch
+    from shapegan_tpu_torch import checkpoints, demo_sdf_net
+    from shapegan_tpu_torch.examples import CHAIR_SCALE, example_chair_sdf
+    from shapegan_tpu_torch.models import LATENT_CODES_FILENAME
+    from shapegan_tpu_torch.models.sdf_net import SDFNet
+    from shapegan_tpu_torch.ops import sdf_mlp
+    from shapegan_tpu_torch.ops import sdf_mlp_kernels as K
+    from shapegan_tpu_torch.render import raymarching as rm
+    from shapegan_tpu_torch.render.png import read_png
+
+    paths = {}
+    default = rm._FORCE_FUSED_TRACE
+    with tempfile.TemporaryDirectory() as tmp:
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            checkpoints.save(chair, "sdf_net", base="models")
+            checkpoints.save_array(code[None].cpu().numpy(), LATENT_CODES_FILENAME, base="models")
+            reset_counts()
+            t0 = time.perf_counter()
+            coverage_px = demo_sdf_net.main(["mode=raymarch", "samples=1",
+                                             "frames_per_transition=2",
+                                             f"resolution={FRAME_RESOLUTION}"])
+            torch.cuda.synchronize()
+            demo_s = time.perf_counter() - t0
+            paths["raymarch demo"] = read_counts()
+            frames = [read_png(os.path.join(demo_sdf_net.OUT_DIR, f))
+                      for f in sorted(os.listdir(demo_sdf_net.OUT_DIR))]
+        finally:
+            os.chdir(cwd)
+    log(f"  demo_sdf_net raymarch mode, 2 frames at {FRAME_RESOLUTION}^2 (ssaa 2, fused switch {default}) in "
+        f"{demo_s:.2f} s (first call, host clock); non-background pixels {coverage_px}")
+    check_raymarch_counts("raymarch demo", paths["raymarch demo"], default)
+
+    net = SDFNet(chair)
+    images, frame_ms = {}, {}
+    try:
+        for fused in (False, True):
+            rm._FORCE_FUSED_TRACE = fused
+            path = f"render_image, fused switch {'on' if fused else 'off'}"
+            times = []
+            reset_counts()
+            for _ in range(4):  # the first is a warm-up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                images[fused] = rm.render_image(net, code, resolution=FRAME_RESOLUTION)
+                times.append((time.perf_counter() - t0) * 1e3)
+            paths[path] = read_counts()
+            frame_ms[fused] = statistics.median(times[1:])
+            log(f"  render_image {FRAME_RESOLUTION}^2 ssaa 2, fused trace switch {fused}: "
+                f"{frame_ms[fused]:.3f} ms (host clock, median of 3; {kind})")
+            check_raymarch_counts(path, paths[path], fused)
+    finally:
+        rm._FORCE_FUSED_TRACE = default
+
+    # The frames: RGB at the demo's resolution, the chair plus its ground shadow covering a
+    # plausible share, and the two switch settings nearly the same frame.
+    coverage = [float((f != 255).any(axis=2).mean()) for f in frames]
+    differ = float((images[False] != images[True]).any(axis=2).mean())
+    log(f"  frames {[f.shape for f in frames]}, non-background share {coverage} "
+        f"(in {FRAME_COVERAGE}); pixels differing between switch settings {differ:.2e} "
+        f"(<= {SWITCH_PIXELS_DIFFER}); demo frame vs render_image: "
+        f"{float((frames[0] != images[default]).any(axis=2).mean()):.2e} of pixels differ")
+    if len(frames) != 2 or any(f.shape != (FRAME_RESOLUTION, FRAME_RESOLUTION, 3) for f in frames):
+        raise AssertionError(f"raymarch frames: {[f.shape for f in frames]}")
+    if not all(FRAME_COVERAGE[0] <= c <= FRAME_COVERAGE[1] for c in coverage):
+        raise AssertionError(f"raymarch frames: non-background share {coverage}")
+    if differ > SWITCH_PIXELS_DIFFER:
+        raise AssertionError(f"the switch settings' frames differ on {differ:.3e} of pixels")
+    # The surface the trace finds is the chair's: primary hits lie within
+    # HIT_SURFACE_DIST of the analytic (scaled) chair.
+    folded = sdf_mlp.fold_latent(chair, code)
+    cam = torch.tensor(rm.CAMERA_POSITION, dtype=torch.float32, device=code.device)
+    pts, dirs, entered = rm.camera_rays(cam, HIT_CHECK_SIZE)
+    status = torch.where(entered, K.TRACE_ACTIVE, K.TRACE_MISS).to(torch.int32)
+    schedule = rm._default_schedule("primary", HIT_CHECK_SIZE**2, 1000)
+    pts, status = rm._trace_staged("primary", folded, code[:0], pts, dirs, status, 1000, 0.0005,
+                                   0.02, 0.0, 1.0, schedule, tail_cap=rm.TAIL_ITERS)
+    hits = pts[status != K.TRACE_MISS].cpu().numpy().astype(np.float64)
+    dist = np.abs(example_chair_sdf(hits / CHAIR_SCALE) * CHAIR_SCALE)
+    near = float((dist < HIT_SURFACE_DIST).mean())
+    log(f"  primary hits at {HIT_CHECK_SIZE}^2: {len(hits)}, share within {HIT_SURFACE_DIST} of the analytic "
+        f"chair {near:.4f} (>= {HIT_SURFACE_SHARE}), median distance {float(np.median(dist)):.2e}")
+    if near < HIT_SURFACE_SHARE or len(hits) < 0.05 * HIT_CHECK_SIZE**2:
+        raise AssertionError("the traced surface is not the chair's")
+    return {"paths": paths, "frame_ms": frame_ms, "coverage": coverage, "differ": differ}
+
+
+def train_chain() -> dict:
+    """Phase 7: the trainer's entry point for iterations 0 -> 3 in a
+    temporary directory; returns the launch counts per iteration."""
     import csv
     import math
 
     import torch
     from shapegan_tpu_torch.core.config import parse_cli
-    from shapegan_tpu_torch.ops import sdf_mlp_kernels as K
     from shapegan_tpu_torch.train import hybrid_progressive_gan as T
 
-    launches = []
+    paths = {}
     with tempfile.TemporaryDirectory() as tmp:
         cwd = os.getcwd()
         os.chdir(tmp)
         try:
             for iteration in range(4):
-                K.grid_forward_cuda.launch_count = 0
-                K.grid_backward_cuda.launch_count = 0
+                reset_counts()
                 t0 = time.perf_counter()
                 result = T.train(parse_cli([f"iteration={iteration}", "epochs=1", "synthetic=32",
                                             "batch_size=16", "nogui"]))
                 torch.cuda.synchronize()
                 seconds = time.perf_counter() - t0
-                counts = {"grid": K.grid_forward_cuda.launch_count,
-                          "grid_bwd": K.grid_backward_cuda.launch_count}
-                launches.append(counts)
+                counts = paths[f"training iteration {iteration}"] = read_counts()
                 with open(f"plots/hybrid_gan_training_{iteration}.csv") as f:
                     rows = [r for r in csv.reader(f, delimiter=" ")]
                 files = [T.G_NAME.format(iteration), T.D_NAME.format(iteration),
                          T.OPT_NAME.format(iteration)]
                 missing = [n for n in files if not os.path.exists(os.path.join("models", n + ".npz"))]
                 log(f"  iteration {iteration}: {seconds:.2f} s (first call, host clock), "
-                    f"launches {counts}, CSV {rows}, G steps {len(result['g_step_s'])}, "
+                    f"CSV {rows}, G steps {len(result['g_step_s'])}, "
                     f"D steps {len(result['d_step_s'])}")
                 if len(rows) != 1 or len(rows[0]) != 5:
                     raise AssertionError(f"iteration {iteration}: CSV rows {rows}")
@@ -176,18 +422,18 @@ def train_chain() -> list:
                     raise AssertionError(f"iteration {iteration}: bad losses {rows[0]}")
                 if missing:
                     raise AssertionError(f"iteration {iteration}: checkpoints missing {missing}")
-                if counts["grid"] < 1 or counts["grid_bwd"] < 1:
-                    raise AssertionError(f"iteration {iteration}: a kernel never launched {counts}")
+                check_counts(f"training iteration {iteration}", counts,
+                             launched=("grid", "grid_bwd"))
                 net = result["net"]
                 if net.device.type != "cuda":
                     raise AssertionError(f"the generator lies on {net.device}")
         finally:
             os.chdir(cwd)
-    return launches
+    return paths
 
 
 def step_times() -> dict:
-    """Phase 7: G-step and D-step medians (ms) at each resolution, on fresh
+    """Phase 8: G-step and D-step medians (ms) at each resolution, on fresh
     random weights and batches."""
     import torch
     from shapegan_tpu_torch import LATENT_CODE_SIZE
@@ -234,6 +480,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     from shapegan_tpu_torch import checkpoints, demo_sdf_net
+    from shapegan_tpu_torch.examples import fit_chair
     from shapegan_tpu_torch.models import LATENT_CODES_FILENAME
     from shapegan_tpu_torch.models.sdf_net import SDFNet
     from shapegan_tpu_torch.ops import _build, sdf_mlp
@@ -287,7 +534,7 @@ def main() -> int:
     points_err = max(points_err, compare(
         "points N=3001 L=128",
         K.points_forward_cuda(*odd_points_ops), K.points_forward_plain(*odd_points_ops)))
-    # B2 with the trained weights at the G step's flagship shape, and with
+    # B2 with the bundled weights at the G step's flagship shape, and with
     # random weights at an odd shape; random cotangents.
     g16 = torch.randn((16, 64**3), generator=gen).to(device)
     bwd_err = compare_backward("grid_bwd B=16 P=64^3", K.grid_backward_cuda(*grid_ops, g16),
@@ -298,6 +545,21 @@ def main() -> int:
     bwd_err = max(bwd_err, compare_backward("grid_bwd B=3 P=3001",
                                             K.grid_backward_cuda(*odd_bwd_ops, g3),
                                             K.grid_backward_plain(*odd_bwd_ops, g3)))
+    # B4 with a network that has a real surface: the chair, fitted here with
+    # the float32 reference math (the bundled network has none).
+    t0 = time.perf_counter()
+    chair, chair_code = fit_chair(device)
+    torch.cuda.synchronize()
+    log(f"  fitted the chair (800 Adam steps of 16384 points, float32) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    chair_folded = sdf_mlp.fold_latent(chair, chair_code)
+    chair_weights = K.point_weights(chair_folded, chair_code[:0])
+    trace_err = 0.0
+    cases = trace_cases(chair_folded, device)
+    for name, pts, dirs, status, escape, kw in cases:
+        ops = (pts, dirs, status, escape) + chair_weights
+        trace_err = max(trace_err, compare_trace(name, K.trace_steps_cuda(*ops, **kw),
+                                                 K.trace_steps_plain(*ops, **kw), (pts, status)))
 
     log(f"== 4. times at the main path's shapes ({kind}; {smi})")
     trunk_flop = 2 * 6 * 256 * 256
@@ -320,41 +582,66 @@ def main() -> int:
     n_points = 16 * 64**3
     log(f"  grid_bwd: kernel {kernel_ms:.3f} ms ({n_points * 3 * trunk_flop / kernel_ms / 1e9:.1f} "
         f"TFLOP/s over the 18 products) | plain {plain_ms:.3f} ms | n={n_points}")
-    del grid_ops, odd_ops, points_ops, odd_points_ops, odd_bwd_ops, g16, g3
+    # B4: 20 trace steps over the 1600^2 primary rays, beside 20 steps of
+    # one points-kernel launch and the element-wise update each (the A/B of
+    # the raymarcher's fused trace switch).
+    name, pts, dirs, status, escape, kw = cases[0]
+    ops = (pts, dirs, status, escape) + chair_weights
+    plain_ms = time_ms(lambda: K.trace_steps_plain(*ops, **kw), iters=3, warmup=1)
+    kernel_ms = time_ms(lambda: K.trace_steps_cuda(*ops, **kw), iters=10)
+
+    def points_steps():
+        p, st = pts, status
+        for _ in range(kw["k"]):
+            sdf = K.points_forward_cuda(p, *chair_weights)
+            p, st = K.trace_update(p, dirs, st, sdf, escape=escape,
+                                   **{k: v for k, v in kw.items() if k != "k"})
+        return p, st
+
+    b3_ms = time_ms(points_steps, iters=10)
+    times["trace"] = (kernel_ms, plain_ms)
+    n_evals = pts.shape[0] * kw["k"]
+    log(f"  trace ({name}): kernel {kernel_ms:.3f} ms ({n_evals / kernel_ms / 1e6:.3f} G lane-steps/s) "
+        f"| plain {plain_ms:.3f} ms | 20 points-kernel steps {b3_ms:.3f} ms "
+        f"({n_evals / b3_ms / 1e6:.3f} G lane-steps/s) | lanes={pts.shape[0]}, "
+        f"{int((status == 0).sum())} active at the start")
+    del grid_ops, odd_ops, points_ops, odd_points_ops, odd_bwd_ops, g16, g3, cases, ops
     torch.cuda.empty_cache()
 
     log("== 5. generation path")
-    K.grid_forward_cuda.launch_count = 0
-    K.points_forward_cuda.launch_count = 0
+    paths = {}
     net = SDFNet(params)
     if net.device.type != "cuda":
         raise AssertionError(f"the network lies on {net.device}, not on the card")
+    reset_counts()
     t0 = time.perf_counter()
     volumes = generate_volumes_inference(net, grid64, latents16, 64)
     torch.cuda.synchronize()
+    paths["generate_volumes_inference"] = read_counts()
     log(f"  slice A: generate_volumes_inference 16 x 64^3 in {time.perf_counter() - t0:.3f} s "
         f"(first call, host clock)")
-    grid_launches_a = K.grid_forward_cuda.launch_count
+    check_counts("generate_volumes_inference", paths["generate_volumes_inference"],
+                 launched=("grid",))
     with tempfile.TemporaryDirectory() as tmp:
         cwd = os.getcwd()
         os.chdir(tmp)
         try:
+            reset_counts()
             t0 = time.perf_counter()
             triangle_counts = demo_sdf_net.main(
                 ["mode=mesh", "samples=3", "frames_per_transition=1", "resolution=256",
                  "voxel_resolution=128"])
             torch.cuda.synchronize()
             demo_s = time.perf_counter() - t0
+            paths["mesh demo"] = read_counts()
             frames = sorted(os.listdir(demo_sdf_net.OUT_DIR))
             pngs_ok = all(open(os.path.join(demo_sdf_net.OUT_DIR, f), "rb").read(8)
                           == b"\x89PNG\r\n\x1a\n" for f in frames)
         finally:
             os.chdir(cwd)
-    launches = {"grid": K.grid_forward_cuda.launch_count,
-                "points": K.points_forward_cuda.launch_count}
     log(f"  slice B: demo_sdf_net mesh mode, 3 frames at 128^3 / 256^2 in {demo_s:.2f} s: "
         f"triangles {triangle_counts}, frames {frames}")
-    log(f"  launches in the main path: {launches} (grid in slice A: {grid_launches_a})")
+    check_counts("mesh demo", paths["mesh demo"], launched=("points",))
 
     # Slice A's output: finite SDF volumes in [-1, 1] with surfaces, close to
     # the float32 reference math for two of the shapes.
@@ -382,32 +669,33 @@ def main() -> int:
         f"(<= {BF16_VS_F32_MAX_ABS})")
     if b_err > BF16_VS_F32_MAX_ABS:
         raise AssertionError("slice B volume disagrees with the float32 reference")
-    if grid_launches_a < 1 or launches["points"] < 1:
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+
+    log(f"== 6. raymarch path ({kind}; {smi})")
+    paths.update(raymarch_path(chair, chair_code, f"{kind}; {smi}")["paths"])
+    del chair, chair_folded, chair_weights
+    torch.cuda.empty_cache()
 
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32_defaults
-    log(f"== 6. training path: progressive WGAN-GP, iterations 0 -> 3 ({kind}; TF32: matmul "
+    log(f"== 7. training path: progressive WGAN-GP, iterations 0 -> 3 ({kind}; TF32: matmul "
         f"{tf32_defaults[0]}, cuDNN {tf32_defaults[1]})")
-    chain = train_chain()
-    log(f"== 7. trainer step times ({kind}; {smi})")
+    paths.update(train_chain())
+    log(f"== 8. trainer step times ({kind}; {smi})")
     step_times()
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         raise AssertionError("jax was imported")
-    launches["grid"] += sum(c["grid"] for c in chain)
-    launches["grid_bwd"] = sum(c["grid_bwd"] for c in chain)
+
+    def kernel_entry(name, counter, source, replaces, err):
+        return {"name": name, "route": "cuda", "source": f"shapegan_tpu_torch/ops/csrc/{source}",
+                "replaces": f"shapegan_tpu/ops/sdf_mlp_pallas.py:{replaces}",
+                "launches": sum(p[counter] for p in paths.values()),
+                "launches_by_path": {path: p[counter] for path, p in paths.items() if p[counter]},
+                "max_abs_err": err, "ms": times[counter][0], "plain_ms": times[counter][1]}
 
     kernels = [
-        {"name": "sdf_grid", "route": "cuda", "source": "shapegan_tpu_torch/ops/csrc/sdf_grid.cu",
-         "replaces": "shapegan_tpu/ops/sdf_mlp_pallas.py:50", "launches": launches["grid"],
-         "max_abs_err": grid_err, "ms": times["grid"][0], "plain_ms": times["grid"][1]},
-        {"name": "sdf_points", "route": "cuda",
-         "source": "shapegan_tpu_torch/ops/csrc/sdf_points.cu",
-         "replaces": "shapegan_tpu/ops/sdf_mlp_pallas.py:199", "launches": launches["points"],
-         "max_abs_err": points_err, "ms": times["points"][0], "plain_ms": times["points"][1]},
-        {"name": "sdf_grid_bwd", "route": "cuda",
-         "source": "shapegan_tpu_torch/ops/csrc/sdf_grid_bwd.cu",
-         "replaces": "shapegan_tpu/ops/sdf_mlp_pallas.py:469", "launches": launches["grid_bwd"],
-         "max_abs_err": bwd_err, "ms": times["grid_bwd"][0], "plain_ms": times["grid_bwd"][1]},
+        kernel_entry("sdf_grid", "grid", "sdf_grid.cu", 50, grid_err),
+        kernel_entry("sdf_points", "points", "sdf_points.cu", 199, points_err),
+        kernel_entry("sdf_grid_bwd", "grid_bwd", "sdf_grid_bwd.cu", 469, bwd_err),
+        kernel_entry("sdf_trace", "trace", "sdf_trace.cu", 331, trace_err),
     ]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

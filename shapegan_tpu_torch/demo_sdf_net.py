@@ -7,9 +7,12 @@ Catmull-Rom path through them, and renders one frame per step into
 ``screenshots/sdf_net_animation/``. Mode ``mesh``: the volume at
 ``voxel_resolution``^3 goes through the points kernel, marching tetrahedra
 extracts the mesh on the device, and the shadow-mapped C++ rasterizer draws
-the frame. PNGs are written with the standard library (no Pillow).
+the frame. Mode ``raymarch``: the sphere-traced frame of
+:func:`shapegan_tpu_torch.render.raymarching.render_image` (ssaa 2, at
+most 1000 iterations), frames in turn. PNGs are written with the standard
+library (no Pillow).
 
-    python -m shapegan_tpu_torch.demo_sdf_net [mode=mesh] [samples=N]
+    python -m shapegan_tpu_torch.demo_sdf_net [mode=mesh|raymarch] [samples=N]
         [frames_per_transition=N] [resolution=N] [voxel_resolution=N] [cpu]
 
 Without the ``cpu`` token it runs on CUDA and fails if there is none.
@@ -18,10 +21,8 @@ Without the ``cpu`` token it runs on CUDA and fails if there is none.
 from __future__ import annotations
 
 import os
-import struct
 import sys
 import time
-import zlib
 from typing import List, Optional
 
 import numpy as np
@@ -31,6 +32,8 @@ from shapegan_tpu_torch.core.config import parse_cli, resolve_device
 from shapegan_tpu_torch.models import LATENT_CODES_FILENAME
 from shapegan_tpu_torch.models.sdf_net import SDFNet
 from shapegan_tpu_torch.render.camera import get_camera_transform
+from shapegan_tpu_torch.render.png import write_png
+from shapegan_tpu_torch.render.raymarching import render_image
 from shapegan_tpu_torch.render.software import render_scene
 
 OUT_DIR = os.path.join("screenshots", "sdf_net_animation")
@@ -55,23 +58,6 @@ def catmull_rom(points: np.ndarray, steps: int) -> np.ndarray:
                 )
             )
     return np.asarray(out)
-
-
-def write_png(path: str, rgb: np.ndarray) -> None:
-    """Write an RGB uint8 image [H, W, 3] as an 8-bit truecolor PNG."""
-    height, width, _ = rgb.shape
-    rows = np.ascontiguousarray(rgb, dtype=np.uint8).reshape(height, width * 3)
-    raw = np.concatenate([np.zeros((height, 1), np.uint8), rows], axis=1).tobytes()
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, 8, 2, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(raw, 6))
-                + chunk(b"IEND", b""))
 
 
 def render_mesh(mesh, resolution: int) -> np.ndarray:
@@ -99,15 +85,13 @@ def render_mesh_frame(net: SDFNet, code: np.ndarray, resolution: int,
 
 
 def main(argv: Optional[List[str]] = None) -> List[int]:
-    """Render the frames not yet on disk; returns each rendered frame's
-    triangle count (0 for an empty mesh)."""
+    """Render the frames not yet on disk; returns, for each rendered frame,
+    its triangle count (mode ``mesh``, 0 for an empty mesh) or its number
+    of pixels that are not white background (mode ``raymarch``)."""
     config = parse_cli(argv)
     mode = str(config.extras.get("mode", "mesh"))
-    if mode == "raymarch":
-        raise SystemExit("demo_sdf_net: mode=raymarch is not yet ported to "
-                         "shapegan_tpu_torch (it waits for the raymarcher); use mode=mesh")
-    if mode != "mesh":
-        raise SystemExit(f"demo_sdf_net: unknown mode={mode!r} (expected mode=mesh)")
+    if mode not in ("mesh", "raymarch"):
+        raise SystemExit(f"demo_sdf_net: unknown mode={mode!r} (expected mesh or raymarch)")
     sample_count = int(config.extras.get("samples", 30))
     frames_per_transition = int(config.extras.get("frames_per_transition", 60))
     resolution = int(config.extras.get("resolution", 800))
@@ -122,20 +106,25 @@ def main(argv: Optional[List[str]] = None) -> List[int]:
     path = catmull_rom(keys, frames_per_transition)
 
     os.makedirs(OUT_DIR, exist_ok=True)
-    triangle_counts = []
+    counts = []
     t_start = time.time()
     for i, code in enumerate(path):
         frame = os.path.join(OUT_DIR, f"frame-{i:05d}.png")
         if os.path.exists(frame):
             continue
-        mesh, image = render_mesh_frame(net, code.astype(np.float32), resolution,
-                                        voxel_resolution)
+        code = code.astype(np.float32)
+        if mode == "mesh":
+            mesh, image = render_mesh_frame(net, code, resolution, voxel_resolution)
+            counts.append(0 if mesh is None else len(mesh.faces))
+            what = "triangles"
+        else:
+            image = render_image(net, code, resolution=resolution)
+            counts.append(int((image != 255).any(axis=2).sum()))
+            what = "non-background pixels"
         write_png(frame, image)
-        triangle_counts.append(0 if mesh is None else len(mesh.faces))
-        rate = len(triangle_counts) / max(time.time() - t_start, 1e-9)
-        print(f"frame {i + 1}/{len(path)}: {triangle_counts[-1]} triangles "
-              f"({rate:.2f} frames/s)")
-    return triangle_counts
+        rate = len(counts) / max(time.time() - t_start, 1e-9)
+        print(f"frame {i + 1}/{len(path)}: {counts[-1]} {what} ({rate:.2f} frames/s)")
+    return counts
 
 
 if __name__ == "__main__":

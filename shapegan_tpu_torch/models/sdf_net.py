@@ -4,14 +4,17 @@ of :mod:`shapegan_tpu.models.sdf_net`).
 Inference goes through the hand-written kernels: a single latent code is
 folded into the biases (``sdf_mlp.fold_latent``) and its points run through
 the points kernel; a batch of codes over one grid runs through the grid
-kernel (:mod:`shapegan_tpu_torch.ops.sdf_mlp_kernels`). On the CPU the
-kernels' plain versions run instead.
+kernel (:mod:`shapegan_tpu_torch.ops.sdf_mlp_kernels`). Normals and surface
+points take the gradient with respect to the points through the grid
+kernel and its backward kernel, in chunks. On the CPU the kernels' plain
+versions run instead.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -19,7 +22,7 @@ from shapegan_tpu.data.mesh_io import TriangleMesh
 from shapegan_tpu_torch.ops import sdf_mlp
 from shapegan_tpu_torch.ops.coords import unit_sphere_mask, voxel_coordinates
 from shapegan_tpu_torch.ops.mesh_extract import extract_mesh
-from shapegan_tpu_torch.ops.sdf_mlp_kernels import apply_grid_best
+from shapegan_tpu_torch.ops.sdf_mlp_kernels import ROW_CAP, apply_grid_best, points_value_and_gradient
 
 
 class SDFNet(nn.Module):
@@ -111,3 +114,76 @@ class SDFNet(nn.Module):
                 raise ValueError("marching tetrahedra produced an empty mesh")
             return None
         return TriangleMesh(vertices - size / 2.0, faces)
+
+    def get_uniform_surface_points(self, latent_code: torch.Tensor, point_count: int = 1000,
+                                   voxel_resolution: int = 64, sphere_only: bool = True,
+                                   level: float = 0.0, seed: int = 0) -> np.ndarray:
+        """``point_count`` points drawn uniformly by area from the mesh's
+        surface (numpy [point_count, 3])."""
+        mesh = self.get_mesh(latent_code, voxel_resolution, sphere_only=sphere_only, level=level,
+                             raise_on_empty=True)
+        return mesh.sample(point_count, seed=seed)
+
+    def project_to_surface(self, latent_code: torch.Tensor, points: torch.Tensor,
+                           chunk_size: int = ROW_CAP):
+        """(projected [N, 3], normals [N, 3], sdf [N]) of ``points``: the
+        unit normals are the normalized gradient of the SDF with respect to
+        the points (the latent folded into the biases; the grid kernel and
+        its backward kernel, in chunks of at most ``chunk_size`` points),
+        and each point moves by -sdf along its normal."""
+        latent_code = torch.as_tensor(latent_code, dtype=torch.float32, device=self.device)
+        points = torch.as_tensor(points, dtype=torch.float32, device=self.device)
+        folded = sdf_mlp.fold_latent(self.param_dict(), latent_code)
+        sdf, grads = points_value_and_gradient(folded, points, latent_code[:0], chunk_size)
+        normals = grads / (torch.linalg.norm(grads, dim=1, keepdim=True) + 1e-12)
+        return points - normals * sdf[:, None], normals, sdf
+
+    def get_normals(self, latent_code: torch.Tensor, points: torch.Tensor,
+                    chunk_size: int = ROW_CAP) -> torch.Tensor:
+        """Unit surface normals [N, 3] of ``points`` (see
+        :meth:`project_to_surface`)."""
+        return self.project_to_surface(latent_code, points, chunk_size)[1]
+
+    @torch.no_grad()
+    def get_surface_points(self, latent_code: torch.Tensor, sample_size: int = 100000,
+                           sdf_cutoff: float = 0.1, return_normals: bool = False,
+                           use_unit_sphere: bool = True,
+                           generator: Optional[torch.Generator] = None):
+        """Sample points (uniform in the radius-1.1 ball, or in the cube
+        [-1.1, 1.1]^3), project each onto the zero level set along its
+        normal, and keep those whose |SDF| was below ``sdf_cutoff``. Returns
+        the points [M, 3] (and their normals) on the network's device. The
+        samples come from ``generator`` (on the network's device; a randomly
+        seeded one if none is given)."""
+        if generator is None:
+            generator = torch.Generator(device=self.device)
+            generator.seed()
+        shape = (int(sample_size), 3)
+        if use_unit_sphere:
+            direction = torch.randn(shape, generator=generator, device=self.device)
+            direction = direction / (torch.linalg.norm(direction, dim=1, keepdim=True) + 1e-12)
+            radius = torch.rand((shape[0], 1), generator=generator, device=self.device) ** (1 / 3)
+            points = direction * radius * 1.1
+        else:
+            points = torch.rand(shape, generator=generator, device=self.device) * 2.2 - 1.1
+        projected, normals, sdf = self.project_to_surface(latent_code, points)
+        keep = (sdf.abs() < sdf_cutoff) & torch.isfinite(projected).all(dim=1)
+        if return_normals:
+            return projected[keep], normals[keep]
+        return projected[keep]
+
+    def get_surface_points_in_batches(self, latent_code: torch.Tensor, amount: int = 1000,
+                                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """[amount, 3] surface points, from up to 20 rounds of
+        :meth:`get_surface_points` with ``6 * amount`` samples each; rows
+        the rounds do not fill stay zero."""
+        result = torch.zeros((amount, 3), device=self.device)
+        position = 0
+        for _ in range(20):
+            if position >= amount:
+                break
+            pts = self.get_surface_points(latent_code, sample_size=amount * 6, generator=generator)
+            used = min(amount - position, pts.shape[0])
+            result[position:position + used] = pts[:used]
+            position += used
+        return result

@@ -23,7 +23,7 @@ import subprocess
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(CSRC_DIR, "build")
-SOURCES = ("sdf_grid.cu", "sdf_points.cu", "sdf_grid_bwd.cu")
+SOURCES = ("sdf_grid.cu", "sdf_points.cu", "sdf_grid_bwd.cu", "sdf_trace.cu")
 HEADERS = ("sdf_trunk.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -126,6 +126,8 @@ def load() -> ctypes.CDLL:
     lib.sdf_grid_backward_chunk_shapes.restype = i32
     lib.sdf_grid_backward_scratch_bytes.argtypes = [i32, i32]
     lib.sdf_grid_backward_scratch_bytes.restype = ctypes.c_longlong
+    lib.sdf_trace_steps.argtypes = [ptr] * 13 + [i32, i32, i32] + [ctypes.c_float] * 5 + [i32, ptr]
+    lib.sdf_trace_steps.restype = i32
     lib.sdf_error_string.argtypes = [i32]
     lib.sdf_error_string.restype = ctypes.c_char_p
     return lib

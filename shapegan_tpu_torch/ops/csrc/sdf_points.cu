@@ -21,27 +21,10 @@ namespace {
 
 using sdf::BLOCK_M;
 using sdf::THREADS;
-using sdf::WIDTH;
 
 struct __align__(16) PointsSmem {
   sdf::TrunkSmem trunk;
-  float pts[BLOCK_M][3];  // bf16-rounded xyz of the tile
-  float w1p[3][WIDTH];
-  float w5p[3][WIDTH];
-};
-
-struct PointsSkip {
-  const PointsSmem* s;
-  __device__ __forceinline__ float2 operator()(int row, int col) const {
-    const float* p = s->pts[row];
-    float a0 = p[0] * s->w5p[0][col];
-    float a1 = p[0] * s->w5p[0][col + 1];
-    a0 = fmaf(p[1], s->w5p[1][col], a0);
-    a1 = fmaf(p[1], s->w5p[1][col + 1], a1);
-    a0 = fmaf(p[2], s->w5p[2][col], a0);
-    a1 = fmaf(p[2], s->w5p[2][col + 1], a1);
-    return make_float2(sdf::round_bf16(a0), sdf::round_bf16(a1));
-  }
+  sdf::PointsInput in;
 };
 
 __global__ void __launch_bounds__(THREADS, 1)
@@ -58,30 +41,12 @@ sdf_points_kernel(const float* __restrict__ pts, const __nv_bfloat16* __restrict
 
   sdf::start_trunk(s.trunk, w, bias, w8, zz5);
   for (int i = threadIdx.x; i < BLOCK_M * 3; i += THREADS)
-    s.pts[i / 3][i % 3] = i / 3 < rows ? sdf::round_bf16(pts[p0 * 3 + i]) : 0.f;
-  for (int i = threadIdx.x; i < 3 * WIDTH; i += THREADS) {
-    s.w1p[i / WIDTH][i % WIDTH] = __bfloat162float(w1p[i]);
-    s.w5p[i / WIDTH][i % WIDTH] = __bfloat162float(w5p[i]);
-  }
+    s.in.pts[i / 3][i % 3] = i / 3 < rows ? sdf::round_bf16(pts[p0 * 3 + i]) : 0.f;
+  sdf::load_projections(s.in, w1p, w5p);
   __syncthreads();
 
-  // Layer 1: relu(bf16(pts @ w1p) + zz1), two columns per step.
-  for (int i = threadIdx.x; i < BLOCK_M * WIDTH / 2; i += THREADS) {
-    const int r = i / (WIDTH / 2), c = (i % (WIDTH / 2)) * 2;
-    const float* p = s.pts[r];
-    float a0 = p[0] * s.w1p[0][c];
-    float a1 = p[0] * s.w1p[0][c + 1];
-    a0 = fmaf(p[1], s.w1p[1][c], a0);
-    a1 = fmaf(p[1], s.w1p[1][c + 1], a1);
-    a0 = fmaf(p[2], s.w1p[2][c], a0);
-    a1 = fmaf(p[2], s.w1p[2][c + 1], a1);
-    const float2 z = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(zz1 + c));
-    *reinterpret_cast<__nv_bfloat162*>(s.trunk.x + r * sdf::X_STRIDE + c) =
-        __floats2bfloat162_rn(fmaxf(sdf::round_bf16(a0) + z.x, 0.f),
-                              fmaxf(sdf::round_bf16(a1) + z.y, 0.f));
-  }
-
-  sdf::run_trunk(s.trunk, w, PointsSkip{&s});
+  sdf::points_layer1(s.trunk, s.in, zz1);
+  sdf::run_trunk(s.trunk, w, sdf::PointsSkip{&s.in});
 
   const float v = sdf::head(s.trunk);
   const int row = threadIdx.x >> 1;

@@ -1,9 +1,10 @@
 // Shared trunk of the hand-written SDF-MLP kernels for Hopper (sm_90a).
 //
-// Both kernels (sdf_grid.cu: grid forward, sdf_points.cu: single-shape
-// points forward) run the same six 256x256 trunk layers and the same head on
-// a tile of BLOCK_M rows that stays in shared memory from the first layer to
-// the output; only the [rows] float32 result goes back to device memory.
+// The forward kernels (sdf_grid.cu: grid forward, sdf_points.cu: single-shape
+// points forward, sdf_trace.cu: K sphere-trace steps of the points forward)
+// run the same six 256x256 trunk layers and the same head on a tile of
+// BLOCK_M rows that stays in shared memory from the first layer to the
+// output; only the [rows] float32 result goes back to device memory.
 //
 // What bounds it on the H100: the six bf16 trunk products (6 x 2 x 256 x 256
 // flops per row) are tensor-core work; device-memory traffic per row is a
@@ -120,6 +121,17 @@ __device__ __forceinline__ void load_weight_chunk(TrunkSmem& s, const __nv_bfloa
   }
 }
 
+// Start the copies of the first weight slices into the ring. run_trunk
+// consumes the ring once; a kernel that runs the trunk again (the trace
+// kernel, once per iteration) restarts it after run_trunk has returned.
+__device__ __forceinline__ void start_weight_ring(TrunkSmem& s, const __nv_bfloat16* __restrict__ w) {
+#pragma unroll
+  for (int c = 0; c < STAGES - 1; ++c) {
+    load_weight_chunk(s, w, c);
+    cp_async_commit();
+  }
+}
+
 // Start the weight ring and copy the small per-block operands; call before
 // filling the activation tile so the first slices load meanwhile. The first
 // __syncthreads() of run_trunk publishes these shared-memory writes.
@@ -127,11 +139,7 @@ __device__ __forceinline__ void start_trunk(TrunkSmem& s, const __nv_bfloat16* _
                                             const __nv_bfloat16* __restrict__ bias,
                                             const __nv_bfloat16* __restrict__ w8,
                                             const __nv_bfloat16* __restrict__ zz5) {
-#pragma unroll
-  for (int c = 0; c < STAGES - 1; ++c) {
-    load_weight_chunk(s, w, c);
-    cp_async_commit();
-  }
+  start_weight_ring(s, w);
   for (int i = threadIdx.x; i < 8 * WIDTH; i += THREADS) s.bias[i] = bias[i];
   for (int i = threadIdx.x; i < WIDTH; i += THREADS) {
     s.w8[i] = w8[i];
@@ -235,6 +243,55 @@ __device__ __forceinline__ float head(const TrunkSmem& s) {
   }
   sum += __shfl_xor_sync(0xffffffffu, sum, 1);
   return tanhf(sum + __bfloat162float(s.bias[HEAD_BIAS_ROW * WIDTH]));
+}
+
+// The raw-point input of the single-shape kernels (points B3, trace B4):
+// the tile's bf16-rounded xyz and both fan-in projection weights as floats.
+// Each projection is a float32 sum of bf16 x bf16 products, rounded to bf16
+// (the TPU kernel's K=8 matmul with a float32 result).
+struct __align__(16) PointsInput {
+  float pts[BLOCK_M][3];
+  float w1p[3][WIDTH];
+  float w5p[3][WIDTH];
+};
+
+__device__ __forceinline__ float2 project(const float* p, const float (*wp)[WIDTH], int col) {
+  float a0 = p[0] * wp[0][col];
+  float a1 = p[0] * wp[0][col + 1];
+  a0 = fmaf(p[1], wp[1][col], a0);
+  a1 = fmaf(p[1], wp[1][col + 1], a1);
+  a0 = fmaf(p[2], wp[2][col], a0);
+  a1 = fmaf(p[2], wp[2][col + 1], a1);
+  return make_float2(round_bf16(a0), round_bf16(a1));
+}
+
+// run_trunk's skip term: the bf16 pair of pts @ w5p.
+struct PointsSkip {
+  const PointsInput* in;
+  __device__ __forceinline__ float2 operator()(int row, int col) const {
+    return project(in->pts[row], in->w5p, col);
+  }
+};
+
+__device__ __forceinline__ void load_projections(PointsInput& in, const __nv_bfloat16* __restrict__ w1p,
+                                                 const __nv_bfloat16* __restrict__ w5p) {
+  for (int i = threadIdx.x; i < 3 * WIDTH; i += THREADS) {
+    in.w1p[i / WIDTH][i % WIDTH] = __bfloat162float(w1p[i]);
+    in.w5p[i / WIDTH][i % WIDTH] = __bfloat162float(w5p[i]);
+  }
+}
+
+// Layer 1 into the activation tile: relu(bf16(pts @ w1p) + zz1), two
+// columns per step. Needs in.pts (and the projections) published.
+__device__ __forceinline__ void points_layer1(TrunkSmem& s, const PointsInput& in,
+                                              const __nv_bfloat16* __restrict__ zz1) {
+  for (int i = threadIdx.x; i < BLOCK_M * WIDTH / 2; i += THREADS) {
+    const int r = i / (WIDTH / 2), c = (i % (WIDTH / 2)) * 2;
+    const float2 a = project(in.pts[r], in.w1p, c);
+    const float2 z = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(zz1 + c));
+    *reinterpret_cast<__nv_bfloat162*>(s.x + r * X_STRIDE + c) =
+        __floats2bfloat162_rn(fmaxf(a.x + z.x, 0.f), fmaxf(a.y + z.y, 0.f));
+  }
 }
 
 }  // namespace sdf

@@ -1,7 +1,7 @@
 """Kernels of the DeepSDF MLP for the H100 (counterpart of
 :mod:`shapegan_tpu.ops.sdf_mlp_pallas`).
 
-Three hand-written CUDA kernels (sources in ``ops/csrc/``):
+Four hand-written CUDA kernels (sources in ``ops/csrc/``):
 
 * the **grid kernel** (``sdf_grid.cu``, replaces ``_kernel`` /
   ``apply_grid_fused``): B shape latents over one shared point grid
@@ -11,15 +11,18 @@ Three hand-written CUDA kernels (sources in ``ops/csrc/``):
   in the kernel → [1, N];
 * the **grid backward kernel** (``sdf_grid_bwd.cu``, replaces
   ``_bwd_kernel`` / ``_trainable_bwd``): the recompute backward of the grid
-  kernel, behind the autograd function :func:`apply_grid_trainable`.
+  kernel, behind the autograd function :func:`apply_grid_trainable`;
+* the **trace kernel** (``sdf_trace.cu``, replaces ``_make_trace_kernel`` /
+  ``trace_steps_fused``): K masked sphere-trace iterations of the points
+  kernel's forward per launch, the lane state kept on chip.
 
 Each kernel has a thin wrapper (``*_cuda``: checks, allocates, launches on
 the current stream, counts its launches in ``launch_count``) and a plain
 PyTorch version (``*_plain``) of the same math at the same bf16 rounding
 points. The dispatchers (``grid_forward``, ``points_forward``,
-``grid_backward``) take the plain version only for tensors on the CPU; a
-CUDA tensor goes to the kernel, which raises if it cannot run. There is no
-fallback.
+``grid_backward``, ``trace_steps``) take the plain version only for tensors
+on the CPU; a CUDA tensor goes to the kernel, which raises if it cannot
+run. There is no fallback.
 
 Operand layout (shared with the kernels, see ``csrc/sdf_trunk.cuh``):
 ``w`` [6, 256(out), 256(in)] bf16 — w2, w3, w4, w5h, w6, w7 transposed;
@@ -33,7 +36,7 @@ from typing import Callable, Tuple
 
 import torch
 
-from shapegan_tpu_torch.ops import _build
+from shapegan_tpu_torch.ops import _build, sdf_mlp
 from shapegan_tpu_torch.ops.sdf_mlp import PARAM_KEYS, Params
 
 BF16 = torch.bfloat16
@@ -41,6 +44,12 @@ WIDTH = 256
 TRUNK_KEYS = ("w2", "w3", "w4", "w5h", "w6", "w7")
 SKIP_LAYER = 3  # w5h: adds pp5 + zz5 instead of a bias
 HEAD_BIAS_ROW = 6
+# Lane status of the sphere trace (the JAX package's TRACE_ACTIVE/HIT/MISS).
+TRACE_ACTIVE, TRACE_HIT, TRACE_MISS = 0, 1, 2
+# Rows of one grid backward chunk (ROW_CAP in csrc/sdf_grid_bwd.cu): the
+# points gradient runs in chunks of at most this many points, so the
+# kernel's scratch (~2.1 GB a chunk) does not grow with the frame.
+ROW_CAP = 262144
 
 Operands = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -104,6 +113,46 @@ def points_forward_plain(pts, w1p, w5p, zz1, zz5, w, b, w8) -> torch.Tensor:
     pp5 = (p @ w5p.float()).to(BF16)
     x = torch.relu(pp1 + zz1)
     return _trunk_plain(x, lambda h: h + pp5 + zz5, w, b, w8)
+
+
+def trace_update(points, dirs, status, sdf, *, shadow: bool, threshold: float, step_clamp: float,
+                 sdf_offset: float, radius: float, escape=None):
+    """One sphere-trace iteration given the SDF at the pre-advance points:
+    returns the advanced points and the new status. The step is clipped to
+    ±step_clamp; only ACTIVE lanes move; a lane hits at 0 < sdf < threshold
+    and misses outside the bounding sphere (primary: the sum of squares
+    against radius², as the kernel does it) or above its escape height
+    (shadow: ``escape`` [N], else the scalar ``radius``); a hit beats a
+    miss. Each product and sum is its own rounded operation, as in the
+    kernel."""
+    sdf = (sdf + sdf_offset).clamp(-step_clamp, step_clamp)
+    active = status == TRACE_ACTIVE
+    points = points + dirs * torch.where(active, sdf, 0.0)[:, None]
+    hits = active & (sdf > 0) & (sdf < threshold)
+    if shadow:
+        outside = points[:, 1] > (radius if escape is None else escape)
+    else:
+        x, y, z = points.unbind(1)
+        outside = x * x + y * y + z * z > radius * radius
+    status = torch.where(hits, TRACE_HIT, torch.where(active & outside, TRACE_MISS, status))
+    return points, status.to(torch.int32)
+
+
+def trace_steps_plain(pts, dirs, status, escape, w1p, w5p, zz1, zz5, w, b, w8, *, k: int,
+                      shadow: bool, threshold: float, step_clamp: float, sdf_offset: float,
+                      radius: float):
+    """Plain PyTorch version of the trace kernel: ``k`` iterations of the
+    points kernel's plain version and :func:`trace_update`. Returns (points
+    [N, 3] float32, status [N] int32). It stops early once no lane is
+    ACTIVE, which changes nothing: resolved lanes never move."""
+    for _ in range(k):
+        if not bool((status == TRACE_ACTIVE).any()):
+            break
+        sdf = points_forward_plain(pts, w1p, w5p, zz1, zz5, w, b, w8)
+        pts, status = trace_update(pts, dirs, status, sdf, shadow=shadow, threshold=threshold,
+                                   step_clamp=step_clamp, sdf_offset=sdf_offset, radius=radius,
+                                   escape=escape)
+    return pts, status
 
 
 def grid_backward_plain(pp1, pp5, zz1, zz5, w, b, w8, g):
@@ -275,6 +324,48 @@ def grid_backward_cuda(pp1, pp5, zz1, zz5, w, b, w8, g):
 grid_backward_cuda.launch_count = 0
 
 
+def trace_steps_cuda(pts, dirs, status, escape, w1p, w5p, zz1, zz5, w, b, w8, *, k: int,
+                     shadow: bool, threshold: float, step_clamp: float, sdf_offset: float,
+                     radius: float):
+    """Launch the trace kernel (``csrc/sdf_trace.cu``); returns what
+    :func:`trace_steps_plain` returns. ``escape`` (shadow rays only) is None
+    or [N] float32."""
+    device = _cuda_device(pts)
+    n = pts.shape[0]
+    _check("pts", device, pts, (n, 3), torch.float32)
+    _check("dirs", device, dirs, (n, 3), torch.float32)
+    _check("status", device, status, (n,), torch.int32)
+    if escape is not None:
+        if not shadow:
+            raise ValueError("escape heights apply to shadow rays only")
+        _check("escape", device, escape, (n,), torch.float32)
+    _check("w1p", device, w1p, (3, WIDTH), BF16)
+    _check("w5p", device, w5p, (3, WIDTH), BF16)
+    _check("zz1", device, zz1, (WIDTH,), BF16)
+    _check("zz5", device, zz5, (WIDTH,), BF16)
+    _check_trunk(device, w, b, w8)
+    if k < 0:
+        raise ValueError(f"k must be >= 0, got {k}")
+    if n == 0 or k == 0:
+        return pts.clone(), status.clone()
+    pts_out = torch.empty_like(pts)
+    status_out = torch.empty_like(status)
+    lib = _build.load()
+    code = lib.sdf_trace_steps(
+        pts.data_ptr(), dirs.data_ptr(), status.data_ptr(),
+        None if escape is None else escape.data_ptr(), w1p.data_ptr(), w5p.data_ptr(),
+        zz1.data_ptr(), zz5.data_ptr(), w.data_ptr(), b.data_ptr(), w8.data_ptr(),
+        pts_out.data_ptr(), status_out.data_ptr(), n, k, int(shadow), threshold, step_clamp,
+        sdf_offset, radius, radius * radius, device.index,
+        torch.cuda.current_stream(device).cuda_stream)
+    _build.check(lib, "sdf_trace_steps", code)
+    trace_steps_cuda.launch_count += 1
+    return pts_out, status_out
+
+
+trace_steps_cuda.launch_count = 0
+
+
 def grid_forward(pp1, pp5, zz1, zz5, w, b, w8) -> torch.Tensor:
     """Grid kernel on CUDA tensors, its plain version on CPU tensors."""
     if pp1.device.type == "cpu":
@@ -296,6 +387,13 @@ def grid_backward(pp1, pp5, zz1, zz5, w, b, w8, g):
     return grid_backward_cuda(pp1, pp5, zz1, zz5, w, b, w8, g)
 
 
+def trace_steps(pts, dirs, status, escape, w1p, w5p, zz1, zz5, w, b, w8, **kw):
+    """Trace kernel on CUDA tensors, its plain version on CPU tensors."""
+    if pts.device.type == "cpu":
+        return trace_steps_plain(pts, dirs, status, escape, w1p, w5p, zz1, zz5, w, b, w8, **kw)
+    return trace_steps_cuda(pts, dirs, status, escape, w1p, w5p, zz1, zz5, w, b, w8, **kw)
+
+
 # ------------------------------------------------------------- entry points
 
 
@@ -308,12 +406,17 @@ def grid_operands(params: Params, grid_points: torch.Tensor, latents: torch.Tens
     return (pp1, pp5) + latent_terms(params, latents) + trunk_operands(params)
 
 
+def point_weights(params: Params, latent: torch.Tensor):
+    """The points and trace kernels' weight operands (w1p, w5p, zz1, zz5,
+    w, b, w8) for one latent [L]."""
+    zz1, zz5 = latent_terms(params, latent[None, :])
+    return ((params["w1p"].to(BF16).contiguous(), params["w5p"].to(BF16).contiguous(),
+             zz1[0], zz5[0]) + trunk_operands(params))
+
+
 def points_operands(params: Params, points: torch.Tensor, latent: torch.Tensor):
     """The points kernel's operands (pts, w1p, w5p, zz1, zz5, w, b, w8)."""
-    zz1, zz5 = latent_terms(params, latent[None, :])
-    return ((points.float().contiguous(),
-             params["w1p"].to(BF16).contiguous(), params["w5p"].to(BF16).contiguous(),
-             zz1[0], zz5[0]) + trunk_operands(params))
+    return (points.float().contiguous(),) + point_weights(params, latent)
 
 
 def apply_grid_fused(params: Params, grid_points: torch.Tensor, latents: torch.Tensor) -> torch.Tensor:
@@ -334,6 +437,25 @@ def apply_grid_best(params: Params, grid_points: torch.Tensor, latents: torch.Te
     if latents.shape[0] == 1:
         return apply_points_fused(params, grid_points, latents[0])
     return apply_grid_fused(params, grid_points, latents)
+
+
+def trace_steps_fused(params: Params, latent: torch.Tensor, points: torch.Tensor,
+                      directions: torch.Tensor, status: torch.Tensor, *, k: int, shadow: bool,
+                      threshold: float, step_clamp: float, sdf_offset: float, radius: float,
+                      escape=None):
+    """Run ``k`` masked sphere-trace iterations (the JAX package's
+    ``trace_steps_fused``): points/directions [N, 3], status [N] (0 active,
+    1 hit, 2 miss) → (points, status). A non-empty latent is folded into the
+    biases first; ``escape`` [N] gives shadow rays per-lane escape heights
+    (default: the scalar ``radius``) and is ignored for primary rays."""
+    if latent.shape[0]:
+        params = sdf_mlp.fold_latent(params, latent)
+        latent = latent[:0]
+    escape = escape.float().contiguous() if shadow and escape is not None else None
+    return trace_steps(points.float().contiguous(), directions.float().contiguous(),
+                       status.to(torch.int32).contiguous(), escape,
+                       *point_weights(params, latent), k=k, shadow=shadow, threshold=threshold,
+                       step_clamp=step_clamp, sdf_offset=sdf_offset, radius=radius)
 
 
 class _GridTrainable(torch.autograd.Function):
@@ -378,3 +500,28 @@ def apply_grid_trainable(params: Params, grid_points: torch.Tensor, latents: tor
     grid kernel forward, the grid backward kernel for the gradients of the
     parameters, the points and the latents."""
     return _GridTrainable.apply(grid_points, latents, *(params[k] for k in PARAM_KEYS))
+
+
+def points_value_and_gradient(params: Params, points: torch.Tensor, latent: torch.Tensor,
+                              chunk_size: int = ROW_CAP):
+    """SDF [N] and its gradient with respect to the points [N, 3] for one
+    latent [L] (L may be 0 after ``fold_latent``), through
+    :func:`apply_grid_trainable` (B1 forward, B2 backward on CUDA tensors)
+    in chunks of at most ``chunk_size`` points. Each point's gradient
+    depends on that point alone, so the chunks' results equal one call's.
+    The parameters and the latent are held fixed."""
+    if chunk_size > ROW_CAP:
+        raise ValueError(f"chunk_size {chunk_size} exceeds the grid backward's chunk {ROW_CAP}")
+    fixed = {k: v.detach() for k, v in params.items()}
+    latents = latent.detach().reshape(1, -1)
+    values, grads = [], []
+    for chunk in points.detach().float().split(chunk_size):
+        q = chunk.clone().requires_grad_(True)
+        with torch.enable_grad():
+            out = apply_grid_trainable(fixed, q, latents)[0]
+            (grad,) = torch.autograd.grad(out.sum(), q)
+        values.append(out.detach())
+        grads.append(grad)
+    if not values:
+        return points.new_zeros((0,)), points.new_zeros((0, 3))
+    return torch.cat(values), torch.cat(grads)

@@ -3,8 +3,9 @@
 
     python -m shapegan_tpu_torch.profile_slice [iters=N]
 
-With the bundled trained network at full width, it prints, beside the card's
-name and power limit:
+With the bundled network at full width (slices A-C; it is not a trained
+shape, so slice B's mesh is the sphere mask) and a chair fitted on the card
+(slice D), it prints, beside the card's name and power limit:
 
 * slice A, ``generate_volumes_inference`` on 16 codes at 64^3: the median
   wall time on the host clock (synchronized) and the grid kernel's median
@@ -17,7 +18,14 @@ name and power limit:
   time;
 * slice C, the progressive WGAN-GP trainer's steps at 64^3, batch 16
   (``make_steps`` of iteration 3, fresh weights): G-step and D-step medians
-  on the host clock, and ``torch.profiler`` over one of each, as above.
+  on the host clock, and ``torch.profiler`` over one of each, as above;
+* slice D, one raymarched frame (``render_image``, 800^2, ssaa 2, at most
+  1000 iterations) of the chair fitted on the card
+  (``shapegan_tpu_torch.examples.fit_chair``), with the fused trace switch
+  off and on: its phases (primary trace, normals, shadow trace, shading and
+  downsample, copy to the host) on the host clock, synchronized at each
+  phase's end, medians over ``iters`` frames; and ``torch.profiler`` over
+  one frame with the switch's default.
 
 It needs CUDA and builds the kernels if they are not built yet.
 """
@@ -146,6 +154,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     report("one get_mesh at 128^3", *profile_device(lambda: net.get_mesh(code, 128)))
     profile_train_steps(device, iters)
+    profile_raymarch(device, iters)
     return 0
 
 
@@ -178,6 +187,52 @@ def profile_train_steps(device: torch.device, iters: int, iteration: int = 3) ->
               f"(host clock, median of {iters})")
     for name, fn in steps.items():
         report(f"one {name} at {res}^3", *profile_device(fn, top=8))
+
+
+
+def raymarch_phases(net: SDFNet, code: torch.Tensor, resolution: int) -> Dict[str, float]:
+    """One ``render_image`` frame timed phase by phase (host clock, ms)."""
+    from shapegan_tpu_torch.render import raymarching as rm
+
+    phases: Dict[str, float] = {}
+    torch.cuda.synchronize()
+    start = last = time.perf_counter()
+
+    def on_phase(name: str) -> None:
+        nonlocal last
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        phases[name] = (now - last) * 1e3
+        last = now
+
+    rm.render_image(net, code, resolution=resolution, on_phase=on_phase)
+    now = time.perf_counter()
+    phases["copy to the host"] = (now - last) * 1e3
+    phases["frame total"] = (now - start) * 1e3
+    return phases
+
+
+def profile_raymarch(device: torch.device, iters: int, resolution: int = 800) -> None:
+    """Slice D: the raymarched frame of the fitted chair, per phase with the
+    fused trace switch off and on, then torch.profiler over one frame."""
+    from shapegan_tpu_torch.examples import fit_chair
+    from shapegan_tpu_torch.render import raymarching as rm
+
+    chair, code = fit_chair(device)
+    net = SDFNet(chair)
+    default = rm._FORCE_FUSED_TRACE
+    try:
+        for fused in (False, True):
+            rm._FORCE_FUSED_TRACE = fused
+            frames = [raymarch_phases(net, code, resolution) for _ in range(iters + 1)][1:]
+            print(f"slice D, one raymarched frame at {resolution}^2 x ssaa 2, fused trace switch "
+                  f"{fused}, medians of {iters} (host clock, ms):")
+            for phase in frames[0]:
+                print(f"  {phase}: {statistics.median(f[phase] for f in frames):.3f}")
+    finally:
+        rm._FORCE_FUSED_TRACE = default
+    report(f"one raymarched frame at {resolution}^2 x ssaa 2 (fused trace switch {default})",
+           *profile_device(lambda: rm.render_image(net, code, resolution=resolution), top=10))
 
 
 if __name__ == "__main__":

@@ -164,3 +164,124 @@ def test_apply_grid_trainable_autograd_matches_plain(cuda):
         l2 = float((a - b.double()).norm() / b.double().norm())
         print(f"  {name}: l2 {l2:.3e}")
         assert l2 <= BWD_L2, (name, l2)
+
+
+# B4 (trace) against its plain version: the share of lanes whose status
+# agrees, the largest |dp| over them and the share of them with |dp| > 1e-6
+# (the bounds of chip_smoke.py; a flipped bf16 rounding of a lane's point
+# after an ulp of difference moves it by ~1e-3, rarely).
+TRACE_AGREE = 0.999
+TRACE_MAX_DP = 0.01
+TRACE_MOVED_SHARE = 1e-3
+
+
+def _trace_operands(device, kind, n=3001, seed=7):
+    """Octahedron weights, and N rays: inward from the unit sphere with
+    every 10th lane pre-resolved (primary), or upward from inside the ball
+    with escape heights 1.0 / 1.6 (shadow)."""
+    from shapegan_tpu_torch.examples import octahedron_params
+
+    params = sdf_mlp.params_from_jax(octahedron_params(), device=device)
+    weights = K.point_weights(params, torch.zeros(128, device=device))
+    rng = np.random.default_rng(seed)
+    if kind == "primary":
+        pts = rng.normal(size=(n, 3))
+        pts /= np.linalg.norm(pts, axis=1, keepdims=True)
+        dirs = rng.uniform(-0.3, 0.3, (n, 3)) - pts
+        status = np.where(np.arange(n) % 10 == 3, K.TRACE_HIT,
+                          np.where(np.arange(n) % 10 == 7, K.TRACE_MISS, K.TRACE_ACTIVE))
+        escape = None
+        kw = dict(k=30, shadow=False, threshold=0.005, step_clamp=0.05, sdf_offset=0.0, radius=1.0)
+    else:
+        pts = rng.uniform(-0.6, 0.6, (n, 3))
+        dirs = np.concatenate([pts[:, :1] * 0.2, np.ones((n, 1)), pts[:, 2:] * 0.2], axis=1)
+        status = np.zeros(n)
+        escape = torch.tensor(np.where(np.arange(n) % 2 == 0, 1.0, 1.6), dtype=torch.float32,
+                              device=device)
+        kw = dict(k=30, shadow=True, threshold=0.001, step_clamp=0.1, sdf_offset=0.0, radius=1.0)
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+
+    def t(a, dtype=torch.float32):
+        return torch.tensor(a, dtype=dtype, device=device)
+
+    return (t(pts), t(dirs), t(status, torch.int32), escape) + weights, kw
+
+
+@pytest.mark.parametrize("kind", ["primary", "shadow"])
+def test_trace_kernel_matches_plain(cuda, kind):
+    ops, kw = _trace_operands(cuda, kind)
+    before = K.trace_steps_cuda.launch_count
+    got = K.trace_steps_cuda(*ops, **kw)
+    assert K.trace_steps_cuda.launch_count == before + 1
+    want = K.trace_steps_plain(*ops, **kw)
+    torch.cuda.synchronize()
+    assert got[0].shape == want[0].shape and got[1].dtype == torch.int32
+    same = got[1] == want[1]
+    assert float(same.float().mean()) >= TRACE_AGREE
+    dp = (got[0] - want[0]).abs().amax(1)[same]
+    assert float(dp.max()) <= TRACE_MAX_DP and float((dp > 1e-6).float().mean()) <= TRACE_MOVED_SHARE
+    assert float((got[1] != K.TRACE_ACTIVE).float().mean()) > 0.3  # the fixture resolves lanes
+    resolved = ops[2] != K.TRACE_ACTIVE
+    assert torch.equal(got[0][resolved], ops[0][resolved])
+    assert torch.equal(got[1][resolved], ops[2][resolved])
+
+
+def test_trace_wrapper_rejects_bad_operands(cuda):
+    ops, kw = _trace_operands(cuda, "primary", n=300)
+    pts, dirs, status, escape, *weights = ops
+    with pytest.raises(ValueError, match="dtype"):
+        K.trace_steps_cuda(pts, dirs, status.long(), escape, *weights, **kw)
+    with pytest.raises(ValueError, match="shape"):
+        K.trace_steps_cuda(pts, dirs[:-1], status, escape, *weights, **kw)
+    with pytest.raises(ValueError, match="shadow rays only"):
+        K.trace_steps_cuda(pts, dirs, status, torch.ones(300, device=cuda), *weights, **kw)
+    with pytest.raises(ValueError, match="on cpu"):
+        K.trace_steps_cuda(pts, dirs, status.cpu(), escape, *weights, **kw)
+    with pytest.raises(ValueError, match="k must be"):
+        K.trace_steps_cuda(pts, dirs, status, escape, *weights, **dict(kw, k=-1))
+
+
+def test_points_gradient_chunked_matches_one_b2_call_per_chunk(cuda):
+    """P > 262,144: the chunked value and gradient equal, bit for bit, one
+    grid-kernel and one grid-backward call per chunk of ROW_CAP points."""
+    params, pts, lats = _setup(cuda, K.ROW_CAP + 5001, 1, seed=8)
+    params = sdf_mlp.fold_latent(params, lats[0])
+    latent = lats[0, :0]
+    counts = (K.grid_forward_cuda.launch_count, K.grid_backward_cuda.launch_count)
+    values, grads = K.points_value_and_gradient(params, pts, latent)
+    assert (K.grid_forward_cuda.launch_count - counts[0],
+            K.grid_backward_cuda.launch_count - counts[1]) == (2, 2)
+    want_values, want_grads = [], []
+    for chunk in pts.split(K.ROW_CAP):
+        ops = K.grid_operands(params, chunk, latent[None])
+        want_values.append(K.grid_forward_cuda(*ops)[0])
+        d_pp1, d_pp5 = K.grid_backward_cuda(*ops, torch.ones((1, chunk.shape[0]), device=cuda))[:2]
+        want_grads.append(d_pp1 @ params["w1p"].t() + d_pp5 @ params["w5p"].t())
+    torch.testing.assert_close(values, torch.cat(want_values), rtol=0, atol=0)
+    torch.testing.assert_close(grads, torch.cat(want_grads), rtol=0, atol=0)
+
+
+def test_render_frame_runs_points_or_trace_kernel(cuda, monkeypatch):
+    """A 64^2 frame of the octahedron on the card: with the fused switch
+    off every trace iteration is a points-kernel launch, with it on the
+    trace kernel runs; the normals run B1 and B2; the frames agree."""
+    from shapegan_tpu_torch.examples import octahedron_params
+    from shapegan_tpu_torch.models.sdf_net import SDFNet
+    from shapegan_tpu_torch.render import raymarching as rm
+
+    net = SDFNet(sdf_mlp.params_from_jax(octahedron_params(), device=cuda))
+    code = np.zeros(128, np.float32)
+    frames = {}
+    for fused in (False, True):
+        monkeypatch.setattr(rm, "_FORCE_FUSED_TRACE", fused)
+        counters = (K.points_forward_cuda, K.trace_steps_cuda, K.grid_forward_cuda,
+                    K.grid_backward_cuda)
+        before = [c.launch_count for c in counters]
+        frames[fused] = rm.render_image(net, code, resolution=64, ssaa=1)
+        points, trace, grid, grid_bwd = (c.launch_count - b for c, b in zip(counters, before))
+        # (with the switch on, buckets under FUSED_MIN_LANES still take B3)
+        assert trace > 0 if fused else (trace == 0 and points > 0)
+        assert grid >= 1 and grid_bwd >= 1
+    assert frames[True].shape == (64, 64, 3)
+    assert float((frames[True] != frames[False]).any(axis=2).mean()) <= 0.01
+    assert 0.05 < float((frames[True] != 255).any(axis=2).mean()) < 0.6

@@ -1,7 +1,8 @@
 """The port's generation slice — latent codes → SDF volumes → meshes →
-frames — held against the JAX package on the CPU, with the bundled trained
-weights, plus the guarantees around it: no jax in the port, no silent CPU
-fallback, and a chip_smoke.py that fails without a GPU."""
+frames — held against the JAX package on the CPU, with the bundled
+weights (not a trained shape: about -0.02 everywhere), plus the guarantees
+around it: no jax in the port, no silent CPU fallback, and a chip_smoke.py
+that fails without a GPU."""
 
 import functools
 import os
@@ -133,14 +134,15 @@ def test_demo_mesh_mode_cpu(tmp_path, monkeypatch):
     for i in range(2):
         with open(tmp_path / demo_sdf_net.OUT_DIR / f"frame-{i:05d}.png", "rb") as f:
             assert f.read(8) == b"\x89PNG\r\n\x1a\n"
-    with pytest.raises(SystemExit, match="not yet ported"):
-        demo_sdf_net.main(["cpu", "mode=raymarch"])
+    with pytest.raises(SystemExit, match="unknown mode"):
+        demo_sdf_net.main(["cpu", "mode=voxels"])
 
 
 def test_png_writer_roundtrip(tmp_path):
     import zlib
 
     from shapegan_tpu_torch.demo_sdf_net import write_png
+    from shapegan_tpu_torch.render.png import read_png
 
     img = np.random.default_rng(0).integers(0, 256, (5, 7, 3), dtype=np.uint8)
     write_png(str(tmp_path / "a.png"), img)
@@ -149,6 +151,11 @@ def test_png_writer_roundtrip(tmp_path):
     rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(5, 1 + 7 * 3)
     assert (rows[:, 0] == 0).all()
     np.testing.assert_array_equal(rows[:, 1:].reshape(5, 7, 3), img)
+    # The reader gives the pixels back, and refuses what is not a PNG.
+    np.testing.assert_array_equal(read_png(str(tmp_path / "a.png")), img)
+    (tmp_path / "b.png").write_bytes(b"not a png")
+    with pytest.raises(ValueError, match="not a PNG"):
+        read_png(str(tmp_path / "b.png"))
 
 
 def test_cli_device_selection():
