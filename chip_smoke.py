@@ -12,10 +12,15 @@ Phases, each fatal on failure (nothing is caught):
      shapes and at an odd shape with a padded tail; the trace kernel with a
      chair network fitted on the card (shapegan_tpu_torch.examples), on
      primary rays at 1600^2, shadow rays with per-lane escape heights, and
-     an odd N with pre-resolved lanes;
+     an odd N with pre-resolved lanes; the rowwise kernel and its backward
+     at the autodecoder's batch (20,000 rows, codes gathered from a 64-row
+     table, the bundled weights) and at N=3001 with random weights;
   4. median times of kernel and plain version at the main path's shapes,
      and of 20 per-iteration points-kernel trace steps beside the trace
-     kernel's 20;
+     kernel's 20; the rowwise kernels at 20,000 and 65,536 rows; each
+     kernel's bound (the larger of its operations over the bf16 tensor-core
+     peak and its bytes over the memory rate, from this run's shapes; the
+     trace kernel's from the lane-steps its rays need);
   5. the generation path: slice A, generate_volumes_inference on 16 codes
      at 64^3, whose counts must show the grid kernel ran, and slice B, the
      demo_sdf_net entry point in mesh mode at 128^3 in a temporary
@@ -37,8 +42,16 @@ Phases, each fatal on failure (nothing is caught):
      counts must show the grid kernel and the grid backward kernel ran in
      every iteration;
   8. the trainer's G-step and D-step times at each resolution (host clock
-     after a synchronize, median of 5).
-Each run of a path in phases 5-7 starts with every launch count set to 0
+     after a synchronize, median of 5);
+  9. the autodecoder path: the DeepSDF autodecoder trainer's entry point
+     (synthetic=64, pointcloud_size=200000, epochs=2, nogui) in a temporary
+     directory, then ``continue`` to epochs=3; each run's counts must show
+     the rowwise kernel and its backward launched once per step and no
+     other kernel; losses finite and falling, checkpoints, snapshots, the
+     optimizer sidecar and the CSV checked; the gradients of one kernel
+     step against the float32 reference math; the trainer's step time
+     beside the same step with autograd over bf16 torch matmuls.
+Each run of a path in phases 5-7 and 9 starts with every launch count set to 0
 and reads the counts just after; launches made to compare a kernel with its
 plain version or to time it are never counted. The kernels line gives each
 kernel's launches summed over those runs, and per run.
@@ -75,6 +88,26 @@ KERNEL_MEAN_ABS = 1e-6
 BWD_L2 = 1e-2
 BWD_MAX = 5e-2
 BWD_NAMES = ("d_pp1", "d_pp5", "d_zz1", "d_zz5", "d_w", "d_b", "d_w8", "d_b8")
+# The rowwise backward kernel (B6b) vs its plain version, by the same bounds:
+# L2-relative for all six outputs, max-relative for the four summed over
+# rows (the per-row dzz1 / dzz5 are exempt from the max bound, as d_pp1 /
+# d_pp5 are above). Its rounding points differ from B2's, but the noise is
+# the same kind: measured on the H100, L2 <= 7.0e-3 (d_b at 20,000 rows,
+# where the plain version with float64 sums reads 5.2e-3 against float32)
+# and max <= 1.7e-2 on the summed outputs; three wrong kernels read L2 >=
+# 2.2e-2 (PERF.md, section 6).
+ROWWISE_BWD_NAMES = ("dzz1", "dzz5", "d_w", "d_b", "d_w8", "d_b8")
+ROWWISE_PER_ROW = ("dzz1", "dzz5")
+# The autodecoder step's gradients through the kernels against the float32
+# reference math (sdf_mlp.apply), by cosine, per parameter and for the
+# latent table: the criterion of the JAX package's bf16 step test
+# (tests/test_train_autodecoder.py).
+AUTODECODER_GRAD_COSINE = 0.98
+# The card's published peaks (NVIDIA H100 SXM, dense, 700 W): bf16 tensor
+# cores and device memory. A kernel's bound is the larger of its operations
+# over the first and its bytes over the second.
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
 # bf16 path vs the float32 reference math on the bundled network (not a
 # trained shape: about -0.02 everywhere, PERF.md section 6): measured
 # <= 2.5e-4 at 64^3 and 128^3 (bf16's relative step is 2^-8).
@@ -125,7 +158,8 @@ def launch_counters() -> dict:
     from shapegan_tpu_torch.ops import sdf_mlp_kernels as K
 
     return {"grid": K.grid_forward_cuda, "grid_bwd": K.grid_backward_cuda,
-            "points": K.points_forward_cuda, "trace": K.trace_steps_cuda}
+            "points": K.points_forward_cuda, "trace": K.trace_steps_cuda,
+            "rowwise": K.rowwise_forward_cuda, "rowwise_bwd": K.rowwise_backward_cuda}
 
 
 def reset_counts() -> None:
@@ -184,15 +218,16 @@ def compare(name: str, got, want) -> float:
     return max_abs
 
 
-def compare_backward(name: str, got, want) -> float:
-    """B2 against its plain version by the relative bounds above; returns
+def compare_backward(name: str, got, want, names=BWD_NAMES, per_row=("d_pp1", "d_pp5")) -> float:
+    """A backward kernel (B2, B6b) against its plain version by the relative
+    bounds above (the per-row outputs exempt from the max bound); returns
     the largest absolute error over the outputs."""
     import torch
 
     torch.cuda.synchronize()
     worst_abs = 0.0
     readings = []
-    for out, a, b in zip(BWD_NAMES, got, want):
+    for out, a, b in zip(names, got, want):
         if a.shape != b.shape or not torch.isfinite(a).all():
             raise AssertionError(f"{name} {out}: shape {tuple(a.shape)} vs {tuple(b.shape)}, "
                                  f"finite={bool(torch.isfinite(a).all())}")
@@ -201,11 +236,48 @@ def compare_backward(name: str, got, want) -> float:
         mx = float(d.max() / b.double().abs().max())
         worst_abs = max(worst_abs, float(d.max()))
         readings.append(f"{out} {l2:.2e}/{mx:.2e}")
-        if l2 > BWD_L2 or (out not in ("d_pp1", "d_pp5") and mx > BWD_MAX):
+        if l2 > BWD_L2 or (out not in per_row and mx > BWD_MAX):
             raise AssertionError(f"{name} {out}: L2 {l2:.3e} (<= {BWD_L2}), "
                                  f"max {mx:.3e} (<= {BWD_MAX}): kernel disagrees with plain")
     log(f"  {name}: L2/max relative {', '.join(readings)}; max_abs={worst_abs:.3e}")
     return worst_abs
+
+
+def bound(flops: float, nbytes: float):
+    """(ms, "operations" or "bytes"): the least time the card could take for
+    ``flops`` bf16 tensor-core operations that read and write ``nbytes``."""
+    by_ops, by_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+
+
+def trace_lane_steps(pts, dirs, status, escape, weights, kw) -> int:
+    """The trunk evaluations the trace needs: the lanes still active before
+    each of its k steps, summed (the plain version, one step at a time)."""
+    from shapegan_tpu_torch.ops import sdf_mlp_kernels as K
+
+    total = 0
+    for _ in range(kw["k"]):
+        active = int((status == K.TRACE_ACTIVE).sum())
+        if active == 0:
+            break
+        total += active
+        pts, status = K.trace_steps_plain(pts, dirs, status, escape, *weights, **dict(kw, k=1))
+    return total
+
+
+def rowwise_case(params, n: int, seed: int, device):
+    """B6's operands for n points with codes gathered from a 64-row table
+    (std 0.1), and a cotangent: (operands, g)."""
+    import torch
+    from shapegan_tpu_torch.ops import sdf_mlp_kernels as K
+
+    gen = torch.Generator().manual_seed(seed)
+    table = torch.randn((64, 128), generator=gen) * 0.1
+    rows = table[torch.randint(0, 64, (n,), generator=gen)]
+    pts = torch.rand((n, 3), generator=gen) * 2 - 1
+    g = torch.randn(n, generator=gen) / n
+    zz1, zz5 = K.latent_terms(params, rows.to(device))
+    return K.rowwise_operands(params, pts.to(device), zz1, zz5), g.to(device)
 
 
 def trace_cases(chair, device) -> list:
@@ -472,6 +544,105 @@ def step_times() -> dict:
     return times
 
 
+def autodecoder_path() -> dict:
+    """Phase 9: the autodecoder trainer's entry point in a temporary
+    directory, two epochs and then one more with ``continue``; returns the
+    launch counts per run and the step times."""
+    import csv
+    import math
+
+    import numpy as np
+    import torch
+    from shapegan_tpu_torch import checkpoints
+    from shapegan_tpu_torch.core.config import parse_cli
+    from shapegan_tpu_torch.models import LATENT_CODES_FILENAME
+    from shapegan_tpu_torch.train import sdf_autodecoder as T
+
+    common = ["synthetic=64", "pointcloud_size=200000", "nogui"]
+    runs = (("autodecoder epochs 0-1", common + ["epochs=2"]),
+            ("autodecoder continue, epoch 2", common + ["epochs=3", "continue"]))
+    paths, step_ms, total_steps = {}, [], 0
+    with tempfile.TemporaryDirectory() as tmp:
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            for path, argv in runs:
+                reset_counts()
+                t0 = time.perf_counter()
+                result = T.train(parse_cli(argv))
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                counts = paths[path] = read_counts()
+                steps = sum(result["steps"])
+                total_steps += steps
+                step_ms += result["step_ms"]
+                log(f"  {path}: {seconds:.2f} s (first call, host clock, data made on the host "
+                    f"included), steps per epoch {result['steps']}, ms/step "
+                    f"{[round(t, 3) for t in result['step_ms']]}")
+                check_counts(path, counts, launched=("rowwise", "rowwise_bwd"),
+                             idle=("grid", "grid_bwd", "points", "trace"))
+                if counts["rowwise"] != steps or counts["rowwise_bwd"] != steps:
+                    raise AssertionError(f"{path}: {steps} steps but launches {counts}")
+                if result["net"].device.type != "cuda":
+                    raise AssertionError(f"the network lies on {result['net'].device}")
+            with open("plots/sdf_net_training.csv") as f:
+                rows = [[float(v) for v in r] for r in csv.reader(f, delimiter=" ")]
+            snapshots = [checkpoints.get_filename(name, epoch=e, base="models")
+                         for name in (T.NET_NAME, LATENT_CODES_FILENAME) for e in range(3)]
+            files = [checkpoints.get_filename(n, base="models")
+                     for n in (T.NET_NAME, LATENT_CODES_FILENAME, T.OPT_NAME)] + snapshots
+            missing = [f for f in files if not os.path.exists(f)]
+            table = checkpoints.load_array(LATENT_CODES_FILENAME, base="models")
+            with np.load(checkpoints.get_filename(T.OPT_NAME, base="models")) as opt:
+                counts_saved = (int(opt["net/0/count"]), int(opt["codes/0/count"]))
+        finally:
+            os.chdir(cwd)
+    log(f"  CSV {rows}; table {table.shape}, std {float(table.std()):.3e}; optimizer counts "
+        f"{counts_saved} after {total_steps} steps")
+    if [r[0] for r in rows] != [0, 1, 2] or any(len(r) != 4 for r in rows):
+        raise AssertionError(f"autodecoder CSV rows {rows}")
+    if not all(math.isfinite(v) for r in rows for v in r) or not rows[-1][2] < rows[0][2]:
+        raise AssertionError(f"autodecoder losses not finite or not falling: {rows}")
+    if missing:
+        raise AssertionError(f"autodecoder files missing: {missing}")
+    if table.shape != (64, 128) or not np.isfinite(table).all():
+        raise AssertionError(f"autodecoder latent table {table.shape}")
+    if counts_saved != (total_steps, total_steps):
+        raise AssertionError(f"optimizer counts {counts_saved}, steps {total_steps}")
+    return {"paths": paths, "step_ms": step_ms}
+
+
+def autodecoder_grads_vs_float32(device) -> None:
+    """Phase 9: the gradients of one autodecoder step through the kernels
+    (B6a, B6b) against the float32 reference math, by cosine."""
+    import torch
+    from shapegan_tpu_torch.ops import sdf_mlp
+    from shapegan_tpu_torch.train import sdf_autodecoder as T
+
+    gen = torch.Generator().manual_seed(5)
+    params = {k: v.to(device).requires_grad_(True)
+              for k, v in sdf_mlp.init(torch.Generator().manual_seed(4)).items()}
+    codes = (torch.randn((64, 128), generator=gen) * 1e-2).to(device).requires_grad_(True)
+    points = (torch.rand((64 * 1000, 3), generator=gen) * 2 - 1).to(device)
+    sdf = (torch.randn(64 * 1000, generator=gen) * 0.05).clamp(-0.1, 0.1).to(device)
+    indices = torch.randint(0, 64 * 1000, (20000,), generator=gen).to(device)
+    _, got, got_codes = T.loss_and_grads(params, codes, points, sdf, indices, 1000)
+    _, want, want_codes = T.loss_and_grads(params, codes, points, sdf, indices, 1000,
+                                           apply=sdf_mlp.apply)
+
+    def cosine(a, b):
+        a, b = a.double().flatten(), b.double().flatten()
+        return float(a @ b / (a.norm() * b.norm() + 1e-30))
+
+    readings = {k: cosine(got[k], want[k]) for k in got}
+    readings["latent table"] = cosine(got_codes, want_codes)
+    worst = min(readings, key=readings.get)
+    log(f"  one kernel step's gradients vs float32 reference (20000 rows): lowest cosine "
+        f"{readings[worst]:.5f} ({worst}; >= {AUTODECODER_GRAD_COSINE})")
+    if readings[worst] < AUTODECODER_GRAD_COSINE:
+        raise AssertionError(f"autodecoder gradients disagree with float32: {readings}")
+
+
 def main() -> int:
     import torch
 
@@ -560,10 +731,22 @@ def main() -> int:
         ops = (pts, dirs, status, escape) + chair_weights
         trace_err = max(trace_err, compare_trace(name, K.trace_steps_cuda(*ops, **kw),
                                                  K.trace_steps_plain(*ops, **kw), (pts, status)))
+    # B6a and B6b at the autodecoder's batch with the bundled weights, and at
+    # an odd N with random weights.
+    rowwise_cases = {n: rowwise_case(p, n, seed, device)
+                     for n, p, seed in ((20000, params, 6), (3001, rand_params, 7))}
+    rowwise_err = rowwise_bwd_err = 0.0
+    for n, (ops, g) in rowwise_cases.items():
+        rowwise_err = max(rowwise_err, compare(f"rowwise N={n}", K.rowwise_forward_cuda(*ops),
+                                               K.rowwise_forward_plain(*ops)))
+        rowwise_bwd_err = max(rowwise_bwd_err, compare_backward(
+            f"rowwise_bwd N={n}", K.rowwise_backward_cuda(*ops, g),
+            K.rowwise_backward_plain(*ops, g), ROWWISE_BWD_NAMES, ROWWISE_PER_ROW))
 
     log(f"== 4. times at the main path's shapes ({kind}; {smi})")
     trunk_flop = 2 * 6 * 256 * 256
-    times = {}
+    weight_bytes = 6 * 256 * 256 * 2 + 2 * 3 * 256 * 2 + 9 * 256 * 2  # w, w1p, w5p, b, w8
+    times, bounds = {}, {}
     for name, kernel, plain, ops, n_points in (
         ("grid", K.grid_forward_cuda, K.grid_forward_plain, grid_ops, 16 * 64**3),
         ("points", K.points_forward_cuda, K.points_forward_plain, points_ops, 128**3),
@@ -571,17 +754,26 @@ def main() -> int:
         plain_ms = time_ms(lambda: plain(*ops), iters=5)
         kernel_ms = time_ms(lambda: kernel(*ops), iters=10)
         times[name] = (kernel_ms, plain_ms)
+        # grid: pp1/pp5 [P, 256] bf16 and zz1/zz5 in, [B, P] float32 out; points:
+        # xyz float32 in, [N] float32 out.
+        moved = (2 * 64**3 * 512 + 2 * 16 * 512 + 16 * 64**3 * 4 if name == "grid"
+                 else 128**3 * 16 + 2 * 512)
+        bounds[name] = bound(n_points * trunk_flop, moved + weight_bytes)
         log(f"  {name}: kernel {kernel_ms:.3f} ms ({n_points / kernel_ms / 1e6:.3f} G pts/s, "
             f"{n_points * trunk_flop / kernel_ms / 1e9:.1f} trunk TFLOP/s) | "
             f"plain {plain_ms:.3f} ms ({n_points / plain_ms / 1e6:.3f} G pts/s) | "
-            f"n={n_points}")
+            f"n={n_points} | bound {bounds[name][0]:.3f} ms ({bounds[name][1]})")
     # B2: 18 products of 256 x 256 per row (6 rebuild, 6 dh, 6 dW).
     plain_ms = time_ms(lambda: K.grid_backward_plain(*grid_ops, g16), iters=3, warmup=1)
     kernel_ms = time_ms(lambda: K.grid_backward_cuda(*grid_ops, g16), iters=5)
     times["grid_bwd"] = (kernel_ms, plain_ms)
     n_points = 16 * 64**3
+    # pp1/pp5 and g in; d_pp1/d_pp5 float32, d_zz, d_w, d_b out.
+    moved = 2 * 64**3 * 512 + n_points * 4 + 2 * 64**3 * 1024 + 6 * 256 * 256 * 4 + 16 * 2048
+    bounds["grid_bwd"] = bound(n_points * 3 * trunk_flop, moved + 2 * weight_bytes)
     log(f"  grid_bwd: kernel {kernel_ms:.3f} ms ({n_points * 3 * trunk_flop / kernel_ms / 1e9:.1f} "
-        f"TFLOP/s over the 18 products) | plain {plain_ms:.3f} ms | n={n_points}")
+        f"TFLOP/s over the 18 products) | plain {plain_ms:.3f} ms | n={n_points} | "
+        f"bound {bounds['grid_bwd'][0]:.3f} ms ({bounds['grid_bwd'][1]})")
     # B4: 20 trace steps over the 1600^2 primary rays, beside 20 steps of
     # one points-kernel launch and the element-wise update each (the A/B of
     # the raymarcher's fused trace switch).
@@ -600,12 +792,40 @@ def main() -> int:
 
     b3_ms = time_ms(points_steps, iters=10)
     times["trace"] = (kernel_ms, plain_ms)
+    lane_steps = trace_lane_steps(pts, dirs, status, escape, chair_weights, kw)
+    # points, directions, status in; points, status out.
+    bounds["trace"] = bound(lane_steps * trunk_flop, pts.shape[0] * (12 + 12 + 4 + 12 + 4)
+                            + weight_bytes)
+    log(f"  trace bound: {lane_steps} lane-steps need evaluating (of {pts.shape[0] * kw['k']}), "
+        f"{bounds['trace'][0]:.3f} ms ({bounds['trace'][1]})")
     n_evals = pts.shape[0] * kw["k"]
     log(f"  trace ({name}): kernel {kernel_ms:.3f} ms ({n_evals / kernel_ms / 1e6:.3f} G lane-steps/s) "
         f"| plain {plain_ms:.3f} ms | 20 points-kernel steps {b3_ms:.3f} ms "
         f"({n_evals / b3_ms / 1e6:.3f} G lane-steps/s) | lanes={pts.shape[0]}, "
         f"{int((status == 0).sum())} active at the start")
+    # B6a and B6b at the autodecoder's reference batch and at 65,536 rows.
+    # B6a: 6 products a row; xyz, zz1, zz5 in, [N] out. B6b: 17 products a
+    # row; xyz, zz1, zz5, g in, dzz1, dzz5 float32 and the trunk's gradients out.
+    rowwise_cases[65536] = rowwise_case(rand_params, 65536, 8, device)
+    for n in (20000, 65536):
+        ops, g = rowwise_cases[n]
+        fwd_bound = bound(n * trunk_flop, n * (12 + 1024 + 4) + weight_bytes)
+        bwd_bound = bound(n * 17 * 2 * 256 * 256, n * (12 + 1024 + 4 + 2048) + 2 * weight_bytes
+                          + 6 * 256 * 256 * 4 + 8 * 256 * 4 + 256 * 4)
+        fwd = (time_ms(lambda: K.rowwise_forward_cuda(*ops), iters=20),
+               time_ms(lambda: K.rowwise_forward_plain(*ops), iters=10))
+        bwd = (time_ms(lambda: K.rowwise_backward_cuda(*ops, g), iters=20),
+               time_ms(lambda: K.rowwise_backward_plain(*ops, g), iters=10))
+        if n == 20000:  # the trainer's batch: the kernels line's figures
+            times["rowwise"], times["rowwise_bwd"] = fwd, bwd
+            bounds["rowwise"], bounds["rowwise_bwd"] = fwd_bound, bwd_bound
+        log(f"  rowwise N={n}: kernel {fwd[0]:.4f} ms ({n * trunk_flop / fwd[0] / 1e9:.1f} TFLOP/s) | "
+            f"plain {fwd[1]:.4f} ms | bound {fwd_bound[0]:.4f} ms ({fwd_bound[1]})")
+        log(f"  rowwise_bwd N={n}: kernel {bwd[0]:.4f} ms "
+            f"({n * 17 * 2 * 256 * 256 / bwd[0] / 1e9:.1f} TFLOP/s over the 17 products) | "
+            f"plain {bwd[1]:.4f} ms | bound {bwd_bound[0]:.4f} ms ({bwd_bound[1]})")
     del grid_ops, odd_ops, points_ops, odd_points_ops, odd_bwd_ops, g16, g3, cases, ops
+    del rowwise_cases
     torch.cuda.empty_cache()
 
     log("== 5. generation path")
@@ -681,21 +901,44 @@ def main() -> int:
     paths.update(train_chain())
     log(f"== 8. trainer step times ({kind}; {smi})")
     step_times()
+    log(f"== 9. autodecoder path: DeepSDF autodecoder, 64 shapes x 200,000 points, batch 20,000 "
+        f"({kind}; {smi})")
+    paths.update(autodecoder_path()["paths"])
+    autodecoder_grads_vs_float32(device)
+    from shapegan_tpu_torch.profile_slice import autodecoder_steps
+
+    for name, fn in autodecoder_steps(device).items():
+        for _ in range(3):
+            fn()
+        ms = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        log(f"  autodecoder step ({name}): {statistics.median(ms):.3f} ms (host clock after a "
+            f"synchronize, median of 20; fresh weights, random batches of 20000)")
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         raise AssertionError("jax was imported")
 
     def kernel_entry(name, counter, source, replaces, err):
+        # library_ms: no single PyTorch call computes an 8-layer MLP (or its
+        # recompute backward, or K trace steps of it), so none is timed.
         return {"name": name, "route": "cuda", "source": f"shapegan_tpu_torch/ops/csrc/{source}",
                 "replaces": f"shapegan_tpu/ops/sdf_mlp_pallas.py:{replaces}",
                 "launches": sum(p[counter] for p in paths.values()),
                 "launches_by_path": {path: p[counter] for path, p in paths.items() if p[counter]},
-                "max_abs_err": err, "ms": times[counter][0], "plain_ms": times[counter][1]}
+                "max_abs_err": err, "ms": times[counter][0], "plain_ms": times[counter][1],
+                "bound_ms": bounds[counter][0], "bound_by": bounds[counter][1], "library_ms": None}
 
     kernels = [
         kernel_entry("sdf_grid", "grid", "sdf_grid.cu", 50, grid_err),
         kernel_entry("sdf_points", "points", "sdf_points.cu", 199, points_err),
         kernel_entry("sdf_grid_bwd", "grid_bwd", "sdf_grid_bwd.cu", 469, bwd_err),
         kernel_entry("sdf_trace", "trace", "sdf_trace.cu", 331, trace_err),
+        kernel_entry("sdf_rowwise", "rowwise", "sdf_rowwise.cu", 1132, rowwise_err),
+        kernel_entry("sdf_rowwise_bwd", "rowwise_bwd", "sdf_rowwise_bwd.cu", 1141, rowwise_bwd_err),
     ]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

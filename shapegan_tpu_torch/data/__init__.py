@@ -1,2 +1,2 @@
-"""Datasets for the port (jax-free; the numpy host modules of
-:mod:`shapegan_tpu.data` are imported from there)."""
+"""Datasets and host data of the port: synthetic shapes and point clouds,
+voxel datasets, triangle meshes."""

@@ -5,7 +5,9 @@ coordinate grid).
 Random unions of spheres, boxes, capsules and tori, evaluated in numpy on
 the port's voxel grid (the same float32 coordinates as the JAX package's),
 so :func:`make_voxel_dataset` returns bit-identical volumes for the same
-``(count, resolution, clamp, rescale, seed)``.
+``(count, resolution, clamp, rescale, seed)``, and
+:func:`make_sdf_pointcloud` bit-identical ``(points, sdf)`` for the same
+``(count_shapes, points_per_shape, clamp, seed)``.
 """
 
 from __future__ import annotations
@@ -75,3 +77,32 @@ def make_voxel_dataset(count: int, resolution: int = 32, clamp: float = 0.1, res
             sdf = sdf / clamp
         volumes[i] = sdf.reshape(resolution, resolution, resolution)
     return volumes
+
+
+def make_sdf_pointcloud(count_shapes: int, points_per_shape: int, clamp: float = 0.1,
+                        seed: int = 0):
+    """The autodecoder's monolithic (points [S*P, 3], sdf [S*P]) float32
+    arrays from random analytic shapes: per shape, uniform samples in
+    [-1, 1]^3, the first half moved toward the surface (along a random
+    direction scaled by the SDF, plus N(0, 0.02) jitter, clipped to the
+    cube) and evaluated again; SDF clipped to +-clamp."""
+    rng = np.random.default_rng(seed)
+    all_points = np.empty((count_shapes * points_per_shape, 3), dtype=np.float32)
+    all_sdf = np.empty(count_shapes * points_per_shape, dtype=np.float32)
+    for s in range(count_shapes):
+        uniform = rng.uniform(-1, 1, (points_per_shape, 3)).astype(np.float32)
+        sdf = random_shape_sdf(uniform, seed=seed + s).astype(np.float32)
+        half = points_per_shape // 2
+        jitter = rng.normal(0, 0.02, (half, 3)).astype(np.float32)
+        near = uniform[:half] - sdf[:half, None] * _normalize(rng.normal(size=(half, 3))) + jitter
+        near = np.clip(near, -1, 1)
+        near_sdf = random_shape_sdf(near, seed=seed + s).astype(np.float32)
+        uniform[:half], sdf[:half] = near, near_sdf
+        lo, hi = s * points_per_shape, (s + 1) * points_per_shape
+        all_points[lo:hi] = uniform
+        all_sdf[lo:hi] = np.clip(sdf, -clamp, clamp)
+    return all_points, all_sdf
+
+
+def _normalize(x: np.ndarray) -> np.ndarray:
+    return (x / np.maximum(np.linalg.norm(x, axis=-1, keepdims=True), 1e-12)).astype(np.float32)

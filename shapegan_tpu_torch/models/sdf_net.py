@@ -18,7 +18,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from shapegan_tpu.data.mesh_io import TriangleMesh
+from shapegan_tpu_torch.data.mesh_io import TriangleMesh
 from shapegan_tpu_torch.ops import sdf_mlp
 from shapegan_tpu_torch.ops.coords import unit_sphere_mask, voxel_coordinates
 from shapegan_tpu_torch.ops.mesh_extract import extract_mesh
@@ -63,6 +63,12 @@ class SDFNet(nn.Module):
     def apply_grid(self, grid_points: torch.Tensor, latents: torch.Tensor) -> torch.Tensor:
         """Shared points [P, 3] x shape latents [B, L] → [B, P] (float32)."""
         return sdf_mlp.apply_grid(self.param_dict(), grid_points, latents)
+
+    def apply_indexed(self, points: torch.Tensor, latent_table: torch.Tensor,
+                      shape_indices: torch.Tensor) -> torch.Tensor:
+        """Points [N, 3] with latents ``latent_table[shape_indices]`` → [N]
+        (float32)."""
+        return sdf_mlp.apply_indexed(self.param_dict(), points, latent_table, shape_indices)
 
     # ----------------------------------------------------------- inference
 

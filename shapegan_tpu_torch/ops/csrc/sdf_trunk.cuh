@@ -1,8 +1,9 @@
 // Shared trunk of the hand-written SDF-MLP kernels for Hopper (sm_90a).
 //
 // The forward kernels (sdf_grid.cu: grid forward, sdf_points.cu: single-shape
-// points forward, sdf_trace.cu: K sphere-trace steps of the points forward)
-// run the same six 256x256 trunk layers and the same head on a tile of
+// points forward, sdf_trace.cu: K sphere-trace steps of the points forward,
+// sdf_rowwise.cu: points with per-row latent terms) run the same six 256x256
+// trunk layers and the same head on a tile of
 // BLOCK_M rows that stays in shared memory from the first layer to the
 // output; only the [rows] float32 result goes back to device memory.
 //
@@ -147,12 +148,22 @@ __device__ __forceinline__ void start_trunk(TrunkSmem& s, const __nv_bfloat16* _
   }
 }
 
+// run_trunk's default layer-5 latent term: the one zz5 row in shared memory
+// (s.zz5), the same for every tile row.
+struct SharedZz5 {
+  const __nv_bfloat16* zz5;
+  __device__ __forceinline__ float2 operator()(int, int col) const {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(zz5 + col));
+  }
+};
+
 // The six trunk layers over s.x (holding the layer-1 activations on entry,
 // the layer-7 activations on exit). `skip(row, col)` returns the bf16 pp5
-// pair of tile row `row`, columns col and col + 1, as floats.
-template <class Skip>
+// pair of tile row `row`, columns col and col + 1, as floats; `zz5(row,
+// col)` the bf16 zz5 pair added after it.
+template <class Skip, class Zz5>
 __device__ __forceinline__ void run_trunk(TrunkSmem& s, const __nv_bfloat16* __restrict__ w,
-                                          const Skip& skip) {
+                                          const Skip& skip, const Zz5& zz5) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;  // mma fragment coordinates
   const int row0 = (warp >> 2) * WARP_ROWS;
@@ -210,8 +221,9 @@ __device__ __forceinline__ void run_trunk(TrunkSmem& s, const __nv_bfloat16* __r
             float v1 = round_bf16(acc[mi][ni][2 * h + 1]);
             if (layer == SKIP_LAYER) {
               const float2 p = skip(row, col);
-              v0 = round_bf16(round_bf16(v0 + p.x) + __bfloat162float(s.zz5[col]));
-              v1 = round_bf16(round_bf16(v1 + p.y) + __bfloat162float(s.zz5[col + 1]));
+              const float2 z = zz5(row, col);
+              v0 = round_bf16(round_bf16(v0 + p.x) + z.x);
+              v1 = round_bf16(round_bf16(v1 + p.y) + z.y);
             } else {
               v0 = round_bf16(v0 + __bfloat162float(s.bias[layer * WIDTH + col]));
               v1 = round_bf16(v1 + __bfloat162float(s.bias[layer * WIDTH + col + 1]));
@@ -225,6 +237,12 @@ __device__ __forceinline__ void run_trunk(TrunkSmem& s, const __nv_bfloat16* __r
   }
   cp_async_wait<0>();
   __syncthreads();  // the layer-7 activations are complete
+}
+
+template <class Skip>
+__device__ __forceinline__ void run_trunk(TrunkSmem& s, const __nv_bfloat16* __restrict__ w,
+                                          const Skip& skip) {
+  run_trunk(s, w, skip, SharedZz5{s.zz5});
 }
 
 // tanh(h7 . w8 + b8) for tile row threadIdx.x / 2 (two threads per row,
@@ -245,7 +263,8 @@ __device__ __forceinline__ float head(const TrunkSmem& s) {
   return tanhf(sum + __bfloat162float(s.bias[HEAD_BIAS_ROW * WIDTH]));
 }
 
-// The raw-point input of the single-shape kernels (points B3, trace B4):
+// The raw-point input of the kernels that project in the kernel (points B3,
+// trace B4, rowwise B6a and its backward B6b):
 // the tile's bf16-rounded xyz and both fan-in projection weights as floats.
 // Each projection is a float32 sum of bf16 x bf16 products, rounded to bf16
 // (the TPU kernel's K=8 matmul with a float32 result).
@@ -255,14 +274,22 @@ struct __align__(16) PointsInput {
   float w5p[3][WIDTH];
 };
 
-__device__ __forceinline__ float2 project(const float* p, const float (*wp)[WIDTH], int col) {
+// Columns col and col + 1 of p @ wp in float32 (the rowwise backward adds
+// them unrounded) ...
+__device__ __forceinline__ float2 project_f32(const float* p, const float (*wp)[WIDTH], int col) {
   float a0 = p[0] * wp[0][col];
   float a1 = p[0] * wp[0][col + 1];
   a0 = fmaf(p[1], wp[1][col], a0);
   a1 = fmaf(p[1], wp[1][col + 1], a1);
   a0 = fmaf(p[2], wp[2][col], a0);
   a1 = fmaf(p[2], wp[2][col + 1], a1);
-  return make_float2(round_bf16(a0), round_bf16(a1));
+  return make_float2(a0, a1);
+}
+
+// ... and rounded to bf16 (the forward kernels).
+__device__ __forceinline__ float2 project(const float* p, const float (*wp)[WIDTH], int col) {
+  const float2 a = project_f32(p, wp, col);
+  return make_float2(round_bf16(a.x), round_bf16(a.y));
 }
 
 // run_trunk's skip term: the bf16 pair of pts @ w5p.

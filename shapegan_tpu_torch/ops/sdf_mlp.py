@@ -83,6 +83,13 @@ def apply(params: Params, points: torch.Tensor, latents: torch.Tensor) -> torch.
     return _body(params, p1, p5)
 
 
+def apply_indexed(params: Params, points: torch.Tensor, latent_table: torch.Tensor,
+                  shape_indices: torch.Tensor) -> torch.Tensor:
+    """SDF at ``points`` [N, 3] whose latent is ``latent_table[shape_indices]``
+    (the autodecoder's gathered rows) → [N]."""
+    return apply(params, points, latent_table.index_select(0, shape_indices))
+
+
 def apply_grid(params: Params, grid_points: torch.Tensor, latents: torch.Tensor) -> torch.Tensor:
     """Shared points [P, 3] x shape latents [B, L] → [B, P]; the latent
     projections are computed once per shape and broadcast."""

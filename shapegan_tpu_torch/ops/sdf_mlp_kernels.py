@@ -1,7 +1,7 @@
 """Kernels of the DeepSDF MLP for the H100 (counterpart of
 :mod:`shapegan_tpu.ops.sdf_mlp_pallas`).
 
-Four hand-written CUDA kernels (sources in ``ops/csrc/``):
+Six hand-written CUDA kernels (sources in ``ops/csrc/``):
 
 * the **grid kernel** (``sdf_grid.cu``, replaces ``_kernel`` /
   ``apply_grid_fused``): B shape latents over one shared point grid
@@ -15,12 +15,20 @@ Four hand-written CUDA kernels (sources in ``ops/csrc/``):
 * the **trace kernel** (``sdf_trace.cu``, replaces ``_make_trace_kernel`` /
   ``trace_steps_fused``): K masked sphere-trace iterations of the points
   kernel's forward per launch, the lane state kept on chip.
+* the **rowwise kernel** (``sdf_rowwise.cu``, replaces ``_rowwise_kernel``
+  / ``_rowwise_fwd``): raw points [N, 3] with per-row latent terms
+  zz1/zz5 [N, 256] (the autodecoder's gathered codes) → [N];
+* the **rowwise backward kernel** (``sdf_rowwise_bwd.cu``, replaces
+  ``_rowwise_bwd_kernel`` / ``_rowwise_bwd``): its recompute backward,
+  per-row dzz1/dzz5 and the trunk's weight gradients, behind the autograd
+  function :func:`apply_rowwise_trainable`.
 
 Each kernel has a thin wrapper (``*_cuda``: checks, allocates, launches on
 the current stream, counts its launches in ``launch_count``) and a plain
 PyTorch version (``*_plain``) of the same math at the same bf16 rounding
 points. The dispatchers (``grid_forward``, ``points_forward``,
-``grid_backward``, ``trace_steps``) take the plain version only for tensors
+``grid_backward``, ``trace_steps``, ``rowwise_forward``,
+``rowwise_backward``) take the plain version only for tensors
 on the CPU; a CUDA tensor goes to the kernel, which raises if it cannot
 run. There is no fallback.
 
@@ -208,6 +216,57 @@ def grid_backward_plain(pp1, pp5, zz1, zz5, w, b, w8, g):
     return d_pp1, d_pp5, d_zz1, d_zz5, d_w, d_b, d_w8, d_b8
 
 
+def rowwise_forward_plain(pts, w1p, w5p, zz1, zz5, w, b, w8) -> torch.Tensor:
+    """Plain PyTorch version of the rowwise kernel → [N] float32: the points
+    kernel's math with per-row zz1/zz5 [N, 256] (the same rounding points,
+    ``_points_trunk``)."""
+    return points_forward_plain(pts, w1p, w5p, zz1, zz5, w, b, w8)
+
+
+def rowwise_backward_plain(pts, w1p, w5p, zz1, zz5, w, b, w8, g):
+    """Plain PyTorch version of the rowwise backward kernel (the math of
+    ``_rowwise_bwd_kernel``) for the cotangent g [N]. Returns float32
+    (dzz1 [N, 256], dzz5 [N, 256], d_w [6, 256(in), 256(out)], d_b [8, 256],
+    d_w8 [256], d_b8 [1]).
+
+    Its rounding points are neither the forward's nor the grid backward's:
+    layer 1 adds zz1 to the float32 projection pts @ w1p (not rounded to
+    bf16 first) and rounds once; layer 5 sums its product, pts @ w5p and zz5
+    in float32 and rounds once; the other layers add their bias to the
+    float32 product and round once. Each dz is rounded to bf16 before it is
+    used; dzz5 is that bf16 dz as float32, dzz1 the float32 dx1. The d_b
+    rows 3, 6 and 7 stay zero."""
+    p = pts.to(BF16).float()
+    wf = w.float()
+    bf = b.float()
+    w8f = w8.float()
+    h = [torch.relu(p @ w1p.float() + zz1.float()).to(BF16)]
+    for layer in range(len(TRUNK_KEYS)):
+        acc = h[-1].float() @ wf[layer].t()
+        if layer == SKIP_LAYER:
+            acc = acc + p @ w5p.float() + zz5.float()
+        else:
+            acc = acc + bf[layer]
+        h.append(torch.relu(acc).to(BF16))
+    out = torch.tanh(h[-1].float() @ w8f + bf[HEAD_BIAS_ROW, 0])
+    gz = g.float() * (1.0 - out * out)
+    d_w8 = h[-1].float().t() @ gz
+    d_b8 = gz.sum().reshape(1)
+    d_w = torch.zeros(wf.shape, dtype=torch.float32, device=pts.device)
+    d_b = torch.zeros((8, WIDTH), dtype=torch.float32, device=pts.device)
+    dh = gz[:, None] * w8f[None, :]
+    for layer in reversed(range(len(TRUNK_KEYS))):
+        dz = (dh * (h[layer + 1] > 0)).to(BF16).float()
+        d_w[layer] = h[layer].float().t() @ dz
+        if layer == SKIP_LAYER:
+            dzz5 = dz
+        else:
+            d_b[layer] = dz.sum(0)
+        dh = dz @ wf[layer]
+    dzz1 = dh * (h[0] > 0)
+    return dzz1, dzz5, d_w, d_b, d_w8, d_b8
+
+
 # ------------------------------------------------------------ kernel wrappers
 
 
@@ -366,6 +425,69 @@ def trace_steps_cuda(pts, dirs, status, escape, w1p, w5p, zz1, zz5, w, b, w8, *,
 trace_steps_cuda.launch_count = 0
 
 
+def _check_rowwise(pts, w1p, w5p, zz1, zz5, w, b, w8):
+    device = _cuda_device(pts)
+    n = pts.shape[0]
+    _check("pts", device, pts, (n, 3), torch.float32)
+    _check("w1p", device, w1p, (3, WIDTH), BF16)
+    _check("w5p", device, w5p, (3, WIDTH), BF16)
+    _check("zz1", device, zz1, (n, WIDTH), BF16)
+    _check("zz5", device, zz5, (n, WIDTH), BF16)
+    _check_trunk(device, w, b, w8)
+    return device, n
+
+
+def rowwise_forward_cuda(pts, w1p, w5p, zz1, zz5, w, b, w8) -> torch.Tensor:
+    """Launch the rowwise kernel (``csrc/sdf_rowwise.cu``) → [N] float32."""
+    device, n = _check_rowwise(pts, w1p, w5p, zz1, zz5, w, b, w8)
+    out = torch.empty((n,), dtype=torch.float32, device=device)
+    if n == 0:
+        return out
+    lib = _build.load()
+    code = lib.sdf_rowwise_forward(
+        pts.data_ptr(), w1p.data_ptr(), w5p.data_ptr(), zz1.data_ptr(), zz5.data_ptr(),
+        w.data_ptr(), b.data_ptr(), w8.data_ptr(), out.data_ptr(),
+        n, device.index, torch.cuda.current_stream(device).cuda_stream)
+    _build.check(lib, "sdf_rowwise_forward", code)
+    rowwise_forward_cuda.launch_count += 1
+    return out
+
+
+rowwise_forward_cuda.launch_count = 0
+
+
+def rowwise_backward_cuda(pts, w1p, w5p, zz1, zz5, w, b, w8, g):
+    """Launch the rowwise backward kernel (``csrc/sdf_rowwise_bwd.cu``);
+    returns what :func:`rowwise_backward_plain` returns. Its scratch (about
+    7 KB a row) comes from PyTorch's caching allocator, so a training loop
+    of equal batches reuses one block."""
+    device, n = _check_rowwise(pts, w1p, w5p, zz1, zz5, w, b, w8)
+    _check("g", device, g, (n,), torch.float32)
+    if n == 0:
+        raise ValueError("rowwise backward needs N > 0")
+
+    def buffer(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=device)
+
+    outs = (buffer(n, WIDTH), buffer(n, WIDTH), buffer(len(TRUNK_KEYS), WIDTH, WIDTH),
+            buffer(8, WIDTH), buffer(WIDTH), buffer(1))  # written whole by the kernel
+    lib = _build.load()
+    scratch = torch.empty(lib.sdf_rowwise_backward_scratch_bytes(n), dtype=torch.uint8,
+                          device=device)
+    wt = w.transpose(1, 2).contiguous()  # [6, in, out]: the backward products' operand
+    code = lib.sdf_rowwise_backward(
+        pts.data_ptr(), w1p.data_ptr(), w5p.data_ptr(), zz1.data_ptr(), zz5.data_ptr(),
+        w.data_ptr(), wt.data_ptr(), b.data_ptr(), w8.data_ptr(), g.data_ptr(),
+        *(t.data_ptr() for t in outs), scratch.data_ptr(),
+        n, device.index, torch.cuda.current_stream(device).cuda_stream)
+    _build.check(lib, "sdf_rowwise_backward", code)
+    rowwise_backward_cuda.launch_count += 1
+    return outs
+
+
+rowwise_backward_cuda.launch_count = 0
+
+
 def grid_forward(pp1, pp5, zz1, zz5, w, b, w8) -> torch.Tensor:
     """Grid kernel on CUDA tensors, its plain version on CPU tensors."""
     if pp1.device.type == "cpu":
@@ -392,6 +514,21 @@ def trace_steps(pts, dirs, status, escape, w1p, w5p, zz1, zz5, w, b, w8, **kw):
     if pts.device.type == "cpu":
         return trace_steps_plain(pts, dirs, status, escape, w1p, w5p, zz1, zz5, w, b, w8, **kw)
     return trace_steps_cuda(pts, dirs, status, escape, w1p, w5p, zz1, zz5, w, b, w8, **kw)
+
+
+def rowwise_forward(pts, w1p, w5p, zz1, zz5, w, b, w8) -> torch.Tensor:
+    """Rowwise kernel on CUDA tensors, its plain version on CPU tensors."""
+    if pts.device.type == "cpu":
+        return rowwise_forward_plain(pts, w1p, w5p, zz1, zz5, w, b, w8)
+    return rowwise_forward_cuda(pts, w1p, w5p, zz1, zz5, w, b, w8)
+
+
+def rowwise_backward(pts, w1p, w5p, zz1, zz5, w, b, w8, g):
+    """Rowwise backward kernel on CUDA tensors, its plain version on CPU
+    tensors."""
+    if pts.device.type == "cpu":
+        return rowwise_backward_plain(pts, w1p, w5p, zz1, zz5, w, b, w8, g)
+    return rowwise_backward_cuda(pts, w1p, w5p, zz1, zz5, w, b, w8, g)
 
 
 # ------------------------------------------------------------- entry points
@@ -525,3 +662,69 @@ def points_value_and_gradient(params: Params, points: torch.Tensor, latent: torc
     if not values:
         return points.new_zeros((0,)), points.new_zeros((0, 3))
     return torch.cat(values), torch.cat(grads)
+
+
+def rowwise_operands(params: Params, points: torch.Tensor, zz1: torch.Tensor, zz5: torch.Tensor):
+    """The rowwise kernels' operands (pts, w1p, w5p, zz1, zz5, w, b, w8) for
+    points [N, 3] and per-row latent terms zz1/zz5 [N, 256]."""
+    return ((points.float().contiguous(), params["w1p"].to(BF16).contiguous(),
+             params["w5p"].to(BF16).contiguous(), zz1.to(BF16).contiguous(),
+             zz5.to(BF16).contiguous()) + trunk_operands(params))
+
+
+# The parameters the rowwise kernels read; w1z, b1, w5z and b5 enter through
+# zz1/zz5 and receive their gradients through them.
+_ROWWISE_KEYS = tuple(k for k in PARAM_KEYS if k not in ("w1z", "b1", "w5z", "b5"))
+
+
+class _RowwiseTrainable(torch.autograd.Function):
+    """The rowwise kernel forward with the rowwise backward kernel as its
+    gradient (the custom VJP of the JAX package's
+    ``apply_rowwise_trainable``). Inputs: points [N, 3], zz1, zz5 [N, 256],
+    then the parameters in ``_ROWWISE_KEYS`` order."""
+
+    @staticmethod
+    def forward(ctx, points, zz1, zz5, *values):
+        ctx.save_for_backward(points, zz1, zz5, *values)
+        params = dict(zip(_ROWWISE_KEYS, values))
+        return rowwise_forward(*rowwise_operands(params, points, zz1, zz5))
+
+    @staticmethod
+    def backward(ctx, g):
+        points, zz1, zz5, *values = ctx.saved_tensors
+        params = dict(zip(_ROWWISE_KEYS, values))
+        dzz1, dzz5, d_w, d_b, d_w8, d_b8 = rowwise_backward(
+            *rowwise_operands(params, points, zz1, zz5), g.float().contiguous())
+        # The closing products of _rowwise_bwd, in float32, on the float32 points.
+        pts = points.float()
+        d = {"w1p": pts.t() @ dzz1, "w5p": pts.t() @ dzz5, "w8": d_w8[:, None], "b8": d_b8}
+        for layer, key in enumerate(TRUNK_KEYS):
+            d[key] = d_w[layer]
+            if layer != SKIP_LAYER:
+                d["b" + key[1:]] = d_b[layer]
+        d_points = None
+        if ctx.needs_input_grad[0]:
+            d_points = (dzz1 @ params["w1p"].float().t()
+                        + dzz5 @ params["w5p"].float().t()).to(points.dtype)
+        # The zz cotangents go back in the zz dtype (bf16), as in the JAX VJP.
+        return (d_points, dzz1.to(zz1.dtype), dzz5.to(zz5.dtype),
+                *(d[k].to(params[k].dtype) for k in _ROWWISE_KEYS))
+
+
+def apply_rowwise_trainable(params: Params, points: torch.Tensor, zz1: torch.Tensor,
+                            zz5: torch.Tensor) -> torch.Tensor:
+    """Differentiable per-row evaluation: points [N, 3] with per-row latent
+    terms zz1/zz5 [N, 256] → [N] float32: the rowwise kernel forward, the
+    rowwise backward kernel for the gradients of the points, zz1/zz5 and the
+    parameters they do not carry (w1z, b1, w5z and b5 get theirs through
+    zz1/zz5)."""
+    return _RowwiseTrainable.apply(points, zz1, zz5, *(params[k] for k in _ROWWISE_KEYS))
+
+
+def apply_rowwise(params: Params, points: torch.Tensor, latents: torch.Tensor) -> torch.Tensor:
+    """Points [N, 3] with per-point latents [N, L] → [N] float32 (the JAX
+    package's ``apply_rowwise``): zz1/zz5 = z @ w1z/w5z + b1/b5 in bf16,
+    then :func:`apply_rowwise_trainable`. Differentiable with respect to the
+    parameters, the points and the latents (the autodecoder's gathered
+    rows)."""
+    return apply_rowwise_trainable(params, points, *latent_terms(params, latents))

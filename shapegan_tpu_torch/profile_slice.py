@@ -25,7 +25,14 @@ shape, so slice B's mesh is the sphere mask) and a chair fitted on the card
   off and on: its phases (primary trace, normals, shadow trace, shading and
   downsample, copy to the host) on the host clock, synchronized at each
   phase's end, medians over ``iters`` frames; and ``torch.profiler`` over
-  one frame with the switch's default.
+  one frame with the switch's default;
+* slice E, one DeepSDF autodecoder step at the reference batch (20,000
+  points, a 64-row latent table, full width): the trainer's step
+  (``train.sdf_autodecoder.loss_and_grads`` through the rowwise kernels,
+  then both Adams) beside the same step with autograd over bf16 ``torch``
+  matmuls (:func:`apply_bf16_autograd`, the counterpart of the JAX
+  package's production XLA step), medians of ``iters`` steps on the host
+  clock and ``torch.profiler`` over one of each.
 
 It needs CUDA and builds the kernels if they are not built yet.
 """
@@ -43,9 +50,9 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from shapegan_tpu.data.mesh_io import TriangleMesh
 from shapegan_tpu_torch import checkpoints
 from shapegan_tpu_torch.core.config import parse_cli
+from shapegan_tpu_torch.data.mesh_io import TriangleMesh
 from shapegan_tpu_torch.demo_sdf_net import catmull_rom, render_mesh, write_png
 from shapegan_tpu_torch.models import LATENT_CODES_FILENAME
 from shapegan_tpu_torch.models.sdf_net import SDFNet
@@ -155,6 +162,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     report("one get_mesh at 128^3", *profile_device(lambda: net.get_mesh(code, 128)))
     profile_train_steps(device, iters)
     profile_raymarch(device, iters)
+    profile_autodecoder(device, iters)
     return 0
 
 
@@ -233,6 +241,71 @@ def profile_raymarch(device: torch.device, iters: int, resolution: int = 800) ->
         rm._FORCE_FUSED_TRACE = default
     report(f"one raymarched frame at {resolution}^2 x ssaa 2 (fused trace switch {default})",
            *profile_device(lambda: rm.render_image(net, code, resolution=resolution), top=10))
+
+
+def apply_bf16_autograd(params, points: torch.Tensor, latents: torch.Tensor) -> torch.Tensor:
+    """The DeepSDF MLP as plain autograd over bf16 ``torch`` matmuls, the
+    counterpart of the JAX package's production autodecoder step
+    (``sdf_mlp.apply`` with dtype bf16): bf16 fan-in sums, each trunk
+    product's bf16 result plus a float32 bias, bf16 activations, a float32
+    head. A yardstick for the trainer's kernel step; the port never calls
+    it."""
+    bf = torch.bfloat16
+    pts, z = points.to(bf), latents.to(bf)
+    p1 = pts @ params["w1p"].to(bf) + z @ params["w1z"].to(bf) + params["b1"].to(bf)
+    p5 = pts @ params["w5p"].to(bf) + z @ params["w5z"].to(bf) + params["b5"].to(bf)
+    x = torch.relu(p1)
+    for key, extra in (("w2", params["b2"]), ("w3", params["b3"]), ("w4", params["b4"]),
+                       ("w5h", p5.float()), ("w6", params["b6"]), ("w7", params["b7"])):
+        x = torch.relu((x @ params[key].to(bf)).float() + extra).to(bf)
+    return torch.tanh((x @ params["w8"].to(bf)).float() + params["b8"])[:, 0]
+
+
+def autodecoder_steps(device: torch.device, batch: int = 20000, shapes: int = 64,
+                      pointcloud_size: int = 200000, seed: int = 0) -> Dict[str, Callable[[], object]]:
+    """One autodecoder step (gather, MLP forward and backward, both Adams)
+    on fresh full-width weights, a ``shapes``-row table and random points,
+    with a new random batch of indices each call: ``{"kernels": the
+    trainer's step, "bf16 autograd": the yardstick}``."""
+    from shapegan_tpu_torch import LATENT_CODE_SIZE
+    from shapegan_tpu_torch.ops import sdf_mlp
+    from shapegan_tpu_torch.ops.sdf_mlp_kernels import apply_rowwise
+    from shapegan_tpu_torch.optim import Adam
+    from shapegan_tpu_torch.train import sdf_autodecoder as T
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    count = shapes * pointcloud_size
+    points = torch.rand((count, 3), generator=gen, device=device) * 2 - 1
+    sdf = (torch.randn(count, generator=gen, device=device) * 0.05).clamp(-T.SDF_CUTOFF, T.SDF_CUTOFF)
+    steps = {}
+    for name, apply in (("kernels", apply_rowwise), ("bf16 autograd", apply_bf16_autograd)):
+        params = SDFNet(sdf_mlp.init(torch.Generator().manual_seed(seed), device=device)).param_dict()
+        codes = (torch.randn((shapes, LATENT_CODE_SIZE), generator=gen, device=device)
+                 * 1e-4).requires_grad_(True)
+        net_opt, code_opt = Adam(params, T.LEARNING_RATE), Adam({"codes": codes}, T.LEARNING_RATE)
+
+        def step(apply=apply, params=params, codes=codes, net_opt=net_opt, code_opt=code_opt):
+            indices = torch.randint(0, count, (batch,), generator=gen, device=device)
+            loss, net_grads, code_grad = T.loss_and_grads(params, codes, points, sdf, indices,
+                                                          pointcloud_size, apply=apply)
+            net_opt.step(net_grads)
+            code_opt.step({"codes": code_grad})
+            return loss
+
+        steps[name] = step
+    return steps
+
+
+def profile_autodecoder(device: torch.device, iters: int) -> None:
+    """Slice E: one autodecoder step at the reference batch, the trainer's
+    (rowwise kernels) beside the bf16 autograd yardstick."""
+    steps = autodecoder_steps(device)
+    for name, fn in steps.items():
+        times = [_host_ms(fn) for _ in range(iters + 3)][3:]
+        print(f"slice E, autodecoder step ({name}), batch 20000: {statistics.median(times):.3f} ms "
+              f"(host clock, median of {iters})")
+    for name, fn in steps.items():
+        report(f"one autodecoder step ({name})", *profile_device(fn, top=10))
 
 
 if __name__ == "__main__":

@@ -1,9 +1,10 @@
 """Software rasterizer with shadow mapping (counterpart of
 :mod:`shapegan_tpu.render.software`).
 
-Host code, not a device kernel: the scene goes through the JAX package's
-multithreaded C++ rasterizer (``shapegan_tpu/native/rasterizer.cpp``, built
-with the host C++ compiler at first use and bound with ctypes). It renders
+Host code, not a device kernel: the scene goes through a multithreaded C++
+rasterizer (``render/csrc/rasterizer.cpp``, the JAX package's source copied,
+built with the host C++ compiler at first use into the git-ignored
+``render/csrc/build/`` and bound with ctypes). It renders
 the reference viewer's two-pass pipeline — a light-space depth pre-pass
 into a shadow map, then the shaded camera pass with a shadowed floor —
 without any display or GL context.
@@ -12,21 +13,54 @@ without any display or GL context.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
+import hashlib
+import os
+import subprocess
 
 import numpy as np
 
-from shapegan_tpu.native import load_library
-
 SHADOW_TEXTURE_SIZE = 1024
+CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(CSRC_DIR, "build")
+SOURCE = os.path.join(CSRC_DIR, "rasterizer.cpp")
+CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-pthread", "-Wall", "-shared")
+
+
+def build_rasterizer() -> str:
+    """Compile the rasterizer if this source revision has no library yet
+    (the name carries a hash of the source and flags), under a file lock so
+    concurrent processes build once; returns the library's path. Raises when
+    the compiler is missing or fails: there is no fallback."""
+    with open(SOURCE, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
+    lib_path = os.path.join(BUILD_DIR, f"librasterizer_{digest}.so")
+    if os.path.exists(lib_path):
+        return lib_path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, "build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not os.path.exists(lib_path):  # another process may have built it meanwhile
+                tmp_path = f"{lib_path}.tmp.{os.getpid()}"
+                cmd = [os.environ.get("CXX", "g++"), *CXX_FLAGS, SOURCE, "-o", tmp_path]
+                try:
+                    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+                except OSError as exc:
+                    raise RuntimeError(f"the C++ rasterizer cannot be built: {exc}") from exc
+                if proc.returncode:
+                    raise RuntimeError(f"the C++ rasterizer failed to build ({proc.returncode}):\n"
+                                       f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+                os.replace(tmp_path, lib_path)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return lib_path
 
 
 @functools.lru_cache(maxsize=None)
 def _rasterizer() -> ctypes.CDLL:
-    lib = load_library("rasterizer.cpp", "librasterizer.so")
-    if lib is None:
-        raise RuntimeError("the C++ rasterizer (shapegan_tpu/native/rasterizer.cpp) "
-                           "could not be built")
+    lib = ctypes.CDLL(build_rasterizer())
     f32p = ctypes.POINTER(ctypes.c_float)
     lib.rasterize_scene.restype = None
     lib.rasterize_scene.argtypes = [

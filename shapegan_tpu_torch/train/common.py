@@ -20,7 +20,7 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from shapegan_tpu.util import create_text_slice, ensure_directory
+from shapegan_tpu_torch.util import create_text_slice, ensure_directory
 
 
 class CSVLogger:
@@ -127,7 +127,7 @@ def resolve_voxel_dataset(config, resolution: int = 32, rescale_sdf: bool = True
                           clamp: float = 0.1):
     """Voxel dataset: synthetic (if requested), else the split file, else
     the glob — the JAX package's order."""
-    from shapegan_tpu.data.datasets import ArrayDataset, VoxelDataset
+    from shapegan_tpu_torch.data.datasets import ArrayDataset, VoxelDataset
     from shapegan_tpu_torch.data.synthetic import make_voxel_dataset
 
     if config.synthetic:

@@ -285,3 +285,71 @@ def test_render_frame_runs_points_or_trace_kernel(cuda, monkeypatch):
     assert frames[True].shape == (64, 64, 3)
     assert float((frames[True] != frames[False]).any(axis=2).mean()) <= 0.01
     assert 0.05 < float((frames[True] != 255).any(axis=2).mean()) < 0.6
+
+
+# B6b (rowwise backward) against its plain version: the bounds of B2 above,
+# with the per-row dzz1 / dzz5 exempt from the max bound. Measured on an
+# H100 (chip_smoke.py, N=3001 and 20,000): L2 <= 7.0e-3 (the plain version
+# with float64 sums reads 5.2e-3 there), max <= 1.7e-2 on the summed outputs.
+ROWWISE_BWD_NAMES = ("dzz1", "dzz5", "d_w", "d_b", "d_w8", "d_b8")
+ROWWISE_SUMMED = ROWWISE_BWD_NAMES[2:]
+
+
+def _rowwise_ops(device, n, seed):
+    params, pts, lats = _setup(device, n, 1, seed)
+    rows = torch.tensor(np.random.default_rng(seed).normal(size=(n, 128)).astype(np.float32) * 0.1,
+                        device=device)
+    zz1, zz5 = K.latent_terms(params, rows)
+    g = torch.tensor(np.random.default_rng(seed + 1).normal(size=n).astype(np.float32), device=device)
+    return K.rowwise_operands(params, pts, zz1, zz5), g
+
+
+@pytest.mark.parametrize("n", [3001, 128, 20000])
+def test_rowwise_kernels_match_plain(cuda, n):
+    """B6a and B6b against their plain versions (3001: a padded tail)."""
+    ops, g = _rowwise_ops(cuda, n, seed=n)
+    _close(K.rowwise_forward_cuda(*ops), K.rowwise_forward_plain(*ops))
+    got, want = K.rowwise_backward_cuda(*ops, g), K.rowwise_backward_plain(*ops, g)
+    torch.cuda.synchronize()
+    for name, a, b in zip(ROWWISE_BWD_NAMES, got, want):
+        assert a.shape == b.shape and torch.isfinite(a).all(), name
+        d = a.double() - b.double()
+        l2 = float(d.norm() / b.double().norm().clamp_min(1e-30))
+        mx = float(d.abs().max() / b.double().abs().max().clamp_min(1e-30))
+        print(f"  {name}: l2 {l2:.3e} max {mx:.3e}")
+        assert l2 <= BWD_L2, (name, l2)
+        assert name not in ROWWISE_SUMMED or mx <= BWD_MAX, (name, mx)
+
+
+def test_autodecoder_step_on_card_matches_cpu(cuda):
+    """One autodecoder step (loss_and_grads through apply_rowwise: B6a and
+    B6b on the card, their plain versions on the CPU) from the same
+    weights, table and batch: the loss, and every gradient by the relative
+    bounds of B6b (the table's and b1/b5's are bf16 sums; bounded alike)."""
+    from shapegan_tpu_torch.train import sdf_autodecoder as T
+
+    params, _, _ = _setup("cpu", 1, 1, seed=9)
+    rng = np.random.default_rng(9)
+    points = torch.tensor(rng.uniform(-1, 1, (4 * 5000, 3)).astype(np.float32))
+    sdf = torch.tensor(np.clip(rng.normal(0, 0.05, 4 * 5000), -0.1, 0.1).astype(np.float32))
+    codes = torch.tensor(rng.normal(size=(4, 128)).astype(np.float32) * 0.01)
+    indices = torch.tensor(rng.integers(0, 4 * 5000, 20000))
+    results = []
+    for device in ("cpu", cuda):
+        leaves = {k: v.to(device).requires_grad_(True) for k, v in params.items()}
+        table = codes.to(device).requires_grad_(True)
+        before = K.rowwise_forward_cuda.launch_count, K.rowwise_backward_cuda.launch_count
+        loss, grads, code_grad = T.loss_and_grads(leaves, table, points.to(device), sdf.to(device),
+                                                  indices.to(device), 5000)
+        after = K.rowwise_forward_cuda.launch_count, K.rowwise_backward_cuda.launch_count
+        assert [a - b for a, b in zip(after, before)] == ([0, 0] if device == "cpu" else [1, 1])
+        results.append((float(loss), {k: v.cpu() for k, v in grads.items()}, code_grad.cpu()))
+    (cpu_loss, cpu_grads, cpu_codes), (gpu_loss, gpu_grads, gpu_codes) = results
+    assert abs(cpu_loss - gpu_loss) <= 1e-5
+    pairs = [(k, gpu_grads[k], cpu_grads[k]) for k in cpu_grads] + [("table", gpu_codes, cpu_codes)]
+    for name, a, b in pairs:
+        d = a.double() - b.double()
+        l2 = float(d.norm() / b.double().norm().clamp_min(1e-30))
+        mx = float(d.abs().max() / b.double().abs().max().clamp_min(1e-30))
+        print(f"  {name}: l2 {l2:.3e} max {mx:.3e}")
+        assert l2 <= BWD_L2 and mx <= BWD_MAX, (name, l2, mx)
