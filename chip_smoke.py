@@ -14,13 +14,17 @@ Phases, each fatal on failure (nothing is caught):
      primary rays at 1600^2, shadow rays with per-lane escape heights, and
      an odd N with pre-resolved lanes; the rowwise kernel and its backward
      at the autodecoder's batch (20,000 rows, codes gathered from a 64-row
-     table, the bundled weights) and at N=3001 with random weights;
+     table, the bundled weights) and at N=3001 with random weights; the
+     point-GAN generator kernel at the D step's 32 x 4096 points and at
+     B=3, N=1000 (a tail tile, tiles spanning two items), fresh weights;
   4. median times of kernel and plain version at the main path's shapes,
      and of 20 per-iteration points-kernel trace steps beside the trace
-     kernel's 20; the rowwise kernels at 20,000 and 65,536 rows; each
-     kernel's bound (the larger of its operations over the bf16 tensor-core
-     peak and its bytes over the memory rate, from this run's shapes; the
-     trace kernel's from the lane-steps its rays need);
+     kernel's 20; the rowwise kernels at 20,000 and 65,536 rows; the
+     generator kernel at 32 x 4096 and 6 x 32768 beside the bf16 module (the
+     fused switch's other side); each kernel's bound (the larger of its
+     operations over the bf16 tensor-core peak and its bytes over the
+     memory rate, from this run's shapes; the trace kernel's from the
+     lane-steps its rays need);
   5. the generation path: slice A, generate_volumes_inference on 16 codes
      at 64^3, whose counts must show the grid kernel ran, and slice B, the
      demo_sdf_net entry point in mesh mode at 128^3 in a temporary
@@ -50,8 +54,18 @@ Phases, each fatal on failure (nothing is caught):
      other kernel; losses finite and falling, checkpoints, snapshots, the
      optimizer sidecar and the CSV checked; the gradients of one kernel
      step against the float32 reference math; the trainer's step time
-     beside the same step with autograd over bf16 torch matmuls.
-Each run of a path in phases 5-7 and 9 starts with every launch count set to 0
+     beside the same step with autograd over bf16 torch matmuls;
+ 10. the point-GAN path: the point-set GAN trainer's entry point (synthetic=64,
+     epochs=1: all six curriculum stages, 23 steps) in a temporary
+     directory, then ``continue`` to epochs=2 (stages 4-6 twice, 34 steps),
+     both with the fused generator switch on, then epochs=1 in another
+     directory with it off; with the
+     switch on the generator kernel must have launched once per D step and
+     no other kernel, with it off none; losses finite, checkpoints, the
+     optimizer sidecar and the CSV checked; one D step's fake cloud from the
+     kernel against the bf16 module's at the same latents; the D step (switch
+     on and off) and G step times at 32 x 4096 and the steps/s they give.
+Each run of a path in phases 5-7, 9 and 10 starts with every launch count set to 0
 and reads the counts just after; launches made to compare a kernel with its
 plain version or to time it are never counted. The kernels line gives each
 kernel's launches summed over those runs, and per run.
@@ -134,6 +148,20 @@ FRAME_COVERAGE = (0.05, 0.6)
 SWITCH_PIXELS_DIFFER = 0.01
 HIT_SURFACE_DIST = 0.02
 HIT_SURFACE_SHARE = 0.95
+# The point-GAN generator kernel (B7) vs its plain version on the same
+# operands. Its LayerNorm sums run in another order than PyTorch's, so now
+# and then an activation lands on the other side of a bf16 rounding and the
+# flip spreads through the later layers: measured on the H100 max <= 5.4e-3,
+# mean <= 1.4e-5 at both shapes (output scale ~0.5). The max bound only
+# catches gross errors; three wrong kernels read mean >= 1.6e-3 (pre-norm sum
+# rounded to bf16, variance without the mean, every row on item 0's latent
+# rows; PERF.md, section 6), so the mean bound sits between.
+GEN_MAX_ABS = 1e-2
+GEN_MEAN_ABS = 1e-4
+# One D step's fake cloud from the kernel against the bf16 module's (flax's
+# rounding points) at the same latents: the JAX package's bound for its
+# kernel against the module (tests/test_pallas_kernels.py:401).
+GEN_VS_MODULE_MAX_ABS = 2e-2
 # Sizes: the trace kernel's rays (the frame's 800^2 x ssaa 2), the demo's
 # frames, and the hit-point check.
 TRACE_SIZE = 1600
@@ -155,11 +183,13 @@ def nvidia_smi_line() -> str:
 def launch_counters() -> dict:
     """Each kernel's wrapper under the name the paths report it by; a
     wrapper adds one to its ``launch_count`` where it launches its kernel."""
+    from shapegan_tpu_torch.ops import point_gen_kernels as PG
     from shapegan_tpu_torch.ops import sdf_mlp_kernels as K
 
     return {"grid": K.grid_forward_cuda, "grid_bwd": K.grid_backward_cuda,
             "points": K.points_forward_cuda, "trace": K.trace_steps_cuda,
-            "rowwise": K.rowwise_forward_cuda, "rowwise_bwd": K.rowwise_backward_cuda}
+            "rowwise": K.rowwise_forward_cuda, "rowwise_bwd": K.rowwise_backward_cuda,
+            "point_gen": PG.generate_cuda}
 
 
 def reset_counts() -> None:
@@ -200,7 +230,8 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def compare(name: str, got, want) -> float:
+def compare(name: str, got, want, max_bound: float = KERNEL_MAX_ABS,
+            mean_bound: float = KERNEL_MEAN_ABS) -> float:
     """Max-abs error of a kernel against its plain version; fails beyond
     the stated tolerances."""
     import torch
@@ -211,11 +242,27 @@ def compare(name: str, got, want) -> float:
                              f"finite={bool(torch.isfinite(got).all())}")
     diff = (got - want).abs()
     max_abs, mean_abs = float(diff.max()), float(diff.mean())
-    log(f"  {name}: max_abs={max_abs:.3e} (<= {KERNEL_MAX_ABS}) "
-        f"mean_abs={mean_abs:.3e} (<= {KERNEL_MEAN_ABS})")
-    if not (max_abs <= KERNEL_MAX_ABS and mean_abs <= KERNEL_MEAN_ABS):
+    log(f"  {name}: max_abs={max_abs:.3e} (<= {max_bound}) "
+        f"mean_abs={mean_abs:.3e} (<= {mean_bound})")
+    if not (max_abs <= max_bound and mean_abs <= mean_bound):
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
     return max_abs
+
+
+def point_gen_case(batch: int, n: int, seed: int, device):
+    """B7's operands for ``batch`` clouds of ``n`` uniform points in [-1, 1]^3
+    and latents N(0, 1), from a generator with fresh full-width weights:
+    (operands, the bf16 generator, its parameters, pos, z)."""
+    import torch
+    from shapegan_tpu_torch.ops import point_gen_kernels as PG
+    from shapegan_tpu_torch.train import point_gan as T
+
+    generator, _ = T.create_models(seed, device)
+    params = {k: v.detach() for k, v in generator.named_parameters()}
+    gen = torch.Generator().manual_seed(seed)
+    pos = (torch.rand((batch, n, 3), generator=gen) * 2 - 1).to(device)
+    z = torch.randn((batch, T.LATENT_SIZE), generator=gen).to(device)
+    return PG.generate_operands(params, pos, z), generator, params, pos, z
 
 
 def compare_backward(name: str, got, want, names=BWD_NAMES, per_row=("d_pp1", "d_pp5")) -> float:
@@ -643,9 +690,124 @@ def autodecoder_grads_vs_float32(device) -> None:
         raise AssertionError(f"autodecoder gradients disagree with float32: {readings}")
 
 
+def point_gan_path() -> dict:
+    """Phase 10: the point-set GAN trainer's entry point in temporary
+    directories: epochs=1 and a ``continue`` to epochs=2 with the fused
+    generator switch on, epochs=1 with it off; returns the launch counts
+    per run and the first D step's kernel-vs-module reading."""
+    import csv
+    import math
+
+    import torch
+    from torch.func import functional_call
+    from shapegan_tpu_torch.core.config import parse_cli
+    from shapegan_tpu_torch.ops import point_gen_kernels as PG
+    from shapegan_tpu_torch.train import point_gan as T
+
+    readings = {}
+    generate_best = T.generate_best
+
+    def probe(generator, params, pos, z):
+        """The trainer's generate_best, and once per run with the switch on,
+        the bf16 module's cloud at the same parameters and latents (no
+        kernel launch) against it."""
+        fake = generate_best(generator, params, pos, z)
+        if PG._FORCE_FUSED_GENERATE and "fake vs module" not in readings:
+            module = functional_call(generator, params, (pos, z))
+            readings["fake vs module"] = float((fake - module).abs().max())
+            readings["probe shape"] = tuple(fake.shape)
+        return fake
+
+    # (path, directory, arguments, switch, CSV lines after, D steps). 64
+    # shapes: 2, 2, 2, 2, 5 and 10 batches an epoch in the six stages. The
+    # resume skips as many epochs as the CSV has lines, in the new run's
+    # order (the JAX trainer's rule): with epochs=2 those are stages 1-3,
+    # so it runs stages 4-6 twice, 34 steps.
+    runs = (("point GAN epochs=1, switch on", "a", ["epochs=1"], True, 6, 23),
+            ("point GAN continue to epochs=2, switch on", "a", ["epochs=2", "continue"], True, 12, 34),
+            ("point GAN epochs=1, switch off", "b", ["epochs=1"], False, 6, 23))
+    paths = {}
+    default = PG._FORCE_FUSED_GENERATE
+    T.generate_best = probe
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            cwd = os.getcwd()
+            try:
+                for path, sub, argv, fused, csv_rows, want_steps in runs:
+                    os.makedirs(os.path.join(tmp, sub), exist_ok=True)
+                    os.chdir(os.path.join(tmp, sub))
+                    PG._FORCE_FUSED_GENERATE = fused
+                    readings.pop("fake vs module", None)
+                    reset_counts()
+                    t0 = time.perf_counter()
+                    result = T.train(parse_cli(["synthetic=64", *argv]))
+                    torch.cuda.synchronize()
+                    seconds = time.perf_counter() - t0
+                    counts = paths[path] = read_counts()
+                    with open("plots/point_gan_training.csv") as f:
+                        rows = [[float(v) for v in r] for r in csv.reader(f, delimiter=" ")]
+                    files = [T.G_NAME, T.D_NAME, T.OPT_NAME]
+                    missing = [n for n in files if not os.path.exists(os.path.join("models", n + ".npz"))]
+                    steps = result["steps"]
+                    log(f"  {path}: {seconds:.2f} s (first call, host clock, data made on the host "
+                        f"included), {steps} D steps, {len(result['g_step_s'])} G steps; CSV rows "
+                        f"{[(int(r[0]), int(r[1]), round(r[3], 6)) for r in rows]}")
+                    check_counts(path, counts, launched=("point_gen",) if fused else (),
+                                 idle=[k for k in counts if k != "point_gen" or not fused])
+                    if fused and counts["point_gen"] != steps:
+                        raise AssertionError(f"{path}: {steps} D steps but launches {counts}")
+                    if len(rows) != csv_rows or any(len(r) != 4 for r in rows):
+                        raise AssertionError(f"{path}: CSV rows {rows}")
+                    if not all(math.isfinite(v) for r in rows for v in r) or missing:
+                        raise AssertionError(f"{path}: losses {rows}, files missing {missing}")
+                    if steps != want_steps or result["generator"].lin0.weight.device.type != "cuda":
+                        raise AssertionError(f"{path}: {steps} steps (expected {want_steps}), "
+                                             f"generator on {result['generator'].lin0.weight.device}")
+                    if fused:
+                        err = readings["fake vs module"]
+                        log(f"  first D step's fake cloud {readings['probe shape']}: kernel vs bf16 "
+                            f"module max_abs={err:.3e} (<= {GEN_VS_MODULE_MAX_ABS})")
+                        if not err <= GEN_VS_MODULE_MAX_ABS:
+                            raise AssertionError(f"{path}: the kernel's fake cloud is not the module's")
+            finally:
+                os.chdir(cwd)
+    finally:
+        T.generate_best = generate_best
+        PG._FORCE_FUSED_GENERATE = default
+    return paths
+
+
+def point_gan_step_times(device, kind: str) -> None:
+    """Phase 10: the D step (fused generator switch on and off) and the G
+    step at 32 x 4096 points, host clock after a synchronize, median of 10;
+    the trainer's steps/s at one D step and a fifth of a G step."""
+    import torch
+    from shapegan_tpu_torch.profile_slice import point_gan_steps
+
+    ms = {}
+    for name, fn in point_gan_steps(device).items():
+        for _ in range(3):
+            fn()
+        times = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[name] = statistics.median(times)
+        log(f"  point GAN {name} at 32 x 4096: {ms[name]:.3f} ms (host clock after a synchronize, "
+            f"median of 10; fresh weights; {kind})")
+    for switch in ("on", "off"):
+        step = ms[f"D step, switch {switch}"] + ms["G step"] / 5
+        log(f"  switch {switch}: {1000 / step:.3f} steps/s (one D step and a fifth of a G step)")
+
+
 def main() -> int:
     import torch
+    from torch.func import functional_call
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -655,6 +817,7 @@ def main() -> int:
     from shapegan_tpu_torch.models import LATENT_CODES_FILENAME
     from shapegan_tpu_torch.models.sdf_net import SDFNet
     from shapegan_tpu_torch.ops import _build, sdf_mlp
+    from shapegan_tpu_torch.ops import point_gen_kernels as PG
     from shapegan_tpu_torch.ops import sdf_mlp_kernels as K
     from shapegan_tpu_torch.ops.coords import unit_sphere_mask, voxel_coordinates
     from shapegan_tpu_torch.train.hybrid_gan import generate_volumes_inference
@@ -742,6 +905,14 @@ def main() -> int:
         rowwise_bwd_err = max(rowwise_bwd_err, compare_backward(
             f"rowwise_bwd N={n}", K.rowwise_backward_cuda(*ops, g),
             K.rowwise_backward_plain(*ops, g), ROWWISE_BWD_NAMES, ROWWISE_PER_ROW))
+    # B7 at the D step's shape (stage 3 of the curriculum) and at an odd
+    # shape with a tail tile and tiles spanning two items; fresh weights.
+    gen_cases = {(b, n): point_gen_case(b, n, seed, device)
+                 for b, n, seed in ((32, 4096, 10), (3, 1000, 11))}
+    gen_err = 0.0
+    for (b, n), (ops, *_rest) in gen_cases.items():
+        gen_err = max(gen_err, compare(f"point_gen B={b} N={n}", PG.generate_cuda(*ops),
+                                       PG.generate_plain(*ops), GEN_MAX_ABS, GEN_MEAN_ABS))
 
     log(f"== 4. times at the main path's shapes ({kind}; {smi})")
     trunk_flop = 2 * 6 * 256 * 256
@@ -824,8 +995,30 @@ def main() -> int:
         log(f"  rowwise_bwd N={n}: kernel {bwd[0]:.4f} ms "
             f"({n * 17 * 2 * 256 * 256 / bwd[0] / 1e9:.1f} TFLOP/s over the 17 products) | "
             f"plain {bwd[1]:.4f} ms | bound {bwd_bound[0]:.4f} ms ({bwd_bound[1]})")
+    # B7 at the D step's two ends of the curriculum's middle: 32 x 4096
+    # (stage 3; the kernels line's figures) and 6 x 32768 (stage 6), beside
+    # the bf16 module (SDFGenerator with the fused switch off). Six 256 x 256
+    # products and the two depth-3 position products a row, and the head;
+    # xyz in and one float out a row, the weights and zz rows once.
+    gen_cases[(6, 32768)] = point_gen_case(6, 32768, 12, device)
+    gen_weight_bytes = 6 * 256 * 256 * 2 + 2 * 3 * 256 * 2 + 3 * 8 * 256 * 2 + 256 * 2
+    for b, n in ((32, 4096), (6, 32768)):
+        ops, generator, gen_params, pos, z = gen_cases[(b, n)]
+        rows = b * n
+        gen_bound = bound(2 * rows * (6 * 256 * 256 + 2 * 3 * 256 + 256),
+                          rows * 16 + gen_weight_bytes + 2 * b * 256 * 2)
+        with torch.no_grad():
+            gen_times = (time_ms(lambda: PG.generate_cuda(*ops), iters=20),
+                         time_ms(lambda: PG.generate_plain(*ops), iters=5),
+                         time_ms(lambda: functional_call(generator, gen_params, (pos, z)), iters=10))
+        if (b, n) == (32, 4096):
+            times["point_gen"], bounds["point_gen"] = gen_times[:2], gen_bound
+        log(f"  point_gen {b} x {n}: kernel {gen_times[0]:.4f} ms "
+            f"({2 * rows * 6 * 256 * 256 / gen_times[0] / 1e9:.1f} trunk TFLOP/s) | plain "
+            f"{gen_times[1]:.4f} ms | bf16 module (switch off) {gen_times[2]:.4f} ms | bound "
+            f"{gen_bound[0]:.4f} ms ({gen_bound[1]})")
     del grid_ops, odd_ops, points_ops, odd_points_ops, odd_bwd_ops, g16, g3, cases, ops
-    del rowwise_cases
+    del rowwise_cases, gen_cases
     torch.cuda.empty_cache()
 
     log("== 5. generation path")
@@ -919,6 +1112,10 @@ def main() -> int:
             ms.append((time.perf_counter() - t0) * 1e3)
         log(f"  autodecoder step ({name}): {statistics.median(ms):.3f} ms (host clock after a "
             f"synchronize, median of 20; fresh weights, random batches of 20000)")
+    log(f"== 10. point-GAN path: point-set SDF GAN, 64 synthetic shapes, curriculum 1024 x 32 -> "
+        f"32768 x 6 ({kind}; {smi})")
+    paths.update(point_gan_path())
+    point_gan_step_times(device, f"{kind}; {smi}")
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         raise AssertionError("jax was imported")
 
@@ -926,20 +1123,24 @@ def main() -> int:
         # library_ms: no single PyTorch call computes an 8-layer MLP (or its
         # recompute backward, or K trace steps of it), so none is timed.
         return {"name": name, "route": "cuda", "source": f"shapegan_tpu_torch/ops/csrc/{source}",
-                "replaces": f"shapegan_tpu/ops/sdf_mlp_pallas.py:{replaces}",
+                "replaces": f"shapegan_tpu/ops/{replaces}",
                 "launches": sum(p[counter] for p in paths.values()),
                 "launches_by_path": {path: p[counter] for path, p in paths.items() if p[counter]},
                 "max_abs_err": err, "ms": times[counter][0], "plain_ms": times[counter][1],
                 "bound_ms": bounds[counter][0], "bound_by": bounds[counter][1], "library_ms": None}
 
     kernels = [
-        kernel_entry("sdf_grid", "grid", "sdf_grid.cu", 50, grid_err),
-        kernel_entry("sdf_points", "points", "sdf_points.cu", 199, points_err),
-        kernel_entry("sdf_grid_bwd", "grid_bwd", "sdf_grid_bwd.cu", 469, bwd_err),
-        kernel_entry("sdf_trace", "trace", "sdf_trace.cu", 331, trace_err),
-        kernel_entry("sdf_rowwise", "rowwise", "sdf_rowwise.cu", 1132, rowwise_err),
-        kernel_entry("sdf_rowwise_bwd", "rowwise_bwd", "sdf_rowwise_bwd.cu", 1141, rowwise_bwd_err),
+        kernel_entry("sdf_grid", "grid", "sdf_grid.cu", "sdf_mlp_pallas.py:50", grid_err),
+        kernel_entry("sdf_points", "points", "sdf_points.cu", "sdf_mlp_pallas.py:199", points_err),
+        kernel_entry("sdf_grid_bwd", "grid_bwd", "sdf_grid_bwd.cu", "sdf_mlp_pallas.py:469", bwd_err),
+        kernel_entry("sdf_trace", "trace", "sdf_trace.cu", "sdf_mlp_pallas.py:331", trace_err),
+        kernel_entry("sdf_rowwise", "rowwise", "sdf_rowwise.cu", "sdf_mlp_pallas.py:1132",
+                     rowwise_err),
+        kernel_entry("sdf_rowwise_bwd", "rowwise_bwd", "sdf_rowwise_bwd.cu", "sdf_mlp_pallas.py:1141",
+                     rowwise_bwd_err),
+        kernel_entry("point_gen", "point_gen", "point_gen.cu", "point_gen_pallas.py:62", gen_err),
     ]
+    log(f"== wall time of the whole run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

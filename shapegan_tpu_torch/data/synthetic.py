@@ -7,7 +7,8 @@ the port's voxel grid (the same float32 coordinates as the JAX package's),
 so :func:`make_voxel_dataset` returns bit-identical volumes for the same
 ``(count, resolution, clamp, rescale, seed)``, and
 :func:`make_sdf_pointcloud` bit-identical ``(points, sdf)`` for the same
-``(count_shapes, points_per_shape, clamp, seed)``.
+``(count_shapes, points_per_shape, clamp, seed)``, and
+:class:`SyntheticPointDataset` the same pools and draws.
 """
 
 from __future__ import annotations
@@ -106,3 +107,45 @@ def make_sdf_pointcloud(count_shapes: int, points_per_shape: int, clamp: float =
 
 def _normalize(x: np.ndarray) -> np.ndarray:
     return (x / np.maximum(np.linalg.norm(x, axis=-1, keepdims=True), 1e-12)).astype(np.float32)
+
+
+class SyntheticPointDataset:
+    """In-memory stand-in for :class:`~shapegan_tpu_torch.data.datasets.PointDataset`:
+    per shape, pools of ``pool_size`` (uniform [P, 4], surface [P, 4]) samples
+    (xyz + sdf) of a random analytic shape, uniform in the unit ball and
+    jittered near the surface. Item ``idx`` draws ``num_points`` indices,
+    with repeats, from ``default_rng((seed, epoch, idx))``, so a resumed run
+    sees the samples of an uninterrupted one. Pools and draws are
+    bit-identical to the JAX package's class."""
+
+    def __init__(self, count_shapes: int, pool_size: int = 16384, num_points: int = 1024,
+                 seed: int = 0):
+        self.num_points = num_points
+        self.seed = seed
+        self.epoch = 0
+        self._uniform = []
+        self._surface = []
+        for s in range(count_shapes):
+            rng = np.random.default_rng(seed + 1000 + s)
+            direction = _normalize(rng.normal(size=(pool_size, 3)))
+            radius = rng.random((pool_size, 1)) ** (1 / 3)
+            upts = (direction * radius).astype(np.float32)
+            usdf = random_shape_sdf(upts, seed=seed + s).astype(np.float32)
+            spts = upts - usdf[:, None] * _normalize(rng.normal(size=(pool_size, 3)))
+            spts += rng.normal(0, 0.0025, spts.shape)
+            spts = spts.astype(np.float32)
+            ssdf = random_shape_sdf(spts, seed=seed + s).astype(np.float32)
+            self._uniform.append(np.concatenate([upts, usdf[:, None]], axis=1))
+            self._surface.append(np.concatenate([spts, ssdf[:, None]], axis=1))
+
+    def __len__(self) -> int:
+        return len(self._uniform)
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = int(epoch)
+
+    def __getitem__(self, idx: int):
+        pool = self._uniform[idx]
+        rng = np.random.default_rng((self.seed, self.epoch, idx))
+        sample = rng.choice(pool.shape[0], self.num_points)
+        return pool[sample], self._surface[idx][sample]

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Do ``chip_smoke.py``'s bounds for the rowwise backward kernel (B6b) tell a
-wrong kernel from a sound one? On one GPU:
+"""Do ``chip_smoke.py``'s bounds for the rowwise backward kernel (B6b) and the
+point-GAN generator kernel (B7) tell a wrong kernel from a sound one? On one
+GPU:
 
     python -m shapegan_tpu_torch.kernel_mutants
 
-It holds the sound kernel, and the plain version with float64 sums (the
-noise floor of bf16 rounding flips), against the float32 plain version at
-chip_smoke's B6b cases, then builds each wrong copy of
-``ops/csrc/sdf_rowwise_bwd.cu`` in a temporary directory (never in the
+It holds each sound kernel against its plain version at chip_smoke's cases
+(for B6b also the plain version with float64 sums, the noise floor of bf16
+rounding flips), then builds each wrong copy of ``ops/csrc/sdf_rowwise_bwd.cu``
+and ``ops/csrc/point_gen.cu`` in a temporary directory (never in the
 checkout) and reports whether it fails the bounds. A wrong kernel that
 passes is printed as ``PASSES``.
 """
@@ -24,13 +25,14 @@ import torch
 
 from shapegan_tpu_torch import checkpoints
 from shapegan_tpu_torch.ops import _build, sdf_mlp
+from shapegan_tpu_torch.ops import point_gen_kernels as PG
 from shapegan_tpu_torch.ops import sdf_mlp_kernels as K
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BF16 = torch.bfloat16
 
-# (what is wrong, source text, its replacement) in sdf_rowwise_bwd.cu.
-MUTANTS = (
+# (what is wrong, source text, its replacement) in sdf_rowwise_bwd.cu ...
+ROWWISE_BWD_MUTANTS = (
     ("the layer-1 projection rounded to bf16 before zz1 is added (B2's rounding)",
      "const float2 a = sdf::project_f32(in.pts[r], in.w1p, c);",
      "const float2 a = sdf::project(in.pts[r], in.w1p, c);"),
@@ -40,6 +42,18 @@ MUTANTS = (
     ("the rebuilt layers at the forward's rounding (product rounded before the bias)",
      "v0 = __fadd_rn(v0, __bfloat162float(s.bias[layer * WIDTH + col]));",
      "v0 = __fadd_rn(sdf::round_bf16(v0), __bfloat162float(s.bias[layer * WIDTH + col]));"),
+)
+# ... and in point_gen.cu.
+POINT_GEN_MUTANTS = (
+    ("the pre-LayerNorm sum rounded to bf16 (flax's rounding point)",
+     "const float2 v = make_float2(v0, v1);",
+     "const float2 v = make_float2(sdf::round_bf16(v0), sdf::round_bf16(v1));"),
+    ("every row reading item 0's zz rows",
+     "min((p0 + row) / n, static_cast<long long>(batch - 1))",
+     "0LL"),
+    ("the variance taken without subtracting the mean",
+     "const float dev = __fsub_rn(acc[mi][ni][2 * h + e], mean[mi][h]);",
+     "const float dev = acc[mi][ni][2 * h + e];"),
 )
 
 
@@ -78,13 +92,59 @@ def _chip_smoke():
     return module
 
 
-def _holds(cs, name, got, want) -> bool:
+def _holds(check) -> bool:
     try:
-        cs.compare_backward(name, got, want, cs.ROWWISE_BWD_NAMES, cs.ROWWISE_PER_ROW)
+        check()
         return True
     except AssertionError as exc:
         print(f"  outside the bounds: {str(exc)[:160]}")
         return False
+
+
+def _rowwise_bwd_check(cs, cases, n, kernel=None):
+    ops, g = cases[n]
+    want = K.rowwise_backward_plain(*ops, g)
+    got = (kernel or K.rowwise_backward_cuda)(*ops, g)
+    return lambda: cs.compare_backward(f"rowwise_bwd N={n}", got, want, cs.ROWWISE_BWD_NAMES,
+                                       cs.ROWWISE_PER_ROW)
+
+
+def _point_gen_check(cs, cases, shape):
+    ops = cases[shape][0]
+    got, want = PG.generate_cuda(*ops), PG.generate_plain(*ops)
+    return lambda: cs.compare(f"point_gen B={shape[0]} N={shape[1]}", got, want, cs.GEN_MAX_ABS,
+                              cs.GEN_MEAN_ABS)
+
+
+def _wrong_kernels(source_name, mutants, checks) -> bool:
+    """Build each mutant of ``ops/csrc/<source_name>`` in a temporary
+    directory and run ``checks`` (case → a check, made after the build)
+    against it; True if every mutant fails at every case."""
+    source = os.path.join(_build.CSRC_DIR, source_name)
+    caught = True
+    for what, old, new in mutants:
+        with tempfile.TemporaryDirectory() as tmp:
+            csrc = os.path.join(tmp, "csrc")
+            shutil.copytree(_build.CSRC_DIR, csrc, ignore=shutil.ignore_patterns("build"))
+            with open(source) as f:
+                text = f.read()
+            if old not in text:
+                raise RuntimeError(f"mutant {what!r}: its source text is not in {source}")
+            with open(os.path.join(csrc, source_name), "w") as f:
+                f.write(text.replace(old, new))
+            saved = _build.CSRC_DIR, _build.BUILD_DIR
+            _build.CSRC_DIR, _build.BUILD_DIR = csrc, os.path.join(csrc, "build")
+            _build.load.cache_clear()
+            try:
+                print(f"== wrong kernel ({source_name}): {what}")
+                held = [case for case, check in checks.items() if _holds(check())]
+                if held:
+                    print(f"  PASSES the bounds at {held}")
+                    caught = False
+            finally:
+                _build.CSRC_DIR, _build.BUILD_DIR = saved
+                _build.load.cache_clear()
+    return caught
 
 
 def main() -> int:
@@ -99,40 +159,24 @@ def main() -> int:
     random = sdf_mlp.init(torch.Generator().manual_seed(1), device=device)
     cases = {n: cs.rowwise_case(p, n, seed, device)
              for n, p, seed in ((20000, bundled, 6), (3001, random, 7))}
-    print(f"== sound kernel, and float64 sums, against the plain version "
+    gen_cases = {(b, n): cs.point_gen_case(b, n, seed, device)
+                 for b, n, seed in ((32, 4096, 10), (3, 1000, 11))}
+    print(f"== sound kernels, and float64 sums, against the plain versions "
           f"({torch.cuda.get_device_name(0)}; {cs.nvidia_smi_line()})")
     sound = True
-    for n, (ops, g) in cases.items():
-        want = K.rowwise_backward_plain(*ops, g)
-        sound &= _holds(cs, f"kernel N={n}", K.rowwise_backward_cuda(*ops, g), want)
-        _holds(cs, f"float64 plain N={n}", rowwise_backward_float64(*ops, g), want)
+    for n in cases:
+        sound &= _holds(_rowwise_bwd_check(cs, cases, n))
+        _holds(_rowwise_bwd_check(cs, cases, n, kernel=rowwise_backward_float64))
+    for shape in gen_cases:
+        sound &= _holds(_point_gen_check(cs, gen_cases, shape))
 
-    source = os.path.join(_build.CSRC_DIR, "sdf_rowwise_bwd.cu")
-    caught = True
-    for what, old, new in MUTANTS:
-        with tempfile.TemporaryDirectory() as tmp:
-            csrc = os.path.join(tmp, "csrc")
-            shutil.copytree(_build.CSRC_DIR, csrc, ignore=shutil.ignore_patterns("build"))
-            with open(source) as f:
-                text = f.read()
-            if old not in text:
-                raise RuntimeError(f"mutant {what!r}: its source text is not in {source}")
-            with open(os.path.join(csrc, "sdf_rowwise_bwd.cu"), "w") as f:
-                f.write(text.replace(old, new))
-            saved = _build.CSRC_DIR, _build.BUILD_DIR
-            _build.CSRC_DIR, _build.BUILD_DIR = csrc, os.path.join(csrc, "build")
-            _build.load.cache_clear()
-            try:
-                print(f"== wrong kernel: {what}")
-                for n, (ops, g) in cases.items():
-                    if _holds(cs, f"N={n}", K.rowwise_backward_cuda(*ops, g),
-                              K.rowwise_backward_plain(*ops, g)):
-                        print(f"  PASSES the bounds at N={n}")
-                        caught = False
-            finally:
-                _build.CSRC_DIR, _build.BUILD_DIR = saved
-                _build.load.cache_clear()
-    print(f"sound kernel within the bounds: {sound}; every wrong kernel outside them: {caught}")
+    caught = _wrong_kernels(
+        "sdf_rowwise_bwd.cu", ROWWISE_BWD_MUTANTS,
+        {n: (lambda n=n: _rowwise_bwd_check(cs, cases, n)) for n in cases})
+    caught &= _wrong_kernels(
+        "point_gen.cu", POINT_GEN_MUTANTS,
+        {shape: (lambda shape=shape: _point_gen_check(cs, gen_cases, shape)) for shape in gen_cases})
+    print(f"sound kernels within the bounds: {sound}; every wrong kernel outside them: {caught}")
     return 0 if sound and caught else 1
 
 

@@ -21,13 +21,14 @@ Dense kernel is).
 
 from __future__ import annotations
 
-import math
 from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from shapegan_tpu_torch.models import torch_uniform_init_
 
 RESOLUTIONS = [8, 16, 32, 64]
 FEATURE_COUNTS = [128, 64, 32, 1]
@@ -64,12 +65,8 @@ class ProgressiveDiscriminator(nn.Module):
         self.head_dense1 = nn.Linear(64 * FINAL_LAYER_FEATURES, HEAD_FEATURES)
         self.head_dense2 = nn.Linear(HEAD_FEATURES, 1)
         generator = generator or torch.Generator().manual_seed(0)
-        with torch.no_grad():
-            for layer in (*self.optional_layers, self.head_dense1, self.head_dense2):
-                bound = 1.0 / math.sqrt(layer.weight[0].numel())  # fan-in: in x kernel volume
-                for param in (layer.weight, layer.bias):
-                    u = torch.rand(param.shape, generator=generator, dtype=torch.float32)
-                    param.copy_(u * (2 * bound) - bound)
+        for layer in (*self.optional_layers, self.head_dense1, self.head_dense2):
+            torch_uniform_init_(layer, generator)  # fan-in: in x kernel volume
         if device is not None:
             self.to(device)
 

@@ -25,7 +25,7 @@ CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(CSRC_DIR, "build")
 SOURCES = (
     "sdf_grid.cu", "sdf_points.cu", "sdf_grid_bwd.cu", "sdf_trace.cu", "sdf_rowwise.cu",
-    "sdf_rowwise_bwd.cu",
+    "sdf_rowwise_bwd.cu", "point_gen.cu",
 )
 HEADERS = ("sdf_trunk.cuh", "sdf_bwd_passes.cuh")
 NVCC_FLAGS = (
@@ -137,6 +137,8 @@ def load() -> ctypes.CDLL:
     lib.sdf_rowwise_backward.restype = i32
     lib.sdf_rowwise_backward_scratch_bytes.argtypes = [i32]
     lib.sdf_rowwise_backward_scratch_bytes.restype = ctypes.c_longlong
+    lib.point_gen_forward.argtypes = [ptr] * 11 + [i32, i32, i32, ptr]
+    lib.point_gen_forward.restype = i32
     lib.sdf_error_string.argtypes = [i32]
     lib.sdf_error_string.restype = ctypes.c_char_p
     return lib

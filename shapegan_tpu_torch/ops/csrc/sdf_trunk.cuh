@@ -5,7 +5,9 @@
 // sdf_rowwise.cu: points with per-row latent terms) run the same six 256x256
 // trunk layers and the same head on a tile of
 // BLOCK_M rows that stays in shared memory from the first layer to the
-// output; only the [rows] float32 result goes back to device memory.
+// output; only the [rows] float32 result goes back to device memory. The
+// point-GAN generator (point_gen.cu) runs the same products through
+// run_layers with an epilogue of its own (LayerNorm).
 //
 // What bounds it on the H100: the six bf16 trunk products (6 x 2 x 256 x 256
 // flops per row) are tensor-core work; device-memory traffic per row is a
@@ -157,19 +159,34 @@ struct SharedZz5 {
   }
 };
 
-// The six trunk layers over s.x (holding the layer-1 activations on entry,
-// the layer-7 activations on exit). `skip(row, col)` returns the bf16 pp5
-// pair of tile row `row`, columns col and col + 1, as floats; `zz5(row,
-// col)` the bf16 zz5 pair added after it.
-template <class Skip, class Zz5>
-__device__ __forceinline__ void run_trunk(TrunkSmem& s, const __nv_bfloat16* __restrict__ w,
-                                          const Skip& skip, const Zz5& zz5) {
+// A thread's accumulator tile: acc[mi][ni][2 * h + e] is the float32
+// product at tile row frag_row(mi, h), column frag_col(ni) + e (mma.sync's
+// fragment layout over the warp's 64 x 64 block). A row's 256 columns lie
+// with the 4 warps of one row half (warp & 3) and, inside each, with the 4
+// lanes of a quad (lane & 3), 16 columns a lane.
+typedef float Acc[4][8][4];
+
+__device__ __forceinline__ int frag_row(int mi, int h) {
+  return ((threadIdx.x >> 5) >> 2) * WARP_ROWS + mi * 16 + ((threadIdx.x & 31) >> 2) + h * 8;
+}
+
+__device__ __forceinline__ int frag_col(int ni) {
+  return ((threadIdx.x >> 5) & 3) * WARP_COLS + ni * 8 + (threadIdx.x & 3) * 2;
+}
+
+// The six trunk layers' products over s.x (holding the first layer's
+// activations on entry, the last layer's on exit). At the end of each
+// layer, after a barrier (every warp has read the layer's input rows),
+// `epilogue(layer, acc)` turns the float32 products into the next
+// activations in s.x; acc is zeroed after.
+template <class Epilogue>
+__device__ __forceinline__ void run_layers(TrunkSmem& s, const __nv_bfloat16* __restrict__ w,
+                                           const Epilogue& epilogue) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;  // mma fragment coordinates
   const int row0 = (warp >> 2) * WARP_ROWS;
   const int col0 = (warp & 3) * WARP_COLS;
 
-  float acc[4][8][4];
+  Acc acc;
 #pragma unroll
   for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
@@ -207,36 +224,63 @@ __device__ __forceinline__ void run_trunk(TrunkSmem& s, const __nv_bfloat16* __r
     }
 
     if (c % CHUNKS_PER_LAYER == CHUNKS_PER_LAYER - 1) {
-      const int layer = c / CHUNKS_PER_LAYER;
       __syncthreads();  // every warp has read this layer's input rows
+      epilogue(c / CHUNKS_PER_LAYER, acc);
 #pragma unroll
       for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
         for (int ni = 0; ni < 8; ++ni)
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int row = row0 + mi * 16 + g + h * 8;
-            const int col = col0 + ni * 8 + t * 2;
-            float v0 = round_bf16(acc[mi][ni][2 * h]);
-            float v1 = round_bf16(acc[mi][ni][2 * h + 1]);
-            if (layer == SKIP_LAYER) {
-              const float2 p = skip(row, col);
-              const float2 z = zz5(row, col);
-              v0 = round_bf16(round_bf16(v0 + p.x) + z.x);
-              v1 = round_bf16(round_bf16(v1 + p.y) + z.y);
-            } else {
-              v0 = round_bf16(v0 + __bfloat162float(s.bias[layer * WIDTH + col]));
-              v1 = round_bf16(v1 + __bfloat162float(s.bias[layer * WIDTH + col + 1]));
-            }
-            *reinterpret_cast<__nv_bfloat162*>(s.x + row * X_STRIDE + col) =
-                __floats2bfloat162_rn(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
-            acc[mi][ni][2 * h] = 0.f;
-            acc[mi][ni][2 * h + 1] = 0.f;
-          }
+          for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
     }
   }
   cp_async_wait<0>();
-  __syncthreads();  // the layer-7 activations are complete
+  __syncthreads();  // the last layer's activations are complete
+}
+
+// The DeepSDF trunk's epilogue (B1-B4, B6a): the product rounded to bf16,
+// plus the bf16 bias (layer 5: the skip term, then zz5), each sum rounded
+// to bf16, relu. `skip(row, col)` returns the bf16 pp5 pair of tile row
+// `row`, columns col and col + 1, as floats; `zz5(row, col)` the bf16 zz5
+// pair added after it.
+template <class Skip, class Zz5>
+struct TrunkEpilogue {
+  TrunkSmem& s;
+  const Skip& skip;
+  const Zz5& zz5;
+
+  __device__ __forceinline__ void operator()(int layer, Acc& acc) const {
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = frag_row(mi, h);
+          const int col = frag_col(ni);
+          float v0 = round_bf16(acc[mi][ni][2 * h]);
+          float v1 = round_bf16(acc[mi][ni][2 * h + 1]);
+          if (layer == SKIP_LAYER) {
+            const float2 p = skip(row, col);
+            const float2 z = zz5(row, col);
+            v0 = round_bf16(round_bf16(v0 + p.x) + z.x);
+            v1 = round_bf16(round_bf16(v1 + p.y) + z.y);
+          } else {
+            v0 = round_bf16(v0 + __bfloat162float(s.bias[layer * WIDTH + col]));
+            v1 = round_bf16(v1 + __bfloat162float(s.bias[layer * WIDTH + col + 1]));
+          }
+          *reinterpret_cast<__nv_bfloat162*>(s.x + row * X_STRIDE + col) =
+              __floats2bfloat162_rn(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
+        }
+  }
+};
+
+// The six trunk layers over s.x (holding the layer-1 activations on entry,
+// the layer-7 activations on exit), with the DeepSDF epilogue.
+template <class Skip, class Zz5>
+__device__ __forceinline__ void run_trunk(TrunkSmem& s, const __nv_bfloat16* __restrict__ w,
+                                          const Skip& skip, const Zz5& zz5) {
+  run_layers(s, w, TrunkEpilogue<Skip, Zz5>{s, skip, zz5});
 }
 
 template <class Skip>

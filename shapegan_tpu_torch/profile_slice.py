@@ -32,7 +32,12 @@ shape, so slice B's mesh is the sphere mask) and a chair fitted on the card
   then both Adams) beside the same step with autograd over bf16 ``torch``
   matmuls (:func:`apply_bf16_autograd`, the counterpart of the JAX
   package's production XLA step), medians of ``iters`` steps on the host
-  clock and ``torch.profiler`` over one of each.
+  clock and ``torch.profiler`` over one of each;
+* slice F, the point-set GAN trainer's steps at 32 x 4096 points (stage 3
+  of its curriculum, fresh full-width weights, a random batch): the D step
+  with the fused generator switch on (the generator kernel makes the fake
+  cloud) and off (the bf16 module), and the G step, medians of ``iters``
+  on the host clock, and ``torch.profiler`` over one of each.
 
 It needs CUDA and builds the kernels if they are not built yet.
 """
@@ -163,6 +168,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     profile_train_steps(device, iters)
     profile_raymarch(device, iters)
     profile_autodecoder(device, iters)
+    profile_point_gan(device, iters)
     return 0
 
 
@@ -306,6 +312,51 @@ def profile_autodecoder(device: torch.device, iters: int) -> None:
               f"(host clock, median of {iters})")
     for name, fn in steps.items():
         report(f"one autodecoder step ({name})", *profile_device(fn, top=10))
+
+
+def point_gan_steps(device: torch.device, batch: int = 32, points: int = 4096,
+                    seed: int = 0) -> Dict[str, Callable[[], object]]:
+    """The point GAN's steps (``train.point_gan.make_steps``) on fresh
+    full-width models and one random batch of uniform samples, each call
+    with new noise: ``{"D step, switch on", "D step, switch off", "G
+    step"}``; the D steps set the fused generator switch for their call."""
+    from shapegan_tpu_torch.ops import point_gen_kernels as PG
+    from shapegan_tpu_torch.optim import RMSprop
+    from shapegan_tpu_torch.train import point_gan as T
+
+    generator, critic = T.create_models(seed, device)
+    d_step, g_step = T.make_steps(generator, critic,
+                                  RMSprop(dict(generator.named_parameters()), T.LEARN_RATE),
+                                  RMSprop(dict(critic.named_parameters()), T.LEARN_RATE))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    u_pos = torch.rand((batch, points, 3), generator=gen, device=device) * 2 - 1
+    u_dist = (torch.rand((batch, points, 1), generator=gen, device=device) - 0.5) * 0.2
+
+    def d(fused: bool):
+        default = PG._FORCE_FUSED_GENERATE
+        PG._FORCE_FUSED_GENERATE = fused
+        try:
+            z = torch.randn((batch, T.LATENT_SIZE), generator=gen, device=device)
+            alpha = torch.rand((batch, 1, 1), generator=gen, device=device)
+            return d_step(u_pos, u_dist, z, alpha)
+        finally:
+            PG._FORCE_FUSED_GENERATE = default
+
+    return {"D step, switch on": lambda: d(True), "D step, switch off": lambda: d(False),
+            "G step": lambda: g_step(u_pos, torch.randn((batch, T.LATENT_SIZE), generator=gen,
+                                                        device=device))}
+
+
+def profile_point_gan(device: torch.device, iters: int) -> None:
+    """Slice F: the point GAN's D step (fused generator switch on and off)
+    and G step at 32 x 4096 points."""
+    steps = point_gan_steps(device)
+    for name, fn in steps.items():
+        times = [_host_ms(fn) for _ in range(iters + 2)][2:]
+        print(f"slice F, point GAN {name}, 32 x 4096 points: {statistics.median(times):.3f} ms "
+              f"(host clock, median of {iters})")
+    for name, fn in steps.items():
+        report(f"one point GAN {name}", *profile_device(fn, top=10))
 
 
 if __name__ == "__main__":

@@ -31,6 +31,7 @@ for name in names:
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 print(len(names))
+print(" ".join(names))
 """
 
 
@@ -39,4 +40,8 @@ def test_port_imports_nothing_of_jax():
     proc = subprocess.run([sys.executable, "-c", GUARDED_IMPORTS], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.split()[-1]) >= 30  # every module was walked
+    count, names = proc.stdout.splitlines()[-2:]
+    assert int(count) >= 34  # every module was walked
+    for module in ("models.point_sdf_net", "ops.point_gen_kernels", "train.point_gan",
+                   "data.datasets", "data.synthetic"):
+        assert f"shapegan_tpu_torch.{module}" in names.split(), module

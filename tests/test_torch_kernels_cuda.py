@@ -353,3 +353,62 @@ def test_autodecoder_step_on_card_matches_cpu(cuda):
         mx = float(d.abs().max() / b.double().abs().max().clamp_min(1e-30))
         print(f"  {name}: l2 {l2:.3e} max {mx:.3e}")
         assert l2 <= BWD_L2 and mx <= BWD_MAX, (name, l2, mx)
+
+
+# B7 (point-GAN generator) against its plain version: chip_smoke.py's bounds.
+# The LayerNorm's float32 sums run in another order in the kernel than in
+# PyTorch, so now and then an activation lands on the other side of a bf16
+# rounding and the flip spreads through the later layers: measured on an H100
+# max <= 5.4e-3, mean <= 1.4e-5. The max bound only catches gross errors;
+# three wrong kernels read mean >= 1.6e-3 (PERF.md, section 6).
+GEN_MAX_ABS = 1e-2
+GEN_MEAN_ABS = 1e-4
+
+
+@pytest.mark.parametrize("batch, n", [(3, 1000), (32, 4096), (2, 129)])
+def test_point_gen_kernel_matches_plain(cuda, batch, n):
+    """B7 against its plain version: a tail tile (1000, 129 points) and tiles
+    that span two items."""
+    from shapegan_tpu_torch.models.point_sdf_net import SDFGenerator
+    from shapegan_tpu_torch.ops import point_gen_kernels as PG
+
+    gen = SDFGenerator(generator=torch.Generator().manual_seed(batch), device=cuda)
+    rng = np.random.default_rng(n)
+    pos = torch.tensor(rng.uniform(-1, 1, (batch, n, 3)).astype(np.float32), device=cuda)
+    z = torch.tensor(rng.normal(size=(batch, 128)).astype(np.float32), device=cuda)
+    with torch.no_grad():
+        ops = PG.generate_operands(dict(gen.named_parameters()), pos, z)
+    before = PG.generate_cuda.launch_count
+    got = PG.generate_cuda(*ops)
+    assert PG.generate_cuda.launch_count == before + 1
+    want = PG.generate_plain(*ops)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (batch, n) and torch.isfinite(got).all()
+    diff = (got - want).abs()
+    print(f"  B={batch} N={n}: max {float(diff.max()):.3e} mean {float(diff.mean()):.3e}")
+    assert float(diff.max()) <= GEN_MAX_ABS and float(diff.mean()) <= GEN_MEAN_ABS
+    # items differ: each row reads its own item's latent rows
+    assert float((got[0] - got[1]).abs().max()) > 1e-3
+
+
+def test_point_gen_best_launches_kernel_and_rejects_cpu_operands(cuda, monkeypatch):
+    from shapegan_tpu_torch.models.point_sdf_net import SDFGenerator
+    from shapegan_tpu_torch.ops import point_gen_kernels as PG
+
+    gen = SDFGenerator(dtype=torch.bfloat16, device=cuda)
+    params = dict(gen.named_parameters())
+    pos = torch.rand((2, 300, 3), device=cuda) * 2 - 1
+    z = torch.randn((2, 128), device=cuda)
+    for fused in (True, False):
+        monkeypatch.setattr(PG, "_FORCE_FUSED_GENERATE", fused)
+        before = PG.generate_cuda.launch_count
+        with torch.no_grad():
+            out = PG.generate_best(gen, params, pos, z)
+        assert out.shape == (2, 300, 1)
+        assert PG.generate_cuda.launch_count == before + int(fused)
+    with torch.no_grad():
+        ops = PG.generate_operands(params, pos, z)
+    with pytest.raises(ValueError, match="on cpu"):
+        PG.generate_cuda(ops[0], ops[1].cpu(), *ops[2:])
+    with pytest.raises(ValueError, match="shape"):
+        PG.generate_cuda(ops[0], ops[1][:1], *ops[2:])
