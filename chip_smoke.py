@@ -17,11 +17,17 @@ Phases, each fatal on failure (nothing is caught):
      table, the bundled weights) and at N=3001 with random weights; the
      point-GAN generator kernel at the D step's 32 x 4096 points and at
      B=3, N=1000 (a tail tile, tiles spanning two items), fresh weights;
+     the stash forward kernel (B5a: its output equal to B1's, its planes
+     to the plain version's) and the stash backward kernel (B5b) at
+     16 x 64^3 and B=3, P=3001 with random weights, stash sets (2,4,6) and
+     (1..6);
   4. median times of kernel and plain version at the main path's shapes,
      and of 20 per-iteration points-kernel trace steps beside the trace
      kernel's 20; the rowwise kernels at 20,000 and 65,536 rows; the
      generator kernel at 32 x 4096 and 6 x 32768 beside the bf16 module (the
-     fused switch's other side); each kernel's bound (the larger of its
+     fused switch's other side); B5a and B5b at 16 x 64^3 for both stash
+     sets beside B1 and B2 (the kernels line takes the trainers' set,
+     ``hybrid_gan._GRID_STASH``); each kernel's bound (the larger of its
      operations over the bf16 tensor-core peak and its bytes over the
      memory rate, from this run's shapes; the trace kernel's from the
      lane-steps its rays need);
@@ -43,10 +49,12 @@ Phases, each fatal on failure (nothing is caught):
   7. the training path: the progressive WGAN-GP trainer's entry point for
      iterations 0 -> 3 in turn (synthetic=32, epochs=1, batch 16, nogui) in
      a temporary directory; its losses, checkpoints and CSV checked, and the
-     counts must show the grid kernel and the grid backward kernel ran in
-     every iteration;
+     counts must show the grid kernel ran in every iteration, and the G
+     step's VJP that ``hybrid_gan._GRID_STASH`` picks (by default the stash
+     kernels B5a and B5b and no grid backward; with it None the grid
+     backward kernel);
   8. the trainer's G-step and D-step times at each resolution (host clock
-     after a synchronize, median of 5);
+     after a synchronize, median of 5), the G step through the default VJP;
   9. the autodecoder path: the DeepSDF autodecoder trainer's entry point
      (synthetic=64, pointcloud_size=200000, epochs=2, nogui) in a temporary
      directory, then ``continue`` to epochs=3; each run's counts must show
@@ -64,8 +72,18 @@ Phases, each fatal on failure (nothing is caught):
      no other kernel, with it off none; losses finite, checkpoints, the
      optimizer sidecar and the CSV checked; one D step's fake cloud from the
      kernel against the bf16 module's at the same latents; the D step (switch
-     on and off) and G step times at 32 x 4096 and the steps/s they give.
-Each run of a path in phases 5-7, 9 and 10 starts with every launch count set to 0
+     on and off) and G step times at 32 x 4096 and the steps/s they give;
+ 11. the hybrid GAN and hybrid WGAN paths: each trainer's entry point
+     (synthetic=32, batch 8, 32^3, epochs=1, then ``continue`` to epochs=2)
+     in temporary directories with the stash switch on (the trainers' set,
+     ``hybrid_gan._GRID_STASH``), then off; on, each G step must launch B5a and B5b and no B2, each D step B1;
+     off, each G step B1 and B2; losses, checkpoints, snapshots, sidecars
+     and CSV checked; the G-step gradients with the switch off and on
+     against float32 truth by the bf16 rule; the A/B behind the switch's
+     default: the progressive trainer's G step at 64^3, batch 16, with the
+     recompute and the stash sets (2,4,6), (1,2,4,6), (1..6) in turns, with
+     each one's peak memory, and the hybrid GAN's G and D steps at 32^3.
+Each run of a path in phases 5-7 and 9-11 starts with every launch count set to 0
 and reads the counts just after; launches made to compare a kernel with its
 plain version or to time it are never counted. The kernels line gives each
 kernel's launches summed over those runs, and per run.
@@ -162,6 +180,21 @@ GEN_MEAN_ABS = 1e-4
 # rounding points) at the same latents: the JAX package's bound for its
 # kernel against the module (tests/test_pallas_kernels.py:401).
 GEN_VS_MODULE_MAX_ABS = 2e-2
+# The stash forward kernel (B5a) against B1 and its plain version: its output
+# must equal B1's bit for bit (the same arithmetic), and each stashed plane
+# the plain version's by the share of differing bf16 elements and their
+# largest difference. Measured on the H100 (both shapes, both sets): share
+# 0, largest difference 0. A kernel that writes each plane one layer late
+# differs on nearly every element (PERF.md, section 6). The stash backward
+# (B5b) is held to B2's BWD_L2 / BWD_MAX against its plain version on the
+# same planes: measured L2 <= 6.7e-4 on every output, max <= 9.3e-4 on the
+# summed ones; the mutants read L2 >= 8e-2.
+STASH_PLANE_SHARE = 1e-4
+STASH_PLANE_MAX = 0.1
+STASH_SETS = ((2, 4, 6), (1, 2, 3, 4, 5, 6))
+# The stash sets of the G-step A/B (the JAX package's bench_profile.py
+# stash_breakdown sets).
+AB_SETS = (None, (2, 4, 6), (1, 2, 4, 6), (1, 2, 3, 4, 5, 6))
 # Sizes: the trace kernel's rays (the frame's 800^2 x ssaa 2), the demo's
 # frames, and the hit-point check.
 TRACE_SIZE = 1600
@@ -189,7 +222,8 @@ def launch_counters() -> dict:
     return {"grid": K.grid_forward_cuda, "grid_bwd": K.grid_backward_cuda,
             "points": K.points_forward_cuda, "trace": K.trace_steps_cuda,
             "rowwise": K.rowwise_forward_cuda, "rowwise_bwd": K.rowwise_backward_cuda,
-            "point_gen": PG.generate_cuda}
+            "point_gen": PG.generate_cuda, "grid_stash": K.grid_forward_stash_cuda,
+            "grid_stash_bwd": K.grid_backward_stash_cuda}
 
 
 def reset_counts() -> None:
@@ -288,6 +322,68 @@ def compare_backward(name: str, got, want, names=BWD_NAMES, per_row=("d_pp1", "d
                                  f"max {mx:.3e} (<= {BWD_MAX}): kernel disagrees with plain")
     log(f"  {name}: L2/max relative {', '.join(readings)}; max_abs={worst_abs:.3e}")
     return worst_abs
+
+
+def compare_stash_forward(name: str, got, want, b1, stash) -> float:
+    """B5a against B1 (its output, bit for bit) and against its plain
+    version (the output by the kernel bounds, each plane by the share of
+    differing elements and their largest difference); returns the output's
+    max-abs error against the plain version."""
+    import torch
+
+    (out, planes), (plain_out, plain_planes) = got, want
+    torch.cuda.synchronize()
+    if not torch.equal(out, b1):
+        raise AssertionError(f"{name}: the stash forward's output is not B1's")
+    err = compare(name, out, plain_out)
+    readings, wrong = [], []
+    for j, a, b in zip(stash, planes, plain_planes):
+        share = float((a != b).float().mean())
+        largest = float((a.float() - b.float()).abs().max())
+        readings.append(f"h{j + 1} {share:.2e}/{largest:.2e}")
+        if a.shape != b.shape or not (share <= STASH_PLANE_SHARE and largest <= STASH_PLANE_MAX):
+            wrong.append(j)
+    log(f"  {name} planes (share differing / largest difference): {', '.join(readings)}; "
+        f"output equal to B1's")
+    if wrong:
+        raise AssertionError(f"{name}: planes {wrong} disagree with the plain version's "
+                             f"(share <= {STASH_PLANE_SHARE}, largest <= {STASH_PLANE_MAX})")
+    return err
+
+
+def stash_case(params, points, batch: int, seed: int, device):
+    """B5's operands for ``batch`` latents N(0, 1) over ``points``, and a
+    cotangent N(0, 1): (grid operands, g)."""
+    import torch
+    from shapegan_tpu_torch.ops import sdf_mlp_kernels as K
+
+    gen = torch.Generator().manual_seed(seed)
+    latents = torch.randn((batch, 128), generator=gen).to(device)
+    g = torch.randn((batch, points.shape[0]), generator=gen).to(device)
+    return K.grid_operands(params, points, latents), g
+
+
+def stash_checks(cases: dict, sets=STASH_SETS) -> tuple:
+    """Phase 3: B5a and B5b at each case (name -> (grid operands, cotangent))
+    and stash set; B5b runs on B5a's planes, and its plain version on the
+    same planes. Returns the largest errors (B5a's output, B5b's outputs)."""
+    import torch
+    from shapegan_tpu_torch.ops import sdf_mlp_kernels as K
+
+    fwd_err = bwd_err = 0.0
+    for name, (ops, g) in cases.items():
+        b1 = K.grid_forward_cuda(*ops)
+        for stash in sets:
+            got = K.grid_forward_stash_cuda(*ops, stash)
+            fwd_err = max(fwd_err, compare_stash_forward(
+                f"grid_stash {name} {stash}", got, K.grid_forward_stash_plain(*ops, stash), b1, stash))
+            planes = got[1]
+            bwd_err = max(bwd_err, compare_backward(
+                f"grid_stash_bwd {name} {stash}", K.grid_backward_stash_cuda(*ops, g, planes, stash),
+                K.grid_backward_stash_plain(*ops, g, planes, stash)))
+            del got, planes
+            torch.cuda.empty_cache()
+    return fwd_err, bwd_err
 
 
 def bound(flops: float, nbytes: float):
@@ -511,6 +607,7 @@ def train_chain() -> dict:
 
     import torch
     from shapegan_tpu_torch.core.config import parse_cli
+    from shapegan_tpu_torch.train import hybrid_gan as HG
     from shapegan_tpu_torch.train import hybrid_progressive_gan as T
 
     paths = {}
@@ -541,8 +638,13 @@ def train_chain() -> dict:
                     raise AssertionError(f"iteration {iteration}: bad losses {rows[0]}")
                 if missing:
                     raise AssertionError(f"iteration {iteration}: checkpoints missing {missing}")
-                check_counts(f"training iteration {iteration}", counts,
-                             launched=("grid", "grid_bwd"))
+                # The G step's VJP is the one hybrid_gan._GRID_STASH picks.
+                if HG._GRID_STASH is None:
+                    check_counts(f"training iteration {iteration}", counts,
+                                 launched=("grid", "grid_bwd"), idle=("grid_stash", "grid_stash_bwd"))
+                else:
+                    check_counts(f"training iteration {iteration}", counts,
+                                 launched=("grid", "grid_stash", "grid_stash_bwd"), idle=("grid_bwd",))
                 net = result["net"]
                 if net.device.type != "cuda":
                     raise AssertionError(f"the generator lies on {net.device}")
@@ -553,10 +655,12 @@ def train_chain() -> dict:
 
 def step_times() -> dict:
     """Phase 8: G-step and D-step medians (ms) at each resolution, on fresh
-    random weights and batches."""
+    random weights and batches, the G step through the default VJP
+    (``hybrid_gan._GRID_STASH``)."""
     import torch
     from shapegan_tpu_torch import LATENT_CODE_SIZE
     from shapegan_tpu_torch.optim import RMSprop
+    from shapegan_tpu_torch.train import hybrid_gan as HG
     from shapegan_tpu_torch.train import hybrid_progressive_gan as T
 
     device = torch.device("cuda", 0)
@@ -585,10 +689,222 @@ def step_times() -> dict:
                 run(step)
             times[(res, step)] = statistics.median(run(step) for _ in range(5))
         log(f"  {res}^3: G step {times[(res, 'g')]:.3f} ms, D step {times[(res, 'd')]:.3f} ms "
-            f"(batch 16, median of 5)")
+            f"(batch 16, median of 5; G-step VJP: stash {HG._GRID_STASH})")
         del net, disc, batch
         torch.cuda.empty_cache()
     return times
+
+
+def hybrid_gan_path() -> dict:
+    """Phase 11: the hybrid GAN and hybrid WGAN trainers' entry points
+    (synthetic=32, batch 8, 32^3) in temporary directories, epochs=1 and a
+    ``continue`` to epochs=2, with the stash switch on (its shipped set,
+    ``hybrid_gan._GRID_STASH``) and off;
+    returns the launch counts per run. With the switch on each G step
+    launches B5a and B5b and no B2, each D (critic) step B1; off, each G
+    step launches B1 and B2."""
+    import csv
+    import math
+
+    import torch
+    from shapegan_tpu_torch.core.config import parse_cli
+    from shapegan_tpu_torch.train import hybrid_gan as HG
+    from shapegan_tpu_torch.train import hybrid_wgan as HW
+
+    paths = {}
+    default = HG._GRID_STASH
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            cwd = os.getcwd()
+            try:
+                for switch in (default, None):
+                    HG._GRID_STASH = switch
+                    for module, kind in ((HG, "hybrid GAN"), (HW, "hybrid WGAN")):
+                        sub = os.path.join(tmp, f"{module.G_NAME}-{switch is not None}")
+                        os.makedirs(sub)
+                        os.chdir(sub)
+                        for argv, epochs in ((["epochs=1"], 1), (["epochs=2", "continue"], 2)):
+                            reset_counts()
+                            t0 = time.perf_counter()
+                            result = module.train(parse_cli(["synthetic=32", "batch_size=8", *argv]))
+                            torch.cuda.synchronize()
+                            seconds = time.perf_counter() - t0
+                            path = f"{kind}, stash switch {'on' if switch else 'off'}, {' '.join(argv)}"
+                            counts = paths[path] = read_counts()
+                            steps = result["steps"]
+                            g_steps = result.get("g_steps", steps)
+                            want = dict.fromkeys(counts, 0)
+                            if switch:
+                                want.update(grid=steps, grid_stash=g_steps, grid_stash_bwd=g_steps)
+                            else:
+                                want.update(grid=steps + g_steps, grid_bwd=g_steps)
+                            with open(f"plots/{module.G_NAME.rsplit('_', 1)[0]}_training.csv") as f:
+                                rows = [[float(v) for v in r] for r in csv.reader(f, delimiter=" ")]
+                            files = [checkpoints_path(n) for n in (module.G_NAME, module.D_NAME,
+                                                                   module.OPT_NAME)]
+                            files += [checkpoints_path(n, e) for n in (module.G_NAME, module.D_NAME)
+                                      for e in range(epochs)]
+                            missing = [f for f in files if not os.path.exists(f)]
+                            log(f"  {path}: {seconds:.2f} s (host clock), {steps} D steps, "
+                                f"{g_steps} G steps, CSV {rows}")
+                            check_counts(path, counts, launched=[k for k, v in want.items() if v],
+                                         idle=[k for k, v in want.items() if not v])
+                            if counts != want:
+                                raise AssertionError(f"{path}: launches {counts}, expected {want}")
+                            if (len(rows) != epochs or [r[0] for r in rows] != list(range(epochs))
+                                    or any(len(r) != 4 for r in rows)
+                                    or not all(math.isfinite(v) for r in rows for v in r)):
+                                raise AssertionError(f"{path}: CSV rows {rows}")
+                            if missing or steps != 4 or result["net"].device.type != "cuda":
+                                raise AssertionError(f"{path}: files missing {missing}, {steps} steps, "
+                                                     f"generator on {result['net'].device}")
+                        os.chdir(cwd)
+            finally:
+                os.chdir(cwd)
+    finally:
+        HG._GRID_STASH = default
+    return paths
+
+
+def checkpoints_path(name: str, epoch=None) -> str:
+    from shapegan_tpu_torch import checkpoints
+
+    return checkpoints.get_filename(name, epoch=epoch, base="models")
+
+
+def hybrid_grads_vs_float32(device) -> None:
+    """Phase 11: the generator's gradients through the trainers'
+    generate_volumes (8 x 32^3, the hybrid GAN's fresh weights, a random
+    cotangent), with the stash switch off (B1, B2) and on (B5a, B5b, the
+    shipped set ``hybrid_gan._GRID_STASH``),
+    against float32 truth (``sdf_mlp.apply_grid``, TF32 off) by the rule of
+    the JAX package's tests/test_pallas_kernels.py: each VJP's error within
+    twice the bf16 autograd path's plus 0.02. The two VJPs are not held
+    against each other: their relu masks differ by one bf16 rounding."""
+    import torch
+    from shapegan_tpu_torch.ops import sdf_mlp
+    from shapegan_tpu_torch.ops.coords import voxel_coordinates
+    from shapegan_tpu_torch.profile_slice import apply_bf16_autograd
+    from shapegan_tpu_torch.train import hybrid_gan as HG
+
+    net = HG.create_states(0, device)[0]
+    params = net.param_dict()
+    gen = torch.Generator().manual_seed(12)
+    z = torch.randn((8, 128), generator=gen).to(device)
+    cot = torch.randn((8, 32**3), generator=gen).to(device)
+    grid = voxel_coordinates(32, device=device)
+
+    def grads(fn):
+        return torch.autograd.grad((fn().reshape(8, -1) * cot).sum(), list(params.values()))
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    default = HG._GRID_STASH
+    try:
+        truth = grads(lambda: sdf_mlp.apply_grid(params, grid, z))
+        pts = grid[None].expand(8, -1, -1).reshape(-1, 3)
+        bf16 = grads(lambda: apply_bf16_autograd(params, pts, z.repeat_interleave(32**3, 0)))
+        for switch in (None, default):
+            HG._GRID_STASH = switch
+            got = grads(lambda: HG.generate_volumes(net, grid, z, 32))
+            margins = {}
+            for key, t, b, v in zip(params, truth, bf16, got):
+                scale = max(float(t.abs().max()), 1e-6)
+                err_bf16 = float((b - t).abs().max()) / scale
+                err = float((v - t).abs().max()) / scale
+                margins[key] = (err, 2.0 * err_bf16 + 0.02)
+            worst = max(margins, key=lambda k: margins[k][0] / margins[k][1])
+            log(f"  G-step gradients vs float32, stash switch {switch}: worst {worst} error "
+                f"{margins[worst][0]:.3e} (< {margins[worst][1]:.3e}, twice bf16 autograd's + 0.02)")
+            if any(err >= limit for err, limit in margins.values()):
+                raise AssertionError(f"stash switch {switch}: gradients vs float32 {margins}")
+    finally:
+        HG._GRID_STASH = default
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def stash_ab(kind: str) -> None:
+    """The A/B behind ``_GRID_STASH``'s default: the progressive trainer's G
+    step at 64^3, batch 16 (fresh weights), with the recompute VJP and each
+    stash set of AB_SETS in turns, host clock after a synchronize, median
+    (and range) of 5, and each setting's peak device memory over one step;
+    then the hybrid GAN's G and D steps at 32^3, batch 8, switch off and on
+    (the shipped set)."""
+    import torch
+    from shapegan_tpu_torch import LATENT_CODE_SIZE
+    from shapegan_tpu_torch.optim import RMSprop
+    from shapegan_tpu_torch.train import hybrid_gan as HG
+    from shapegan_tpu_torch.train import hybrid_progressive_gan as T
+
+    device = torch.device("cuda", 0)
+    gen = torch.Generator(device=device).manual_seed(0)
+    default = HG._GRID_STASH
+
+    def host_ms(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def in_turns(steps: dict, rounds: int = 5) -> dict:
+        for fn in steps.values():
+            for _ in range(2):
+                fn()
+        times = {name: [] for name in steps}
+        for _ in range(rounds):
+            for name, fn in steps.items():
+                times[name].append(host_ms(fn))
+        return times
+
+    try:
+        net, disc = T.create_models(0, device)
+        g_step, _ = T.make_steps(net, disc, RMSprop(net.param_dict(), T.LEARN_RATE),
+                                 RMSprop(dict(disc.named_parameters()), T.LEARN_RATE), 3)
+
+        def progressive(setting):
+            def fn():
+                HG._GRID_STASH = setting
+                g_step(torch.randn((16, LATENT_CODE_SIZE), generator=gen, device=device), 1.0)
+            return fn
+
+        steps = {setting: progressive(setting) for setting in AB_SETS}
+        times = in_turns(steps)
+        for setting, fn in steps.items():
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            t = times[setting]
+            log(f"  progressive G step 64^3 x 16, {'recompute (B1 + B2)' if setting is None else f'stash {setting} (B5a + B5b)'}: "
+                f"{statistics.median(t):.3f} ms (host clock, median of 5 in turns; range "
+                f"{min(t):.3f}-{max(t):.3f}), peak memory {peak:.3f} GB ({kind})")
+        del net, disc, g_step, steps
+        torch.cuda.empty_cache()
+
+        net, disc, g_opt, d_opt = HG.create_states(0, device)
+        g_step, d_step = HG.make_steps(net, disc, g_opt, d_opt)
+        batch = torch.rand((8, 32, 32, 32), generator=gen, device=device) * 0.2 - 0.1
+
+        def hybrid(setting, which):
+            def fn():
+                HG._GRID_STASH = setting
+                z = torch.randn((8, LATENT_CODE_SIZE), generator=gen, device=device)
+                if which == "G":
+                    g_step(z)
+                else:
+                    d_step(batch, z)
+            return fn
+
+        steps = {(setting, which): hybrid(setting, which)
+                 for setting in (None, default) for which in ("G", "D")}
+        for (setting, which), t in in_turns(steps).items():
+            log(f"  hybrid GAN {which} step 32^3 x 8, stash switch {setting}: "
+                f"{statistics.median(t):.3f} ms (host clock, median of 5 in turns; range "
+                f"{min(t):.3f}-{max(t):.3f}; {kind})")
+    finally:
+        HG._GRID_STASH = default
 
 
 def autodecoder_path() -> dict:
@@ -879,6 +1195,12 @@ def main() -> int:
     bwd_err = max(bwd_err, compare_backward("grid_bwd B=3 P=3001",
                                             K.grid_backward_cuda(*odd_bwd_ops, g3),
                                             K.grid_backward_plain(*odd_bwd_ops, g3)))
+    # B5a and B5b with random weights and latents at the G step's shape and
+    # at the odd shape (three chunks of B2's size, and one), the sets (2,4,6)
+    # and (1..6); random cotangents.
+    stash_cases = {"B=16 P=64^3": stash_case(rand_params, grid64, 16, 13, device),
+                   "B=3 P=3001": stash_case(rand_params, odd_pts, 3, 14, device)}
+    stash_err, stash_bwd_err = stash_checks(stash_cases)
     # B4 with a network that has a real surface: the chair, fitted here with
     # the float32 reference math (the bundled network has none).
     t0 = time.perf_counter()
@@ -945,6 +1267,37 @@ def main() -> int:
     log(f"  grid_bwd: kernel {kernel_ms:.3f} ms ({n_points * 3 * trunk_flop / kernel_ms / 1e9:.1f} "
         f"TFLOP/s over the 18 products) | plain {plain_ms:.3f} ms | n={n_points} | "
         f"bound {bounds['grid_bwd'][0]:.3f} ms ({bounds['grid_bwd'][1]})")
+    # B5a and B5b at the G step's shape, beside B1 and B2 (above): B5a does
+    # B1's products and writes B*P*512 bytes a stashed position; B5b does
+    # 18 - s products a row (s stashed among h2..h7) and reads the planes.
+    from shapegan_tpu_torch.train.hybrid_gan import _GRID_STASH
+
+    stash_ops, g_stash = stash_cases["B=16 P=64^3"]
+    for stash in STASH_SETS:
+        _, planes = K.grid_forward_stash_cuda(*stash_ops, stash)
+        fwd = (time_ms(lambda: K.grid_forward_stash_cuda(*stash_ops, stash), iters=10),
+               time_ms(lambda: K.grid_forward_stash_plain(*stash_ops, stash), iters=3, warmup=1))
+        bwd = (time_ms(lambda: K.grid_backward_stash_cuda(*stash_ops, g_stash, planes, stash), iters=5),
+               time_ms(lambda: K.grid_backward_stash_plain(*stash_ops, g_stash, planes, stash),
+                       iters=3, warmup=1))
+        del planes
+        torch.cuda.empty_cache()
+        plane_bytes = len(stash) * n_points * 512
+        fwd_bound = bound(n_points * trunk_flop, 2 * 64**3 * 512 + 2 * 16 * 512 + n_points * 4
+                          + weight_bytes + plane_bytes)
+        rows_stashed = len(set(stash) - {0})
+        bwd_bound = bound(n_points * (18 - rows_stashed) * trunk_flop / 6, moved + 2 * weight_bytes
+                          + plane_bytes)
+        if stash == _GRID_STASH:  # the kernels line's figures: the trainers' set
+            times["grid_stash"], times["grid_stash_bwd"] = fwd, bwd
+            bounds["grid_stash"], bounds["grid_stash_bwd"] = fwd_bound, bwd_bound
+        log(f"  grid_stash {stash}: kernel {fwd[0]:.3f} ms (B1 {times['grid'][0]:.3f}) | plain "
+            f"{fwd[1]:.3f} ms | bound {fwd_bound[0]:.3f} ms ({fwd_bound[1]}); grid_stash_bwd: kernel "
+            f"{bwd[0]:.3f} ms (B2 {times['grid_bwd'][0]:.3f}; "
+            f"{n_points * (18 - rows_stashed) * trunk_flop / 6 / bwd[0] / 1e9:.1f} TFLOP/s over its "
+            f"{18 - rows_stashed} products) | plain {bwd[1]:.3f} ms | bound {bwd_bound[0]:.3f} ms "
+            f"({bwd_bound[1]})")
+    del stash_cases, stash_ops, g_stash
     # B4: 20 trace steps over the 1600^2 primary rays, beside 20 steps of
     # one points-kernel launch and the element-wise update each (the A/B of
     # the raymarcher's fused trace switch).
@@ -1116,6 +1469,13 @@ def main() -> int:
         f"32768 x 6 ({kind}; {smi})")
     paths.update(point_gan_path())
     point_gan_step_times(device, f"{kind}; {smi}")
+    from shapegan_tpu_torch.train.hybrid_gan import _GRID_STASH
+
+    log(f"== 11. hybrid GAN and hybrid WGAN paths, stash switch on {_GRID_STASH} and off; the "
+        f"stash A/B ({kind}; {smi})")
+    paths.update(hybrid_gan_path())
+    hybrid_grads_vs_float32(device)
+    stash_ab(f"{kind}; {smi}")
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         raise AssertionError("jax was imported")
 
@@ -1139,6 +1499,10 @@ def main() -> int:
         kernel_entry("sdf_rowwise_bwd", "rowwise_bwd", "sdf_rowwise_bwd.cu", "sdf_mlp_pallas.py:1141",
                      rowwise_bwd_err),
         kernel_entry("point_gen", "point_gen", "point_gen.cu", "point_gen_pallas.py:62", gen_err),
+        kernel_entry("sdf_grid_stash", "grid_stash", "sdf_grid.cu", "sdf_mlp_pallas.py:748",
+                     stash_err),
+        kernel_entry("sdf_grid_stash_bwd", "grid_stash_bwd", "sdf_grid_bwd.cu",
+                     "sdf_mlp_pallas.py:795", stash_bwd_err),
     ]
     log(f"== wall time of the whole run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
-"""Do ``chip_smoke.py``'s bounds for the rowwise backward kernel (B6b) and the
-point-GAN generator kernel (B7) tell a wrong kernel from a sound one? On one
-GPU:
+"""Do ``chip_smoke.py``'s bounds for the rowwise backward kernel (B6b), the
+point-GAN generator kernel (B7) and the stash kernels (B5a, B5b) tell a
+wrong kernel from a sound one? On one GPU:
 
     python -m shapegan_tpu_torch.kernel_mutants
 
 It holds each sound kernel against its plain version at chip_smoke's cases
 (for B6b also the plain version with float64 sums, the noise floor of bf16
-rounding flips), then builds each wrong copy of ``ops/csrc/sdf_rowwise_bwd.cu``
-and ``ops/csrc/point_gen.cu`` in a temporary directory (never in the
-checkout) and reports whether it fails the bounds. A wrong kernel that
-passes is printed as ``PASSES``.
+rounding flips), then builds each wrong copy of ``ops/csrc/sdf_rowwise_bwd.cu``,
+``ops/csrc/point_gen.cu``, ``ops/csrc/sdf_grid.cu`` (B5a) and
+``ops/csrc/sdf_grid_bwd.cu`` (B5b) in a temporary directory (never in the
+checkout) and reports whether it fails the bounds at every case. A wrong
+kernel that passes is printed as ``PASSES``.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from shapegan_tpu_torch import checkpoints
 from shapegan_tpu_torch.ops import _build, sdf_mlp
 from shapegan_tpu_torch.ops import point_gen_kernels as PG
 from shapegan_tpu_torch.ops import sdf_mlp_kernels as K
+from shapegan_tpu_torch.ops.coords import voxel_coordinates
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BF16 = torch.bfloat16
@@ -54,6 +56,23 @@ POINT_GEN_MUTANTS = (
     ("the variance taken without subtracting the mean",
      "const float dev = __fsub_rn(acc[mi][ni][2 * h + e], mean[mi][h]);",
      "const float dev = acc[mi][ni][2 * h + e];"),
+)
+
+# ... in sdf_grid.cu (the stash forward's part) ...
+STASH_FWD_MUTANTS = (
+    ("each plane written one layer late",
+     "sdf::pick(stash.plane, layer + 1)", "sdf::pick(stash.plane, layer)"),
+)
+# ... and in sdf_grid_bwd.cu (the stash backward's part): checked at every case ...
+STASH_BWD_MUTANTS = (
+    ("the stashed positions rebuilt at B2's rounding points (nothing read from the stash)",
+     "plan.stashed = mask & 0x7eu;", "plan.stashed = 0u;"),
+)
+# ... and at the cases of more than one chunk (16 x 64^3: sixteen; the odd
+# case is one chunk, where this kernel is the sound one).
+STASH_BWD_CHUNK_MUTANTS = (
+    ("every chunk reading the stashed planes of the batch's first shapes",
+     "static_cast<bf*>(stash[j]) + static_cast<size_t>(s0) * pw", "static_cast<bf*>(stash[j])"),
 )
 
 
@@ -116,6 +135,24 @@ def _point_gen_check(cs, cases, shape):
                               cs.GEN_MEAN_ABS)
 
 
+def _stash_fwd_check(cs, cases, key):
+    name, stash = key
+    ops = cases[name][0]
+    b1 = K.grid_forward_cuda(*ops)
+    got, want = K.grid_forward_stash_cuda(*ops, stash), K.grid_forward_stash_plain(*ops, stash)
+    return lambda: cs.compare_stash_forward(f"grid_stash {name} {stash}", got, want, b1, stash)
+
+
+def _stash_bwd_check(cs, cases, key, sound):
+    """B5b on the sound B5a's planes against the plain version's outputs
+    (``sound``: key -> (planes, plain outputs), made once)."""
+    name, stash = key
+    ops, g = cases[name]
+    planes, want = sound[key]
+    got = K.grid_backward_stash_cuda(*ops, g, planes, stash)
+    return lambda: cs.compare_backward(f"grid_stash_bwd {name} {stash}", got, want)
+
+
 def _wrong_kernels(source_name, mutants, checks) -> bool:
     """Build each mutant of ``ops/csrc/<source_name>`` in a temporary
     directory and run ``checks`` (case → a check, made after the build)
@@ -161,6 +198,16 @@ def main() -> int:
              for n, p, seed in ((20000, bundled, 6), (3001, random, 7))}
     gen_cases = {(b, n): cs.point_gen_case(b, n, seed, device)
                  for b, n, seed in ((32, 4096, 10), (3, 1000, 11))}
+    grid64 = voxel_coordinates(64, device=device)
+    odd = (torch.rand(3001, 3, generator=torch.Generator().manual_seed(0)) * 2.2 - 1.1).to(device)
+    stash_cases = {"B=16 P=64^3": cs.stash_case(random, grid64, 16, 13, device),
+                   "B=3 P=3001": cs.stash_case(random, odd, 3, 14, device)}
+    stash_keys = [(name, stash) for name in stash_cases for stash in cs.STASH_SETS]
+    sound_stash = {}
+    for name, stash in stash_keys:
+        ops, g = stash_cases[name]
+        planes = K.grid_forward_stash_cuda(*ops, stash)[1]
+        sound_stash[(name, stash)] = planes, K.grid_backward_stash_plain(*ops, g, planes, stash)
     print(f"== sound kernels, and float64 sums, against the plain versions "
           f"({torch.cuda.get_device_name(0)}; {cs.nvidia_smi_line()})")
     sound = True
@@ -169,6 +216,9 @@ def main() -> int:
         _holds(_rowwise_bwd_check(cs, cases, n, kernel=rowwise_backward_float64))
     for shape in gen_cases:
         sound &= _holds(_point_gen_check(cs, gen_cases, shape))
+    for key in stash_keys:
+        sound &= _holds(_stash_fwd_check(cs, stash_cases, key))
+        sound &= _holds(_stash_bwd_check(cs, stash_cases, key, sound_stash))
 
     caught = _wrong_kernels(
         "sdf_rowwise_bwd.cu", ROWWISE_BWD_MUTANTS,
@@ -176,6 +226,17 @@ def main() -> int:
     caught &= _wrong_kernels(
         "point_gen.cu", POINT_GEN_MUTANTS,
         {shape: (lambda shape=shape: _point_gen_check(cs, gen_cases, shape)) for shape in gen_cases})
+    caught &= _wrong_kernels(
+        "sdf_grid.cu", STASH_FWD_MUTANTS,
+        {key: (lambda key=key: _stash_fwd_check(cs, stash_cases, key)) for key in stash_keys})
+    caught &= _wrong_kernels(
+        "sdf_grid_bwd.cu", STASH_BWD_MUTANTS,
+        {key: (lambda key=key: _stash_bwd_check(cs, stash_cases, key, sound_stash))
+         for key in stash_keys})
+    caught &= _wrong_kernels(
+        "sdf_grid_bwd.cu", STASH_BWD_CHUNK_MUTANTS,
+        {key: (lambda key=key: _stash_bwd_check(cs, stash_cases, key, sound_stash))
+         for key in stash_keys if key[0] == "B=16 P=64^3"})
     print(f"sound kernels within the bounds: {sound}; every wrong kernel outside them: {caught}")
     return 0 if sound and caught else 1
 

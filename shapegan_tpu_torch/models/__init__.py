@@ -1,5 +1,6 @@
 """The network zoo (ported so far: :class:`~shapegan_tpu_torch.models.sdf_net.SDFNet`,
-:class:`~shapegan_tpu_torch.models.progressive_gan.ProgressiveDiscriminator`, and
+:class:`~shapegan_tpu_torch.models.progressive_gan.ProgressiveDiscriminator`, the
+voxel GAN's :class:`~shapegan_tpu_torch.models.gan.Discriminator`, and
 the point-set GAN's :class:`~shapegan_tpu_torch.models.point_sdf_net.PointNet` and
 :class:`~shapegan_tpu_torch.models.point_sdf_net.SDFGenerator`)."""
 

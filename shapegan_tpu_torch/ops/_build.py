@@ -127,7 +127,7 @@ def load() -> ctypes.CDLL:
     lib.sdf_grid_backward.restype = i32
     lib.sdf_grid_backward_chunk_shapes.argtypes = [i32, i32]
     lib.sdf_grid_backward_chunk_shapes.restype = i32
-    lib.sdf_grid_backward_scratch_bytes.argtypes = [i32, i32]
+    lib.sdf_grid_backward_scratch_bytes.argtypes = [i32, i32, i32]
     lib.sdf_grid_backward_scratch_bytes.restype = ctypes.c_longlong
     lib.sdf_trace_steps.argtypes = [ptr] * 13 + [i32, i32, i32] + [ctypes.c_float] * 5 + [i32, ptr]
     lib.sdf_trace_steps.restype = i32
@@ -137,6 +137,10 @@ def load() -> ctypes.CDLL:
     lib.sdf_rowwise_backward.restype = i32
     lib.sdf_rowwise_backward_scratch_bytes.argtypes = [i32]
     lib.sdf_rowwise_backward_scratch_bytes.restype = ctypes.c_longlong
+    lib.sdf_grid_stash_forward.argtypes = [ptr] * 9 + [i32, i32, i32, ptr]
+    lib.sdf_grid_stash_forward.restype = i32
+    lib.sdf_grid_stash_backward.argtypes = [ptr] * 19 + [i32, i32, i32, i32, ptr]
+    lib.sdf_grid_stash_backward.restype = i32
     lib.point_gen_forward.argtypes = [ptr] * 11 + [i32, i32, i32, ptr]
     lib.point_gen_forward.restype = i32
     lib.sdf_error_string.argtypes = [i32]

@@ -1,6 +1,7 @@
-// Pieces shared by the two recompute backward kernels, sdf_grid_bwd.cu (B2,
-// the grid MLP) and sdf_rowwise_bwd.cu (B6b, points with per-row latents).
-// Both split the backward into passes over device-memory scratch:
+// Pieces shared by the backward kernels, sdf_grid_bwd.cu (the grid MLP: the
+// recompute backward B2 and the stash backward B5b) and sdf_rowwise_bwd.cu
+// (B6b, points with per-row latents). Both sources split the backward into
+// passes over device-memory scratch:
 //   1. a rows pass per 128-row tile (each source has its own): the forward
 //      rebuilt on the sdf_trunk.cuh main loop, then the six products
 //      dh = dz @ W^T on the same weight ring, fed the [in, out] stack; it
@@ -16,6 +17,7 @@
 #pragma once
 
 #include <algorithm>
+#include <utility>
 
 #include "sdf_trunk.cuh"
 
@@ -60,6 +62,33 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const __nv_bfloat
                : "r"(addr));
 }
 
+// The seven h planes of a chunk's rows (h1..h7, each [R][256] bf16). The
+// rowwise backward keeps them one after another in scratch; the grid
+// backward reads its stashed planes (B5b) from the forward's stash instead.
+struct HPlanes {
+  __nv_bfloat16* p[HIDDEN];
+};
+
+inline HPlanes contiguous_planes(__nv_bfloat16* h, size_t plane) {
+  HPlanes planes;
+  for (int j = 0; j < HIDDEN; ++j) planes.p[j] = h + j * plane;
+  return planes;
+}
+
+// Start the cp.async copies of K-slice `k_slice` of one 256 x 256 layer
+// (`layer`: its first element) into ring stage `stage`.
+__device__ __forceinline__ void load_weight_slice(sdf::TrunkSmem& s, const __nv_bfloat16* __restrict__ layer,
+                                                  int k_slice, int stage) {
+  const __nv_bfloat16* src = layer + k_slice * K_CHUNK;
+  __nv_bfloat16* dst = s.w[stage];
+#pragma unroll
+  for (int i = 0; i < (WIDTH * K_CHUNK / 8) / THREADS; ++i) {
+    const int piece = threadIdx.x + i * THREADS;
+    const int n = piece / (K_CHUNK / 8), q = piece % (K_CHUNK / 8);
+    sdf::cp_async16(dst + n * W_STRIDE + q * 8, src + n * WIDTH + q * 8);
+  }
+}
+
 // Weight slice `chunk` of the 48 the rows pass streams: chunks 0-23 are the
 // forward layers w2..w7 ([out, in]), chunks 24-47 the backward layers w7..w2
 // ([in, out], the transposed stack).
@@ -68,15 +97,8 @@ __device__ __forceinline__ void load_bwd_chunk(sdf::TrunkSmem& s, const __nv_bfl
   const int half = LAYERS * CHUNKS_PER_LAYER;
   const int layer = chunk < half ? chunk / CHUNKS_PER_LAYER
                                  : LAYERS - 1 - (chunk - half) / CHUNKS_PER_LAYER;
-  const __nv_bfloat16* src = (chunk < half ? w : wt) + static_cast<size_t>(layer) * WIDTH * WIDTH +
-                             (chunk % CHUNKS_PER_LAYER) * K_CHUNK;
-  __nv_bfloat16* dst = s.w[chunk % STAGES];
-#pragma unroll
-  for (int i = 0; i < (WIDTH * K_CHUNK / 8) / THREADS; ++i) {
-    const int piece = threadIdx.x + i * THREADS;
-    const int n = piece / (K_CHUNK / 8), q = piece % (K_CHUNK / 8);
-    sdf::cp_async16(dst + n * W_STRIDE + q * 8, src + n * WIDTH + q * 8);
-  }
+  load_weight_slice(s, (chunk < half ? w : wt) + static_cast<size_t>(layer) * WIDTH * WIDTH,
+                    chunk % CHUNKS_PER_LAYER, chunk % STAGES);
 }
 
 // The mma.sync products of weight slice `c` (ring stage c % STAGES) with the
@@ -112,14 +134,14 @@ __device__ __forceinline__ void bwd_mma_chunk(const sdf::TrunkSmem& s, float (&a
 // Partial d_w[l][i][o] = sum over one slab of rows of h_l[r][i] dz_l[r][o]:
 // block (output tile, slab, layer), 8 warps of 64 x 32 outputs each.
 __global__ void __launch_bounds__(THREADS)
-bwd_weight_kernel(const __nv_bfloat16* __restrict__ h, const __nv_bfloat16* __restrict__ dz,
+bwd_weight_kernel(HPlanes h, const __nv_bfloat16* __restrict__ dz,
                   float* __restrict__ part, long long rows_total, int slabs) {
   __shared__ __align__(16) __nv_bfloat16 as[2][WB_K * WB_STRIDE];
   __shared__ __align__(16) __nv_bfloat16 bs[2][WB_K * WB_STRIDE];
   const int m_base = (blockIdx.x >> 1) * WB_TILE, n_base = (blockIdx.x & 1) * WB_TILE;
   const int slab = blockIdx.y, layer = blockIdx.z;
   const size_t plane = static_cast<size_t>(rows_total) * WIDTH;
-  const __nv_bfloat16* hl = h + layer * plane;
+  const __nv_bfloat16* hl = h.p[layer];
   const __nv_bfloat16* dl = dz + layer * plane;
   const long long r_begin = static_cast<long long>(slab) * SLAB;
   const long long r_end = min(rows_total, r_begin + SLAB);
@@ -247,5 +269,76 @@ __global__ void bwd_shape_sum_kernel(const T* __restrict__ src, int shapes, long
 }
 
 int grid_for(long long n) { return static_cast<int>(std::min(ceil_div(n, THREADS), 132LL * 16)); }
+
+// The float32 outputs of a grid backward (B2, B5b), in the JAX package's
+// layout; they accumulate over chunks.
+struct GridGrads {
+  float *pp1, *pp5, *zz1, *zz5, *w, *b, *w8, *b8;
+};
+
+// Passes 2-4 of one chunk of a grid backward (B2, B5b), after its rows pass:
+// the chunk holds `shapes` whole shapes from shape s0 on, `points` rows each.
+// The partials' scratch (w_part, col_part) is sized by the caller.
+inline cudaError_t grid_bwd_passes(const HPlanes& h, const __nv_bfloat16* dz, const float* dx1,
+                                   const float* gz, float* w_part, float* col_part, int shapes,
+                                   int points, int s0, const GridGrads& out, cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  const long long rows = static_cast<long long>(shapes) * points;
+  const int slabs = static_cast<int>(ceil_div(rows, SLAB));
+  const int seg_slabs = static_cast<int>(ceil_div(points, SLAB));
+  const size_t plane = static_cast<size_t>(rows) * WIDTH;
+  const size_t pw = static_cast<size_t>(points) * WIDTH;
+  cudaError_t err;
+
+  bwd_weight_kernel<<<dim3(4, slabs, LAYERS), THREADS, 0, stream>>>(h, dz, w_part, rows, slabs);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  bwd_finish_kernel<<<grid_for(LAYERS * WIDTH * WIDTH), THREADS, 0, stream>>>(
+      w_part, LAYERS, slabs, WIDTH * WIDTH, out.w);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  // d_b rows 0-2 and 4-5 (row 3, the skip layer, stays 0: b5's gradient is sum d_zz5).
+  bwd_colsum_kernel<bf><<<dim3(slabs, LAYERS), THREADS, 0, stream>>>(dz, nullptr, rows, WIDTH,
+                                                                    slabs, col_part);
+  bwd_finish_kernel<<<grid_for(3 * WIDTH), THREADS, 0, stream>>>(col_part, 3, slabs, WIDTH, out.b);
+  bwd_finish_kernel<<<grid_for(2 * WIDTH), THREADS, 0, stream>>>(
+      col_part + static_cast<size_t>(4) * slabs * WIDTH, 2, slabs, WIDTH, out.b + 4 * WIDTH);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // d_w8 = sum h7 gz, d_b8 = sum gz.
+  bwd_colsum_kernel<bf><<<dim3(slabs, 1), THREADS, 0, stream>>>(h.p[LAYERS], gz, rows, WIDTH, slabs,
+                                                               col_part);
+  bwd_finish_kernel<<<grid_for(WIDTH), THREADS, 0, stream>>>(col_part, 1, slabs, WIDTH, out.w8);
+  bwd_colsum_kernel<float><<<dim3(slabs, 1), THREADS, 0, stream>>>(gz, nullptr, rows, 1, slabs,
+                                                                  col_part);
+  bwd_finish_kernel<<<1, THREADS, 0, stream>>>(col_part, 1, slabs, 1, out.b8);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // d_zz5 / d_zz1: per-shape sums over points; d_pp5 / d_pp1: sums over shapes.
+  bwd_colsum_kernel<bf><<<dim3(seg_slabs, shapes), THREADS, 0, stream>>>(
+      dz + SKIP_LAYER * plane, nullptr, points, WIDTH, seg_slabs, col_part);
+  bwd_finish_kernel<<<grid_for(shapes * WIDTH), THREADS, 0, stream>>>(
+      col_part, shapes, seg_slabs, WIDTH, out.zz5 + static_cast<size_t>(s0) * WIDTH);
+  bwd_colsum_kernel<float><<<dim3(seg_slabs, shapes), THREADS, 0, stream>>>(
+      dx1, nullptr, points, WIDTH, seg_slabs, col_part);
+  bwd_finish_kernel<<<grid_for(shapes * WIDTH), THREADS, 0, stream>>>(
+      col_part, shapes, seg_slabs, WIDTH, out.zz1 + static_cast<size_t>(s0) * WIDTH);
+  bwd_shape_sum_kernel<bf><<<grid_for(pw), THREADS, 0, stream>>>(dz + SKIP_LAYER * plane, shapes, pw,
+                                                                 out.pp5);
+  bwd_shape_sum_kernel<float><<<grid_for(pw), THREADS, 0, stream>>>(dx1, shapes, pw, out.pp1);
+  return cudaGetLastError();
+}
+
+// Zero a grid backward's outputs before its chunks accumulate into them.
+inline cudaError_t zero_grid_grads(const GridGrads& out, int batch, int points, cudaStream_t stream) {
+  const size_t pw = static_cast<size_t>(points) * WIDTH;
+  const std::pair<float*, size_t> outputs[] = {
+      {out.pp1, pw * 4}, {out.pp5, pw * 4}, {out.zz1, static_cast<size_t>(batch) * WIDTH * 4},
+      {out.zz5, static_cast<size_t>(batch) * WIDTH * 4},
+      {out.w, static_cast<size_t>(LAYERS) * WIDTH * WIDTH * 4}, {out.b, 8 * WIDTH * 4},
+      {out.w8, WIDTH * 4}, {out.b8, 4}};
+  for (const auto& o : outputs) {
+    const cudaError_t err = cudaMemsetAsync(o.first, 0, o.second, stream);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
 
 }  // namespace

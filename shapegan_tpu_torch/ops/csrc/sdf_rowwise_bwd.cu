@@ -266,7 +266,8 @@ extern "C" int sdf_rowwise_backward(const void* pts, const void* w1p, const void
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   const int slabs = static_cast<int>(l.slabs);
-  bwd_weight_kernel<<<dim3(4, slabs, LAYERS), THREADS, 0, stream>>>(sc.h, sc.dz, sc.w_part, n, slabs);
+  bwd_weight_kernel<<<dim3(4, slabs, LAYERS), THREADS, 0, stream>>>(contiguous_planes(sc.h, plane),
+                                                                    sc.dz, sc.w_part, n, slabs);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   bwd_finish_kernel<<<grid_for(LAYERS * WIDTH * WIDTH), THREADS, 0, stream>>>(
       sc.w_part, LAYERS, slabs, WIDTH * WIDTH, f_w);

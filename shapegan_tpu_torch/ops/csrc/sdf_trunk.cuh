@@ -69,6 +69,16 @@ struct __align__(16) TrunkSmem {
   __nv_bfloat16 zz5[WIDTH];
 };
 
+// a[i] for an index known only at run time, as a chain of selects: an
+// array indexed at run time would live in local memory instead of registers.
+template <class T, int N>
+__device__ __forceinline__ T pick(const T (&a)[N], int i) {
+  T v = a[0];
+#pragma unroll
+  for (int k = 1; k < N; ++k) v = i == k ? a[k] : v;
+  return v;
+}
+
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }

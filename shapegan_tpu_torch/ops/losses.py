@@ -1,5 +1,6 @@
 """Loss functions of the ported trainers (counterpart of
-:mod:`shapegan_tpu.ops.losses`; ported so far: the WGAN-GP penalty)."""
+:mod:`shapegan_tpu.ops.losses`; ported so far: the WGAN-GP penalty and the
+binary cross entropy)."""
 
 from __future__ import annotations
 
@@ -20,3 +21,11 @@ def gradient_penalty(critic_fn: Callable[[torch.Tensor], torch.Tensor], alpha: t
     (grads,) = torch.autograd.grad(critic_fn(interpolated).sum(), interpolated, create_graph=True)
     norms = torch.sqrt((grads**2).sum(dim=tuple(range(1, real.ndim))) + 1e-12)
     return weight * ((norms - 1.0) ** 2).mean()
+
+
+def bce_loss(predictions: torch.Tensor, targets: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Binary cross entropy over probabilities (a discriminator's outputs
+    after its sigmoid), clipped to [eps, 1 - eps] first: ``-mean(t log p +
+    (1 - t) log(1 - p))``, as the JAX package's ``bce_loss``."""
+    p = predictions.clamp(eps, 1.0 - eps)
+    return -(targets * torch.log(p) + (1.0 - targets) * torch.log(1.0 - p)).mean()

@@ -180,11 +180,13 @@ def generate_fused(params: Params, pos: torch.Tensor, z: torch.Tensor) -> torch.
 
 def generate_best(generator, params: Params, pos: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     """Forward-only fake-cloud generation: :func:`generate_fused` when
-    ``_FORCE_FUSED_GENERATE`` is on and the generator is the kernel's model
-    (LayerNorm, 8 layers of 256, no dropout, batched positions), else the
-    module on ``params`` in its own dtype."""
+    ``_FORCE_FUSED_GENERATE`` is on, the positions lie on a CUDA device and
+    the generator is the kernel's model (LayerNorm, 8 layers of 256, no
+    dropout, batched positions), else the module on ``params`` in its own
+    dtype. CPU tensors take the module, as the JAX package does off a TPU."""
     kernel_ok = (
         _FORCE_FUSED_GENERATE
+        and pos.device.type == "cuda"
         and pos.ndim == 3
         and generator.norm
         and generator.num_layers == LAYERS

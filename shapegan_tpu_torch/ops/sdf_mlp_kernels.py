@@ -21,14 +21,24 @@ Six hand-written CUDA kernels (sources in ``ops/csrc/``):
 * the **rowwise backward kernel** (``sdf_rowwise_bwd.cu``, replaces
   ``_rowwise_bwd_kernel`` / ``_rowwise_bwd``): its recompute backward,
   per-row dzz1/dzz5 and the trunk's weight gradients, behind the autograd
-  function :func:`apply_rowwise_trainable`.
+  function :func:`apply_rowwise_trainable`;
+* the **stash forward kernel** (the grid kernel of ``sdf_grid.cu`` given
+  stash planes, replaces ``_stash_fwd_kernel`` / ``_stash_fwd_call``): the
+  grid kernel's forward that also writes the h-chain positions of a stash
+  set to [B, P, 256] bf16 planes;
+* the **stash backward kernel** (the grid backward of ``sdf_grid_bwd.cu``
+  given those planes, replaces ``_stash_bwd_kernel`` /
+  ``_stash_trainable_bwd``): the grid backward with the stashed positions
+  read from the planes, behind the autograd function
+  :func:`apply_grid_trainable_stash`.
 
 Each kernel has a thin wrapper (``*_cuda``: checks, allocates, launches on
 the current stream, counts its launches in ``launch_count``) and a plain
 PyTorch version (``*_plain``) of the same math at the same bf16 rounding
 points. The dispatchers (``grid_forward``, ``points_forward``,
 ``grid_backward``, ``trace_steps``, ``rowwise_forward``,
-``rowwise_backward``) take the plain version only for tensors
+``rowwise_backward``, ``grid_forward_stash``, ``grid_backward_stash``) take
+the plain version only for tensors
 on the CPU; a CUDA tensor goes to the kernel, which raises if it cannot
 run. There is no fallback.
 
@@ -40,7 +50,8 @@ Operand layout (shared with the kernels, see ``csrc/sdf_trunk.cuh``):
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+import ctypes
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -58,6 +69,9 @@ TRACE_ACTIVE, TRACE_HIT, TRACE_MISS = 0, 1, 2
 # points gradient runs in chunks of at most this many points, so the
 # kernel's scratch (~2.1 GB a chunk) does not grow with the frame.
 ROW_CAP = 262144
+# The h-chain positions a stash set names: 0-indexed into h1..h7, as in the
+# JAX package.
+HIDDEN = len(TRUNK_KEYS) + 1
 
 Operands = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -89,28 +103,60 @@ def latent_terms(params: Params, latents: torch.Tensor) -> Tuple[torch.Tensor, t
 # ------------------------------------------------------------ plain versions
 
 
+def check_stash(stash: Sequence[int]) -> Tuple[int, ...]:
+    """A stash set as a tuple: distinct h-chain positions in 0..6 in
+    ascending order, the sets the JAX package's stash kernels take. Any
+    other set raises."""
+    stash = tuple(stash)
+    if (not all(isinstance(j, int) and not isinstance(j, bool) and 0 <= j < HIDDEN for j in stash)
+            or list(stash) != sorted(set(stash))):
+        raise ValueError(f"stash {stash}: expected distinct positions in 0..{HIDDEN - 1}, ascending")
+    return stash
+
+
 def _trunk_plain(x: torch.Tensor, add_skip: Callable[[torch.Tensor], torch.Tensor],
-                 w: torch.Tensor, b: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
+                 w: torch.Tensor, b: torch.Tensor, w8: torch.Tensor,
+                 keep: Optional[Callable[[int, torch.Tensor], None]] = None) -> torch.Tensor:
     """Six trunk layers and the head over layer-1 activations x [R, 256]
     bf16 → [R] float32. A bf16 matmul accumulates in float32 and rounds once
-    to bf16; the bias add is a bf16 add: the kernels' rounding points."""
+    to bf16; the bias add is a bf16 add: the kernels' rounding points.
+    ``keep(j, x)`` sees each new activation x, h-chain position j = 1..6."""
     for layer in range(len(TRUNK_KEYS)):
         h = x @ w[layer].t()
         h = add_skip(h) if layer == SKIP_LAYER else h + b[layer]
         x = torch.relu(h)
+        if keep is not None:
+            keep(layer + 1, x)
     return torch.tanh(x.float() @ w8.float() + b[HEAD_BIAS_ROW, 0].float())
 
 
 def grid_forward_plain(pp1, pp5, zz1, zz5, w, b, w8) -> torch.Tensor:
     """Plain PyTorch version of the grid kernel → [B, P] float32."""
+    return grid_forward_stash_plain(pp1, pp5, zz1, zz5, w, b, w8, ())[0]
+
+
+def grid_forward_stash_plain(pp1, pp5, zz1, zz5, w, b, w8, stash):
+    """Plain PyTorch version of the stash forward kernel: the grid kernel's
+    output [B, P] float32 (the same computation, so bit for bit the same),
+    and a [B, P, 256] bf16 plane for each position of ``stash``: position j
+    is the activation after trunk layer j - 1's epilogue, position 0 is
+    h1 = relu(pp1 + zz1)."""
+    stash = check_stash(stash)
     batch, points = zz1.shape[0], pp1.shape[0]
+    planes = {}
+
+    def keep(j, x):
+        if j in stash:
+            planes[j] = x.reshape(batch, points, WIDTH)
 
     def add_skip(h):
         h = h.reshape(batch, points, WIDTH) + pp5[None] + zz5[:, None]
         return h.reshape(batch * points, WIDTH)
 
     x = torch.relu(pp1[None] + zz1[:, None]).reshape(batch * points, WIDTH)
-    return _trunk_plain(x, add_skip, w, b, w8).reshape(batch, points)
+    keep(0, x)
+    out = _trunk_plain(x, add_skip, w, b, w8, keep).reshape(batch, points)
+    return out, tuple(planes[j] for j in stash)
 
 
 def points_forward_plain(pts, w1p, w5p, zz1, zz5, w, b, w8) -> torch.Tensor:
@@ -174,6 +220,23 @@ def grid_backward_plain(pp1, pp5, zz1, zz5, w, b, w8, g):
     each dz is rounded to bf16 before it is used; dh and dx1 stay float32.
     Products take bf16 operands in float32 (``a.float() @ b.float()``), exact
     per product, so a float32 result is never rounded to bf16 on the way."""
+    return grid_backward_stash_plain(pp1, pp5, zz1, zz5, w, b, w8, g, (), ())
+
+
+def grid_backward_stash_plain(pp1, pp5, zz1, zz5, w, b, w8, g, stashed, stash):
+    """Plain PyTorch version of the stash backward kernel (the math of
+    ``_stash_bwd_kernel``): what :func:`grid_backward_plain` returns, with
+    the positions of ``stash`` read from ``stashed`` (one [B, P, 256] bf16
+    plane each, the stash forward's). Its rounding points: h1 is rebuilt as
+    the grid backward does it; a stashed position is the forward's own
+    value; a position that is not stashed is rebuilt, in ascending order,
+    from its predecessor (which may be stashed) at the grid backward's
+    rounding points; the sweep is the grid backward's. A stashed position 0
+    is ignored, as the TPU kernel ignores it."""
+    stash = check_stash(stash)
+    if len(stashed) != len(stash):
+        raise ValueError(f"{len(stashed)} stashed planes for the stash {stash}")
+    planes = dict(zip(stash, stashed))
     f32 = torch.float32
     points, width = pp1.shape
     wf = w.float()
@@ -190,6 +253,9 @@ def grid_backward_plain(pp1, pp5, zz1, zz5, w, b, w8, g):
     for s in range(zz1.shape[0]):
         h = [torch.relu(pp1.float() + zz1[s].float()).to(BF16)]
         for layer in range(len(TRUNK_KEYS)):
+            if layer + 1 in planes:
+                h.append(planes[layer + 1][s])
+                continue
             acc = h[-1].float() @ wf[layer].t()
             if layer == SKIP_LAYER:
                 acc = acc + pp5.float() + zz5[s].float()
@@ -293,8 +359,8 @@ def _cuda_device(tensor: torch.Tensor) -> torch.device:
     return tensor.device
 
 
-def grid_forward_cuda(pp1, pp5, zz1, zz5, w, b, w8) -> torch.Tensor:
-    """Launch the grid kernel (``csrc/sdf_grid.cu``) → [B, P] float32."""
+def _check_grid(pp1, pp5, zz1, zz5, w, b, w8):
+    """The grid kernels' operand checks; returns (device, points, batch)."""
     device = _cuda_device(pp1)
     points, batch = pp1.shape[0], zz1.shape[0]
     _check("pp1", device, pp1, (points, WIDTH), BF16)
@@ -302,6 +368,12 @@ def grid_forward_cuda(pp1, pp5, zz1, zz5, w, b, w8) -> torch.Tensor:
     _check("zz1", device, zz1, (batch, WIDTH), BF16)
     _check("zz5", device, zz5, (batch, WIDTH), BF16)
     _check_trunk(device, w, b, w8)
+    return device, points, batch
+
+
+def grid_forward_cuda(pp1, pp5, zz1, zz5, w, b, w8) -> torch.Tensor:
+    """Launch the grid kernel (``csrc/sdf_grid.cu``) → [B, P] float32."""
+    device, points, batch = _check_grid(pp1, pp5, zz1, zz5, w, b, w8)
     out = torch.empty((batch, points), dtype=torch.float32, device=device)
     if batch == 0 or points == 0:
         return out
@@ -348,26 +420,11 @@ def grid_backward_cuda(pp1, pp5, zz1, zz5, w, b, w8, g):
     """Launch the grid backward kernel (``csrc/sdf_grid_bwd.cu``); returns
     what :func:`grid_backward_plain` returns. The scratch it needs (about
     2 GB for a chunk of 262,144 rows) is allocated here, per call."""
-    device = _cuda_device(pp1)
-    points, batch = pp1.shape[0], zz1.shape[0]
-    _check("pp1", device, pp1, (points, WIDTH), BF16)
-    _check("pp5", device, pp5, (points, WIDTH), BF16)
-    _check("zz1", device, zz1, (batch, WIDTH), BF16)
-    _check("zz5", device, zz5, (batch, WIDTH), BF16)
-    _check_trunk(device, w, b, w8)
-    _check("g", device, g, (batch, points), torch.float32)
-    if batch == 0 or points == 0:
-        raise ValueError(f"grid backward needs B > 0 and P > 0, got B={batch} P={points}")
-
-    def buffer(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=device)
-
-    outs = (buffer(points, WIDTH), buffer(points, WIDTH), buffer(batch, WIDTH),
-            buffer(batch, WIDTH), buffer(len(TRUNK_KEYS), WIDTH, WIDTH), buffer(8, WIDTH),
-            buffer(WIDTH), buffer(1))  # zeroed by the kernel
+    device, points, batch = _check_grid(pp1, pp5, zz1, zz5, w, b, w8)
+    outs = _grid_grad_buffers(device, points, batch, g)
     lib = _build.load()
     chunk = lib.sdf_grid_backward_chunk_shapes(points, batch)
-    scratch = torch.empty(lib.sdf_grid_backward_scratch_bytes(points, chunk),
+    scratch = torch.empty(lib.sdf_grid_backward_scratch_bytes(points, chunk, 0),
                           dtype=torch.uint8, device=device)
     wt = w.transpose(1, 2).contiguous()  # [6, in, out]: the backward products' operand
     code = lib.sdf_grid_backward(
@@ -381,6 +438,84 @@ def grid_backward_cuda(pp1, pp5, zz1, zz5, w, b, w8, g):
 
 
 grid_backward_cuda.launch_count = 0
+
+
+def _grid_grad_buffers(device, points: int, batch: int, g: torch.Tensor):
+    """The grid backwards' eight float32 outputs (zeroed by the kernels),
+    after checking the cotangent g [B, P]."""
+    _check("g", device, g, (batch, points), torch.float32)
+    if batch == 0 or points == 0:
+        raise ValueError(f"grid backward needs B > 0 and P > 0, got B={batch} P={points}")
+
+    def buffer(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=device)
+
+    return (buffer(points, WIDTH), buffer(points, WIDTH), buffer(batch, WIDTH),
+            buffer(batch, WIDTH), buffer(len(TRUNK_KEYS), WIDTH, WIDTH), buffer(8, WIDTH),
+            buffer(WIDTH), buffer(1))
+
+
+def _stash_pointers(stash: Tuple[int, ...], planes) -> ctypes.Array:
+    """The kernels' HIDDEN plane pointers: a plane's address at its
+    position, NULL elsewhere."""
+    pointers = [None] * HIDDEN
+    for j, plane in zip(stash, planes):
+        pointers[j] = plane.data_ptr()
+    return (ctypes.c_void_p * HIDDEN)(*pointers)
+
+
+def grid_forward_stash_cuda(pp1, pp5, zz1, zz5, w, b, w8, stash):
+    """Launch the stash forward kernel (``csrc/sdf_grid.cu``); returns
+    what :func:`grid_forward_stash_plain` returns. The planes (B·P·512 bytes
+    each) are allocated here."""
+    stash = check_stash(stash)
+    device, points, batch = _check_grid(pp1, pp5, zz1, zz5, w, b, w8)
+    out = torch.empty((batch, points), dtype=torch.float32, device=device)
+    planes = tuple(torch.empty((batch, points, WIDTH), dtype=BF16, device=device) for _ in stash)
+    if batch == 0 or points == 0:
+        return out, planes
+    lib = _build.load()
+    code = lib.sdf_grid_stash_forward(
+        pp1.data_ptr(), pp5.data_ptr(), zz1.data_ptr(), zz5.data_ptr(), w.data_ptr(),
+        b.data_ptr(), w8.data_ptr(), out.data_ptr(), _stash_pointers(stash, planes),
+        batch, points, device.index, torch.cuda.current_stream(device).cuda_stream)
+    _build.check(lib, "sdf_grid_stash_forward", code)
+    grid_forward_stash_cuda.launch_count += 1
+    return out, planes
+
+
+grid_forward_stash_cuda.launch_count = 0
+
+
+def grid_backward_stash_cuda(pp1, pp5, zz1, zz5, w, b, w8, g, stashed, stash):
+    """Launch the stash backward kernel (``csrc/sdf_grid_bwd.cu``);
+    returns what :func:`grid_backward_stash_plain` returns. Its scratch is
+    the grid backward's less one plane for each stashed position among
+    h2..h7."""
+    stash = check_stash(stash)
+    device, points, batch = _check_grid(pp1, pp5, zz1, zz5, w, b, w8)
+    if len(stashed) != len(stash):
+        raise ValueError(f"{len(stashed)} stashed planes for the stash {stash}")
+    for j, plane in zip(stash, stashed):
+        _check(f"stash plane {j}", device, plane, (batch, points, WIDTH), BF16)
+    outs = _grid_grad_buffers(device, points, batch, g)
+    lib = _build.load()
+    chunk = lib.sdf_grid_backward_chunk_shapes(points, batch)
+    mask = sum(1 << j for j in stash)
+    scratch = torch.empty(lib.sdf_grid_backward_scratch_bytes(points, chunk, mask),
+                          dtype=torch.uint8, device=device)
+    wt = w.transpose(1, 2).contiguous()  # [6, in, out]: the backward products' operand
+    code = lib.sdf_grid_stash_backward(
+        pp1.data_ptr(), pp5.data_ptr(), zz1.data_ptr(), zz5.data_ptr(), w.data_ptr(),
+        wt.data_ptr(), b.data_ptr(), w8.data_ptr(), g.data_ptr(), _stash_pointers(stash, stashed),
+        *(t.data_ptr() for t in outs), scratch.data_ptr(),
+        batch, points, chunk, device.index, torch.cuda.current_stream(device).cuda_stream)
+    _build.check(lib, "sdf_grid_stash_backward", code)
+    grid_backward_stash_cuda.launch_count += 1
+    return outs
+
+
+grid_backward_stash_cuda.launch_count = 0
 
 
 def trace_steps_cuda(pts, dirs, status, escape, w1p, w5p, zz1, zz5, w, b, w8, *, k: int,
@@ -509,6 +644,22 @@ def grid_backward(pp1, pp5, zz1, zz5, w, b, w8, g):
     return grid_backward_cuda(pp1, pp5, zz1, zz5, w, b, w8, g)
 
 
+def grid_forward_stash(pp1, pp5, zz1, zz5, w, b, w8, stash):
+    """Stash forward kernel on CUDA tensors, its plain version on CPU
+    tensors."""
+    if pp1.device.type == "cpu":
+        return grid_forward_stash_plain(pp1, pp5, zz1, zz5, w, b, w8, stash)
+    return grid_forward_stash_cuda(pp1, pp5, zz1, zz5, w, b, w8, stash)
+
+
+def grid_backward_stash(pp1, pp5, zz1, zz5, w, b, w8, g, stashed, stash):
+    """Stash backward kernel on CUDA tensors, its plain version on CPU
+    tensors."""
+    if pp1.device.type == "cpu":
+        return grid_backward_stash_plain(pp1, pp5, zz1, zz5, w, b, w8, g, stashed, stash)
+    return grid_backward_stash_cuda(pp1, pp5, zz1, zz5, w, b, w8, g, stashed, stash)
+
+
 def trace_steps(pts, dirs, status, escape, w1p, w5p, zz1, zz5, w, b, w8, **kw):
     """Trace kernel on CUDA tensors, its plain version on CPU tensors."""
     if pts.device.type == "cpu":
@@ -611,25 +762,31 @@ class _GridTrainable(torch.autograd.Function):
     def backward(ctx, g):
         grid_points, latents, *values = ctx.saved_tensors
         params = dict(zip(PARAM_KEYS, values))
-        ops = grid_operands(params, grid_points, latents)
-        d_pp1, d_pp5, d_zz1, d_zz5, d_w, d_b, d_w8, d_b8 = grid_backward(
-            *ops, g.float().contiguous())
-        # The closing products of _trainable_bwd, in float32.
-        pts = grid_points.float()
-        lat = latents.float()
-        d = {
-            "w1p": pts.t() @ d_pp1, "w1z": lat.t() @ d_zz1, "b1": d_zz1.sum(0),
-            "w5p": pts.t() @ d_pp5, "w5z": lat.t() @ d_zz5, "b5": d_zz5.sum(0),
-            "w8": d_w8[:, None], "b8": d_b8,
-        }
-        for layer, key in enumerate(TRUNK_KEYS):
-            d[key] = d_w[layer]
-            if layer != SKIP_LAYER:
-                d["b" + key[1:]] = d_b[layer]
-        d_grid = d_pp1 @ params["w1p"].float().t() + d_pp5 @ params["w5p"].float().t()
-        d_latents = d_zz1 @ params["w1z"].float().t() + d_zz5 @ params["w5z"].float().t()
-        return (d_grid.to(grid_points.dtype), d_latents.to(latents.dtype),
-                *(d[k].to(params[k].dtype) for k in PARAM_KEYS))
+        grads = grid_backward(*grid_operands(params, grid_points, latents), g.float().contiguous())
+        return _close_grid_chain(params, grid_points, latents, grads)
+
+
+def _close_grid_chain(params: Params, grid_points: torch.Tensor, latents: torch.Tensor, grads):
+    """The closing products of ``_trainable_bwd`` (and
+    ``_stash_trainable_bwd``), in float32: from a grid backward's outputs to
+    the gradients of the points, the latents and the 19 parameters in
+    ``PARAM_KEYS`` order."""
+    d_pp1, d_pp5, d_zz1, d_zz5, d_w, d_b, d_w8, d_b8 = grads
+    pts = grid_points.float()
+    lat = latents.float()
+    d = {
+        "w1p": pts.t() @ d_pp1, "w1z": lat.t() @ d_zz1, "b1": d_zz1.sum(0),
+        "w5p": pts.t() @ d_pp5, "w5z": lat.t() @ d_zz5, "b5": d_zz5.sum(0),
+        "w8": d_w8[:, None], "b8": d_b8,
+    }
+    for layer, key in enumerate(TRUNK_KEYS):
+        d[key] = d_w[layer]
+        if layer != SKIP_LAYER:
+            d["b" + key[1:]] = d_b[layer]
+    d_grid = d_pp1 @ params["w1p"].float().t() + d_pp5 @ params["w5p"].float().t()
+    d_latents = d_zz1 @ params["w1z"].float().t() + d_zz5 @ params["w5z"].float().t()
+    return (d_grid.to(grid_points.dtype), d_latents.to(latents.dtype),
+            *(d[k].to(params[k].dtype) for k in PARAM_KEYS))
 
 
 def apply_grid_trainable(params: Params, grid_points: torch.Tensor, latents: torch.Tensor) -> torch.Tensor:
@@ -637,6 +794,44 @@ def apply_grid_trainable(params: Params, grid_points: torch.Tensor, latents: tor
     grid kernel forward, the grid backward kernel for the gradients of the
     parameters, the points and the latents."""
     return _GridTrainable.apply(grid_points, latents, *(params[k] for k in PARAM_KEYS))
+
+
+class _GridTrainableStash(torch.autograd.Function):
+    """The stash forward kernel with the stash backward kernel as its
+    gradient (the custom VJP of the JAX package's
+    ``apply_grid_trainable_stash``). Inputs: the stash set, grid points
+    [P, 3], latents [B, L], then the 19 parameters in ``PARAM_KEYS`` order.
+    The stashed planes are kept for the backward."""
+
+    @staticmethod
+    def forward(ctx, stash, grid_points, latents, *values):
+        params = dict(zip(PARAM_KEYS, values))
+        out, stashed = grid_forward_stash(*grid_operands(params, grid_points, latents), stash)
+        ctx.stash = stash
+        ctx.save_for_backward(grid_points, latents, *values, *stashed)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        grid_points, latents, *saved = ctx.saved_tensors
+        values, stashed = saved[:len(PARAM_KEYS)], saved[len(PARAM_KEYS):]
+        params = dict(zip(PARAM_KEYS, values))
+        grads = grid_backward_stash(*grid_operands(params, grid_points, latents),
+                                    g.float().contiguous(), stashed, ctx.stash)
+        return (None,) + _close_grid_chain(params, grid_points, latents, grads)
+
+
+def apply_grid_trainable_stash(params: Params, grid_points: torch.Tensor, latents: torch.Tensor,
+                               stash: Sequence[int]) -> torch.Tensor:
+    """Differentiable grid evaluation [P, 3] x [B, L] → [B, P] float32 with
+    an activation stash: the stash forward kernel writes the h-chain
+    positions of ``stash`` (0-indexed into h1..h7; the trainers' set is
+    :data:`shapegan_tpu_torch.train.hybrid_gan._GRID_STASH`), and
+    the stash backward kernel reads them instead of rebuilding them. The
+    value is the grid kernel's; the gradients differ from
+    :func:`apply_grid_trainable`'s by the rounding of the positions read."""
+    return _GridTrainableStash.apply(check_stash(stash), grid_points, latents,
+                                     *(params[k] for k in PARAM_KEYS))
 
 
 def points_value_and_gradient(params: Params, points: torch.Tensor, latent: torch.Tensor,

@@ -37,7 +37,14 @@ shape, so slice B's mesh is the sphere mask) and a chair fitted on the card
   of its curriculum, fresh full-width weights, a random batch): the D step
   with the fused generator switch on (the generator kernel makes the fake
   cloud) and off (the bf16 module), and the G step, medians of ``iters``
-  on the host clock, and ``torch.profiler`` over one of each.
+  on the host clock, and ``torch.profiler`` over one of each;
+* slice G, the activation stash at 16 x 64^3 (the counterpart of the JAX
+  package's ``bench_profile.py stash_breakdown``, fresh full-width weights):
+  the forward with the stash writes of (2,4,6) and (1..6) beside the grid
+  kernel, and forward + backward (``apply_grid_trainable_stash``) for
+  (2,4,6), (1,2,4,6) and (1..6) beside the recompute
+  (``apply_grid_trainable``), each the median of ``iters`` on CUDA events
+  and with its peak device memory.
 
 It needs CUDA and builds the kernels if they are not built yet.
 """
@@ -169,6 +176,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     profile_raymarch(device, iters)
     profile_autodecoder(device, iters)
     profile_point_gan(device, iters)
+    profile_stash(device, iters)
     return 0
 
 
@@ -357,6 +365,54 @@ def profile_point_gan(device: torch.device, iters: int) -> None:
               f"(host clock, median of {iters})")
     for name, fn in steps.items():
         report(f"one point GAN {name}", *profile_device(fn, top=10))
+
+
+def profile_stash(device: torch.device, iters: int, batch: int = 16, res: int = 64) -> None:
+    """Slice G: the activation stash at ``batch`` x ``res``^3, fresh weights;
+    each figure the median of ``iters`` on CUDA events after a warm-up, with
+    the peak device memory of one call (``max_memory_allocated`` after
+    ``reset_peak_memory_stats``)."""
+    from shapegan_tpu_torch.ops import sdf_mlp
+
+    params = sdf_mlp.init(torch.Generator().manual_seed(0), device=device)
+    grid = voxel_coordinates(res, device=device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    z = torch.randn((batch, 128), generator=gen, device=device)
+    print(f"slice G, activation stash at {batch} x {res}^3 ({batch * res**3 / 1e6:.2f}M points), "
+          f"medians of {iters} (CUDA events)")
+
+    def measure(name: str, fn: Callable[[], object]) -> float:
+        fn()
+        ms = statistics.median(_event_ms(fn) for _ in range(iters))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        print(f"  {name:<44s} {ms:9.3f} ms, peak memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+        return ms
+
+    ops = K.grid_operands(params, grid, z)
+    fwd = measure("fwd (grid kernel, B1)", lambda: K.grid_forward_cuda(*ops))
+    for stash in ((2, 4, 6), (1, 2, 3, 4, 5, 6)):
+        ms = measure(f"fwd + stash writes {stash} (B5a)", lambda: K.grid_forward_stash_cuda(*ops, stash))
+        print(f"    stash-write delta {stash}: {ms - fwd:.3f} ms")
+    del ops
+
+    leaves = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+    latents = z.clone().requires_grad_(True)
+
+    def grad_step(apply):
+        def fn():
+            out = apply(leaves, grid, latents)
+            return torch.autograd.grad(out.sum(), [*leaves.values(), latents])
+        return fn
+
+    recompute = measure("fwd+bwd recompute (B1 + B2)", grad_step(K.apply_grid_trainable))
+    for stash in ((2, 4, 6), (1, 2, 4, 6), (1, 2, 3, 4, 5, 6)):
+        ms = measure(f"fwd+bwd stash {stash} (B5a + B5b)",
+                     grad_step(lambda p, g, l, s=stash: K.apply_grid_trainable_stash(p, g, l, s)))
+        print(f"    vs recompute {stash}: {ms - recompute:.3f} ms")
 
 
 if __name__ == "__main__":

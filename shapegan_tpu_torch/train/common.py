@@ -117,6 +117,30 @@ class StepProfiler:
         return float(times[times <= 20 * np.median(times)].mean())
 
 
+def load_generator(net, name: str, base: str) -> None:
+    """Copy a saved SDF-MLP checkpoint into ``net``'s parameters in place."""
+    from shapegan_tpu_torch import checkpoints
+
+    restored = checkpoints.load_tree(net.param_dict(), name, base=base)
+    with torch.no_grad():
+        for key, param in net.param_dict().items():
+            param.copy_(restored[key])
+
+
+def load_critic(module: torch.nn.Module, name: str, base: str) -> None:
+    """Copy a saved flax conv critic (``<layer>/kernel|bias``) into
+    ``module``'s parameters in place."""
+    from shapegan_tpu_torch import checkpoints
+    from shapegan_tpu_torch.models import progressive_gan
+
+    params = dict(module.named_parameters())
+    restored = checkpoints.load_tree(progressive_gan.params_to_jax(params), name, base=base)
+    restored = progressive_gan.params_from_jax(restored, device=next(iter(params.values())).device)
+    with torch.no_grad():
+        for key, param in params.items():
+            param.copy_(restored[key])
+
+
 def maybe_print_slice(volume: torch.Tensor, enabled: bool, scale: float = 1.0) -> None:
     """The reference's headless visual check (``show_slice``)."""
     if enabled:

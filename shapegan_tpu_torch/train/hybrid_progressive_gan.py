@@ -15,8 +15,10 @@ epochs (default 1; the last epoch always) and a snapshot every 10; the CSV
 ``epoch time fake real gp`` in ``plots/hybrid_gan_training_<iteration>.csv``.
 
 On the GPU the generator's volumes go through the hand-written kernels: the
-grid kernel forward for the critic's fakes and the generator's loss, the
-grid backward kernel for its gradients. With ``cpu`` their plain versions
+grid kernel forward for the critic's fakes, and for the generator's loss
+and gradients the VJP that :data:`shapegan_tpu_torch.train.hybrid_gan._GRID_STASH`
+picks (by default the stash forward and stash backward kernels; with it
+None, the grid kernel and the grid backward kernel). With ``cpu`` their plain versions
 run on the CPU; without it the trainer needs CUDA. The noise (latents and
 the penalty's interpolation coefficients) is drawn on the device from a
 ``torch.Generator`` seeded per epoch, so it is not the JAX trainer's noise;
@@ -46,6 +48,8 @@ from shapegan_tpu_torch.train.common import (
     RollingHistory,
     StepProfiler,
     effective_batch_size,
+    load_critic,
+    load_generator,
     maybe_print_slice,
     resolve_voxel_dataset,
 )
@@ -140,22 +144,6 @@ def _optimizer_tree(g_opt: RMSprop, d_opt: RMSprop) -> dict:
     return {"g": ({"nu": g_opt.nu},), "d": ({"nu": progressive_gan.params_to_jax(d_opt.nu)},)}
 
 
-def _load_generator(net: SDFNet, name: str, base: str) -> None:
-    restored = checkpoints.load_tree(net.param_dict(), name, base=base)
-    with torch.no_grad():
-        for key, param in net.param_dict().items():
-            param.copy_(restored[key])
-
-
-def _load_discriminator(discriminator: ProgressiveDiscriminator, name: str, base: str) -> None:
-    params = dict(discriminator.named_parameters())
-    restored = checkpoints.load_tree(progressive_gan.params_to_jax(params), name, base=base)
-    restored = progressive_gan.params_from_jax(restored, device=next(iter(params.values())).device)
-    with torch.no_grad():
-        for key, param in params.items():
-            param.copy_(restored[key])
-
-
 def train(config: Optional[TrainConfig] = None) -> dict:
     """Train one growth iteration; returns the models and the step times."""
     config = config or parse_cli()
@@ -172,9 +160,9 @@ def train(config: Optional[TrainConfig] = None) -> dict:
     source = iteration if config.resume else iteration - 1
     if source >= 0:
         if checkpoints.exists(G_NAME.format(source), base=base):
-            _load_generator(net, G_NAME.format(source), base)
+            load_generator(net, G_NAME.format(source), base)
         if checkpoints.exists(D_NAME.format(source), base=base):
-            _load_discriminator(discriminator, D_NAME.format(source), base)
+            load_critic(discriminator, D_NAME.format(source), base)
 
     g_every = int(config.extras.get("g_every", GENERATOR_UPDATE_EVERY))
     learn_rate = float(config.extras.get("learn_rate", LEARN_RATE))

@@ -25,8 +25,8 @@ reproduces the uninterrupted one.
 Precision, as in the JAX trainer (its COMPUTE_DTYPE note): the critic runs
 in bf16 everywhere; the D step's fake cloud comes from the bf16 generator
 under ``no_grad`` through :func:`~shapegan_tpu_torch.ops.point_gen_kernels.generate_best`
-(on the GPU the hand-written generator kernel, its plain version with
-``cpu``); the G step differentiates the generator in float32 through the
+(on the GPU the hand-written generator kernel; with ``cpu`` the bf16
+module, the JAX package's choice off a TPU); the G step differentiates the generator in float32 through the
 bf16 critic. The steps take their noise as arguments, so a test can hand
 both packages the same. Batches come from the host (:class:`BatchLoader`,
 threads) and go to the card from pinned memory. Not ported: the sharded

@@ -41,7 +41,8 @@ def test_port_imports_nothing_of_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
     count, names = proc.stdout.splitlines()[-2:]
-    assert int(count) >= 34  # every module was walked
+    assert int(count) >= 36  # every module was walked
     for module in ("models.point_sdf_net", "ops.point_gen_kernels", "train.point_gan",
-                   "data.datasets", "data.synthetic"):
+                   "data.datasets", "data.synthetic", "models.gan", "train.hybrid_gan",
+                   "train.hybrid_wgan"):
         assert f"shapegan_tpu_torch.{module}" in names.split(), module

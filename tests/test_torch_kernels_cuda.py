@@ -412,3 +412,64 @@ def test_point_gen_best_launches_kernel_and_rejects_cpu_operands(cuda, monkeypat
         PG.generate_cuda(ops[0], ops[1].cpu(), *ops[2:])
     with pytest.raises(ValueError, match="shape"):
         PG.generate_cuda(ops[0], ops[1][:1], *ops[2:])
+
+
+# B5a (stash forward) and B5b (stash backward). B5a's output is B1's bit for
+# bit (the same arithmetic), and its planes the plain version's: measured on
+# an H100 at 16 x 64^3 and B=3, P=3001, share of differing elements 0 (bound
+# 1e-4, chip_smoke.py's; a plane written one layer late differs almost
+# everywhere). B5b is held to B2's bounds against its plain version on the
+# same planes.
+STASH_SETS = [(2, 4, 6), (1, 2, 3, 4, 5, 6)]
+STASH_PLANE_SHARE = 1e-4
+
+
+@pytest.mark.parametrize("stash", STASH_SETS)
+@pytest.mark.parametrize("n_points, n_latents", [(3001, 3), (16**3, 16)])
+def test_stash_kernels_match_b1_and_plain(cuda, n_points, n_latents, stash):
+    params, pts, lats = _setup(cuda, n_points, n_latents, seed=8)
+    g = torch.tensor(np.random.default_rng(8).normal(size=(n_latents, n_points)).astype(np.float32),
+                     device=cuda)
+    ops = K.grid_operands(params, pts, lats)
+    before = (K.grid_forward_stash_cuda.launch_count, K.grid_backward_stash_cuda.launch_count)
+    out, planes = K.grid_forward_stash_cuda(*ops, stash)
+    got = K.grid_backward_stash_cuda(*ops, g, planes, stash)
+    assert (K.grid_forward_stash_cuda.launch_count, K.grid_backward_stash_cuda.launch_count) == (
+        before[0] + 1, before[1] + 1)
+    want_out, want_planes = K.grid_forward_stash_plain(*ops, stash)
+    torch.cuda.synchronize()
+    assert torch.equal(out, K.grid_forward_cuda(*ops))
+    _close(out, want_out)
+    for j, a, b in zip(stash, planes, want_planes):
+        assert a.shape == (n_latents, n_points, 256)
+        share = float((a != b).float().mean())
+        assert share <= STASH_PLANE_SHARE, (j, share)
+    _bwd_close(got, K.grid_backward_stash_plain(*ops, g, planes, stash))
+
+
+def test_apply_grid_trainable_stash_launches_stash_kernels(cuda):
+    """Gradients through B5a and B5b on the card, with the trainers' stash
+    set, against the same autograd function on CPU copies (the plain
+    versions); neither B1 nor B2 runs."""
+    from shapegan_tpu_torch.train import hybrid_gan as HG
+
+    params, _, lats = _setup(cuda, 1, 3, seed=9)
+    pts = voxel_coordinates(16, device=cuda)
+    cot = torch.tensor(np.random.default_rng(9).normal(size=(3, 16**3)).astype(np.float32))
+    counters = (K.grid_forward_cuda, K.grid_backward_cuda, K.grid_forward_stash_cuda,
+                K.grid_backward_stash_cuda)
+    grads = []
+    for device in (cuda, torch.device("cpu")):
+        leaves = {k: v.detach().to(device).requires_grad_(True) for k, v in params.items()}
+        grid = pts.detach().to(device).requires_grad_(True)
+        latents = lats.detach().to(device).requires_grad_(True)
+        counts = [c.launch_count for c in counters]
+        K.apply_grid_trainable_stash(leaves, grid, latents, HG._GRID_STASH).backward(cot.to(device))
+        launched = [c.launch_count - n for c, n in zip(counters, counts)]
+        assert launched == ([0, 0, 1, 1] if device.type == "cuda" else [0, 0, 0, 0])
+        grads.append([leaves[k].grad for k in sdf_mlp.PARAM_KEYS] + [grid.grad, latents.grad])
+    for name, a, b in zip(list(sdf_mlp.PARAM_KEYS) + ["grid", "latents"], *grads):
+        a = a.cpu().double()
+        l2 = float((a - b.double()).norm() / b.double().norm())
+        print(f"  {name}: l2 {l2:.3e}")
+        assert l2 <= BWD_L2, (name, l2)

@@ -177,8 +177,8 @@ def _jax_critic_loss(critic, u_pos, u_dist, fake, alpha):
 def test_d_step_gradients_match_jax():
     """The critic's gradients from the same parameters, batch, fake cloud,
     and penalty coefficients drawn from the JAX step's own key split; then
-    the port's whole d_step (its fake from the generator kernel's plain
-    version) within the bf16 distance of the JAX step's losses."""
+    the port's whole d_step (its fake from the bf16 module, as on the CPU
+    the JAX step's) within the bf16 distance of the JAX step's losses."""
     jgen, jcritic, g_params, d_params = _jax_setup()
     u_pos, u_dist = _batch()
     z_rng, gp_rng = jax.random.split(jax.random.PRNGKey(7))
@@ -203,7 +203,9 @@ def test_d_step_gradients_match_jax():
                                    d_opt)
     before = {k: v.detach().clone() for k, v in critic.named_parameters()}
     full = d_step(t(u_pos), t(u_dist), t(z), t(alpha))
-    assert abs(float(full["d_loss"]) - float(d_loss)) <= 1e-2 * max(1.0, abs(float(d_loss)))
+    # Its fake cloud from the bf16 module, as the JAX step's off a TPU:
+    # d_loss reads 3.05e-5 from the JAX step's (one step of the bf16 scores).
+    assert abs(float(full["d_loss"]) - float(d_loss)) <= LOSS_ATOL
     # the update moved the critic (Dense_6's bias has no gradient: it cancels
     # in the loss and the penalty)
     moved = {k: not torch.equal(v, before[k]) for k, v in critic.named_parameters()}

@@ -19,6 +19,7 @@ from shapegan_tpu_torch.core.config import parse_cli
 from shapegan_tpu_torch.models import progressive_gan
 from shapegan_tpu_torch.optim import RMSprop
 from shapegan_tpu_torch.train import hybrid_progressive_gan as trainer
+from shapegan_tpu_torch.train.common import load_critic, load_generator
 
 BATCH = 2
 LR = 1e-4
@@ -44,8 +45,8 @@ def test_checkpoints_load_both_ways(tmp_path):
     jax_checkpoints.save(opt_tree, "opt", base=base)
 
     net, critic = trainer.create_models(seed=5)
-    trainer._load_generator(net, "g", base)
-    trainer._load_discriminator(critic, "d", base)
+    load_generator(net, "g", base)
+    load_critic(critic, "d", base)
     for key, value in g_params.items():
         np.testing.assert_array_equal(net.param_dict()[key].detach().numpy(), value)
     got = progressive_gan.params_to_jax(dict(critic.named_parameters()))
