@@ -30,7 +30,8 @@ Phases, each fatal on failure (nothing is caught):
      ``hybrid_gan._GRID_STASH``); each kernel's bound (the larger of its
      operations over the bf16 tensor-core peak and its bytes over the
      memory rate, from this run's shapes; the trace kernel's from the
-     lane-steps its rays need);
+     lane-steps its rays need), and each kernel's TFLOP/s and share of its
+     bound's rate;
   5. the generation path: slice A, generate_volumes_inference on 16 codes
      at 64^3, whose counts must show the grid kernel ran, and slice B, the
      demo_sdf_net entry point in mesh mode at 128^3 in a temporary
@@ -86,7 +87,9 @@ Phases, each fatal on failure (nothing is caught):
 Each run of a path in phases 5-7 and 9-11 starts with every launch count set to 0
 and reads the counts just after; launches made to compare a kernel with its
 plain version or to time it are never counted. The kernels line gives each
-kernel's launches summed over those runs, and per run.
+kernel's launches summed over the runs made at the shipped switch
+settings (the A/B runs with a switch turned the other way are left out
+of the sum), and per run.
 The last lines are a JSON object of the kernels, the card's name and power
 limit, and {"ok": true, "device": {...}}. Without CUDA, or without the repo
 beside it, the script exits non-zero before printing any result.
@@ -103,11 +106,13 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # Kernel vs plain version on identical bf16 operands. Both round to bf16 at
-# the same points, so only the head's float32 summation order differs:
-# measured max 1.1e-8, mean 1.4e-9 on the H100. A kernel with one rounding
-# point wrong (no bf16 round before the bias add, layer-5 adds in float32,
-# an fp16 or float32 trunk) reads max >= 1.4e-4, mean >= 2.3e-5 (PERF.md,
-# section 6); the bounds sit between the two.
+# the same points, so only the float32 summation orders differ (the head's,
+# and the wgmma trunk's products in B3): measured max 1.1e-8, mean 1.4e-9 on
+# the H100 (B3 on the wgmma trunk: 7.5e-9 / 1.4e-9). A kernel with one
+# rounding point wrong (no bf16 round before the bias add, layer-5 adds in
+# float32, an fp16 or float32 trunk) reads max >= 1.4e-4, mean >= 2.3e-5,
+# and B3 with its K-blocks in the wrong order 4.2e-2 (PERF.md, section 6);
+# the bounds sit between the two.
 KERNEL_MAX_ABS = 1e-5
 KERNEL_MEAN_ABS = 1e-6
 # The grid backward kernel (B2) vs its plain version: relative errors per
@@ -151,11 +156,13 @@ BF16_VS_F32_MAX_ABS = 1e-3
 # flip its status. Bounds: the share of lanes whose status agrees, the
 # largest |dp| over lanes whose status agrees, and the share of those with
 # |dp| > 1e-6. Measured on the H100 (all three cases): agreement 1.0, max
-# |dp| 1.9e-3, share 3.6e-5. Three wrong kernels each fail these bounds in
-# a run with them (PERF.md, section 6): the miss test before the hit test
-# (agreement 0.989 on the odd case), no bf16 rounding of the trunk input
-# (agreement 0.983, max |dp| 0.47), an FMA advance (max |dp| 1.3e-2, share
-# 4.6e-3 on the primary rays, share 6.9e-3 on the shadow rays).
+# |dp| 1.9e-3, share 3.6e-5 (the wgmma kernel: 2.4e-5). Wrong kernels each
+# fail these bounds in a run with them (PERF.md, section 6): the miss test
+# before the hit test (agreement 0.989 on the odd case), no bf16 rounding of
+# the trunk input (agreement 0.983, max |dp| 0.47), an FMA advance (max |dp|
+# 1.3e-2, share 4.6e-3 on the primary rays, share 6.9e-3 on the shadow
+# rays), a refilled slot that keeps the last lane's step count (agreement
+# 0.955 on the primary rays, 0.353 on the shadow rays).
 TRACE_AGREE = 0.999
 TRACE_MAX_DP = 0.01
 TRACE_MOVED_SHARE = 1e-3
@@ -200,6 +207,12 @@ AB_SETS = (None, (2, 4, 6), (1, 2, 4, 6), (1, 2, 3, 4, 5, 6))
 TRACE_SIZE = 1600
 FRAME_RESOLUTION = 800
 HIT_CHECK_SIZE = 400
+
+
+# The runs of a path made with a switch away from its shipped setting (the
+# A/B runs): their launches stay in the kernels line's launches_by_path but
+# not in its launches, which count the shipped path only.
+OFF_DEFAULT = set()
 
 
 def log(msg: str) -> None:
@@ -387,10 +400,11 @@ def stash_checks(cases: dict, sets=STASH_SETS) -> tuple:
 
 
 def bound(flops: float, nbytes: float):
-    """(ms, "operations" or "bytes"): the least time the card could take for
-    ``flops`` bf16 tensor-core operations that read and write ``nbytes``."""
+    """(ms, "operations" or "bytes", flops): the least time the card could
+    take for ``flops`` bf16 tensor-core operations that read and write
+    ``nbytes``, the larger of the two, and the operations counted."""
     by_ops, by_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+    return (by_ops, "operations", flops) if by_ops >= by_bytes else (by_bytes, "bytes", flops)
 
 
 def trace_lane_steps(pts, dirs, status, escape, weights, kw) -> int:
@@ -559,6 +573,8 @@ def raymarch_path(chair, code, kind: str) -> dict:
                 images[fused] = rm.render_image(net, code, resolution=FRAME_RESOLUTION)
                 times.append((time.perf_counter() - t0) * 1e3)
             paths[path] = read_counts()
+            if fused != default:
+                OFF_DEFAULT.add(path)
             frame_ms[fused] = statistics.median(times[1:])
             log(f"  render_image {FRAME_RESOLUTION}^2 ssaa 2, fused trace switch {fused}: "
                 f"{frame_ms[fused]:.3f} ms (host clock, median of 3; {kind})")
@@ -731,6 +747,8 @@ def hybrid_gan_path() -> dict:
                             seconds = time.perf_counter() - t0
                             path = f"{kind}, stash switch {'on' if switch else 'off'}, {' '.join(argv)}"
                             counts = paths[path] = read_counts()
+                            if switch != default:
+                                OFF_DEFAULT.add(path)
                             steps = result["steps"]
                             g_steps = result.get("g_steps", steps)
                             want = dict.fromkeys(counts, 0)
@@ -1060,6 +1078,8 @@ def point_gan_path() -> dict:
                     torch.cuda.synchronize()
                     seconds = time.perf_counter() - t0
                     counts = paths[path] = read_counts()
+                    if fused != default:
+                        OFF_DEFAULT.add(path)
                     with open("plots/point_gan_training.csv") as f:
                         rows = [[float(v) for v in r] for r in csv.reader(f, delimiter=" ")]
                     files = [T.G_NAME, T.D_NAME, T.OPT_NAME]
@@ -1370,6 +1390,10 @@ def main() -> int:
             f"({2 * rows * 6 * 256 * 256 / gen_times[0] / 1e9:.1f} trunk TFLOP/s) | plain "
             f"{gen_times[1]:.4f} ms | bf16 module (switch off) {gen_times[2]:.4f} ms | bound "
             f"{gen_bound[0]:.4f} ms ({gen_bound[1]})")
+    for name, (kernel_ms, _) in times.items():
+        ms, by, flops = bounds[name]
+        log(f"  {name}: {kernel_ms:.3f} ms, {flops / kernel_ms / 1e9:.1f} TFLOP/s of the operations "
+            f"its bound counts, bound {ms:.3f} ms ({by}): {ms / kernel_ms:.3f} of the bound's rate")
     del grid_ops, odd_ops, points_ops, odd_points_ops, odd_bwd_ops, g16, g3, cases, ops
     del rowwise_cases, gen_cases
     torch.cuda.empty_cache()
@@ -1482,9 +1506,10 @@ def main() -> int:
     def kernel_entry(name, counter, source, replaces, err):
         # library_ms: no single PyTorch call computes an 8-layer MLP (or its
         # recompute backward, or K trace steps of it), so none is timed.
+        # launches: the runs at the shipped switch settings only.
         return {"name": name, "route": "cuda", "source": f"shapegan_tpu_torch/ops/csrc/{source}",
                 "replaces": f"shapegan_tpu/ops/{replaces}",
-                "launches": sum(p[counter] for p in paths.values()),
+                "launches": sum(p[counter] for path, p in paths.items() if path not in OFF_DEFAULT),
                 "launches_by_path": {path: p[counter] for path, p in paths.items() if p[counter]},
                 "max_abs_err": err, "ms": times[counter][0], "plain_ms": times[counter][1],
                 "bound_ms": bounds[counter][0], "bound_by": bounds[counter][1], "library_ms": None}

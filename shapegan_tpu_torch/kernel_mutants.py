@@ -1,21 +1,27 @@
 #!/usr/bin/env python3
 """Do ``chip_smoke.py``'s bounds for the rowwise backward kernel (B6b), the
-point-GAN generator kernel (B7) and the stash kernels (B5a, B5b) tell a
-wrong kernel from a sound one? On one GPU:
+point-GAN generator kernel (B7), the stash kernels (B5a, B5b), the points
+kernel (B3) and the trace kernel (B4) tell a wrong kernel from a sound one?
+On one GPU:
 
     python -m shapegan_tpu_torch.kernel_mutants
 
 It holds each sound kernel against its plain version at chip_smoke's cases
 (for B6b also the plain version with float64 sums, the noise floor of bf16
 rounding flips), then builds each wrong copy of ``ops/csrc/sdf_rowwise_bwd.cu``,
-``ops/csrc/point_gen.cu``, ``ops/csrc/sdf_grid.cu`` (B5a) and
-``ops/csrc/sdf_grid_bwd.cu`` (B5b) in a temporary directory (never in the
-checkout) and reports whether it fails the bounds at every case. A wrong
-kernel that passes is printed as ``PASSES``.
+``ops/csrc/point_gen.cu``, ``ops/csrc/sdf_grid.cu`` (B5a),
+``ops/csrc/sdf_grid_bwd.cu`` (B5b), ``ops/csrc/sdf_trunk_sm90.cuh`` (the
+trunk of B3 and B4, held at B3's cases) and ``ops/csrc/sdf_trace.cu`` (B4)
+in a temporary directory (never in the checkout) and reports whether it
+fails the bounds at every case (B4's mutants: at any of chip_smoke's three
+trace cases, since phase 3 runs them all and a wrong lane update shows only
+where lanes resolve in its way). A wrong kernel that passes is printed as
+``PASSES``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import os
 import shutil
@@ -28,6 +34,7 @@ from shapegan_tpu_torch import checkpoints
 from shapegan_tpu_torch.ops import _build, sdf_mlp
 from shapegan_tpu_torch.ops import point_gen_kernels as PG
 from shapegan_tpu_torch.ops import sdf_mlp_kernels as K
+from shapegan_tpu_torch.examples import fit_chair
 from shapegan_tpu_torch.ops.coords import voxel_coordinates
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -73,6 +80,28 @@ STASH_BWD_MUTANTS = (
 STASH_BWD_CHUNK_MUTANTS = (
     ("every chunk reading the stashed planes of the batch's first shapes",
      "static_cast<bf*>(stash[j]) + static_cast<size_t>(s0) * pw", "static_cast<bf*>(stash[j])"),
+)
+
+# ... in sdf_trunk_sm90.cuh (the wgmma trunk of B3 and B4), checked at B3's
+# cases ...
+TRUNK_SM90_MUTANTS = (
+    ("each slice's K-blocks read in the wrong order (a descriptor offset wrong)",
+     "desc + 2 * kk, kc | kk)", "desc + 2 * (kk ^ 1), kc | kk)"),
+    ("no bf16 round of the product before the bias",
+     "float2 v = unpack_bf16(pack_bf16(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]));",
+     "float2 v = make_float2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);"),
+)
+# ... and in sdf_trace.cu (B4's lane update and refill), at its cases.
+TRACE_MUTANTS = (
+    ("the trace advance as an FMA",
+     """  const float x = __fadd_rn(sl.pos[0], __fmul_rn(sl.dir[0], d));
+  const float y = __fadd_rn(sl.pos[1], __fmul_rn(sl.dir[1], d));
+  const float z = __fadd_rn(sl.pos[2], __fmul_rn(sl.dir[2], d));""",
+     """  const float x = fmaf(sl.dir[0], d, sl.pos[0]);
+  const float y = fmaf(sl.dir[1], d, sl.pos[1]);
+  const float z = fmaf(sl.dir[2], d, sl.pos[2]);"""),
+    ("a refilled slot keeping the previous lane's step count",
+     "    slot.steps = 0;\n", ""),
 )
 
 
@@ -153,34 +182,60 @@ def _stash_bwd_check(cs, cases, key, sound):
     return lambda: cs.compare_backward(f"grid_stash_bwd {name} {stash}", got, want)
 
 
-def _wrong_kernels(source_name, mutants, checks) -> bool:
-    """Build each mutant of ``ops/csrc/<source_name>`` in a temporary
-    directory and run ``checks`` (case → a check, made after the build)
-    against it; True if every mutant fails at every case."""
-    source = os.path.join(_build.CSRC_DIR, source_name)
-    caught = True
-    for what, old, new in mutants:
-        with tempfile.TemporaryDirectory() as tmp:
-            csrc = os.path.join(tmp, "csrc")
-            shutil.copytree(_build.CSRC_DIR, csrc, ignore=shutil.ignore_patterns("build"))
-            with open(source) as f:
+def _points_check(cs, cases, name):
+    ops = cases[name]
+    got, want = K.points_forward_cuda(*ops), K.points_forward_plain(*ops)
+    return lambda: cs.compare(f"points {name}", got, want)
+
+
+def _trace_check(cs, case, weights):
+    name, pts, dirs, status, escape, kw = case
+    ops = (pts, dirs, status, escape) + weights
+    got, want = K.trace_steps_cuda(*ops, **kw), K.trace_steps_plain(*ops, **kw)
+    return lambda: cs.compare_trace(name, got, want, (pts, status))
+
+
+@contextlib.contextmanager
+def built_with(edits):
+    """The kernels built from a copy of ``ops/csrc/`` in a temporary
+    directory with ``edits`` ((file, source text, replacement), ...)
+    applied, loaded in place of the checkout's while the block runs."""
+    with tempfile.TemporaryDirectory() as tmp:
+        csrc = os.path.join(tmp, "csrc")
+        shutil.copytree(_build.CSRC_DIR, csrc, ignore=shutil.ignore_patterns("build"))
+        for name, old, new in edits:
+            path = os.path.join(csrc, name)
+            with open(path) as f:
                 text = f.read()
             if old not in text:
-                raise RuntimeError(f"mutant {what!r}: its source text is not in {source}")
-            with open(os.path.join(csrc, source_name), "w") as f:
+                raise RuntimeError(f"{old!r} is not in {name}")
+            with open(path, "w") as f:
                 f.write(text.replace(old, new))
-            saved = _build.CSRC_DIR, _build.BUILD_DIR
-            _build.CSRC_DIR, _build.BUILD_DIR = csrc, os.path.join(csrc, "build")
+        saved = _build.CSRC_DIR, _build.BUILD_DIR
+        _build.CSRC_DIR, _build.BUILD_DIR = csrc, os.path.join(csrc, "build")
+        _build.load.cache_clear()
+        try:
+            yield
+        finally:
+            _build.CSRC_DIR, _build.BUILD_DIR = saved
             _build.load.cache_clear()
-            try:
-                print(f"== wrong kernel ({source_name}): {what}")
-                held = [case for case, check in checks.items() if _holds(check())]
-                if held:
-                    print(f"  PASSES the bounds at {held}")
-                    caught = False
-            finally:
-                _build.CSRC_DIR, _build.BUILD_DIR = saved
-                _build.load.cache_clear()
+
+
+def _wrong_kernels(source_name, mutants, checks, every=True) -> bool:
+    """Build each mutant of ``ops/csrc/<source_name>`` in a temporary
+    directory and run ``checks`` (case → a check, made after the build)
+    against it; True if every mutant fails at every case (``every``) or at
+    one case at least."""
+    caught = True
+    for what, old, new in mutants:
+        with built_with([(source_name, old, new)]):
+            print(f"== wrong kernel ({source_name}): {what}")
+            held = [case for case, check in checks.items() if _holds(check())]
+            if held:
+                print(f"  holds the bounds at {held}")
+            if held and (every or len(held) == len(checks)):
+                print("  PASSES")
+                caught = False
     return caught
 
 
@@ -208,6 +263,16 @@ def main() -> int:
         ops, g = stash_cases[name]
         planes = K.grid_forward_stash_cuda(*ops, stash)[1]
         sound_stash[(name, stash)] = planes, K.grid_backward_stash_plain(*ops, g, planes, stash)
+    # B3 at chip_smoke's two shapes (zero latents), B4 at its three trace cases (on the
+    # chair fitted here).
+    folded = sdf_mlp.fold_latent(bundled, torch.zeros(128, device=device))
+    points_cases = {"N=128^3 L=0": K.points_operands(folded, voxel_coordinates(128, device=device),
+                                                     torch.zeros(0, device=device)),
+                    "N=3001 L=128": K.points_operands(bundled, odd, torch.zeros(128, device=device))}
+    chair, chair_code = fit_chair(device)
+    chair_folded = sdf_mlp.fold_latent(chair, chair_code)
+    chair_weights = K.point_weights(chair_folded, chair_code[:0])
+    trace_cases = cs.trace_cases(chair_folded, device)
     print(f"== sound kernels, and float64 sums, against the plain versions "
           f"({torch.cuda.get_device_name(0)}; {cs.nvidia_smi_line()})")
     sound = True
@@ -219,6 +284,10 @@ def main() -> int:
     for key in stash_keys:
         sound &= _holds(_stash_fwd_check(cs, stash_cases, key))
         sound &= _holds(_stash_bwd_check(cs, stash_cases, key, sound_stash))
+    for name in points_cases:
+        sound &= _holds(_points_check(cs, points_cases, name))
+    for case in trace_cases:
+        sound &= _holds(_trace_check(cs, case, chair_weights))
 
     caught = _wrong_kernels(
         "sdf_rowwise_bwd.cu", ROWWISE_BWD_MUTANTS,
@@ -237,6 +306,13 @@ def main() -> int:
         "sdf_grid_bwd.cu", STASH_BWD_CHUNK_MUTANTS,
         {key: (lambda key=key: _stash_bwd_check(cs, stash_cases, key, sound_stash))
          for key in stash_keys if key[0] == "B=16 P=64^3"})
+    caught &= _wrong_kernels(
+        "sdf_trunk_sm90.cuh", TRUNK_SM90_MUTANTS,
+        {name: (lambda name=name: _points_check(cs, points_cases, name)) for name in points_cases})
+    caught &= _wrong_kernels(
+        "sdf_trace.cu", TRACE_MUTANTS,
+        {case[0]: (lambda case=case: _trace_check(cs, case, chair_weights)) for case in trace_cases},
+        every=False)
     print(f"sound kernels within the bounds: {sound}; every wrong kernel outside them: {caught}")
     return 0 if sound and caught else 1
 

@@ -12,45 +12,53 @@
 // z @ w1z / w5z + b, computed once outside); after fold_latent, L=0 and they
 // are the folded biases.
 //
-// The K=3 projections are a few float32 FMAs a value on the CUDA cores, far
-// below the 6 x 256 x 256 tensor-core trunk; what bounds the kernel and how
-// it streams the trunk weights is in sdf_trunk.cuh.
-#include "sdf_trunk.cuh"
+// What bounds it on the H100: the six 256x256 bf16 products a point, 1.67 ms
+// at 128^3 (16 bytes a point cross device memory). The design is the
+// persistent, warp-specialized wgmma trunk of sdf_trunk_sm90.cuh: one block
+// per SM, its two consumer warpgroups taking 64-point tiles in turn
+// (tile = 2 block + warpgroup, then every 2 x grid), the weight ring fed by
+// TMA once for the whole launch. The K=3 projections are a few float32 FMAs
+// a value on the CUDA cores, inside the epilogues.
+#include "sdf_trunk_sm90.cuh"
 
 namespace {
 
-using sdf::BLOCK_M;
-using sdf::THREADS;
+using sdf90::ROWS;
 
-struct __align__(16) PointsSmem {
-  sdf::TrunkSmem trunk;
-  sdf::PointsInput in;
-};
+__device__ __forceinline__ float3 rounded_point(const float* __restrict__ pts, long long row, int n) {
+  if (row >= n) return make_float3(0.f, 0.f, 0.f);
+  return make_float3(sdf90::round_bf16(pts[row * 3]), sdf90::round_bf16(pts[row * 3 + 1]),
+                     sdf90::round_bf16(pts[row * 3 + 2]));
+}
 
-__global__ void __launch_bounds__(THREADS, 1)
-sdf_points_kernel(const float* __restrict__ pts, const __nv_bfloat16* __restrict__ w1p,
-                  const __nv_bfloat16* __restrict__ w5p, const __nv_bfloat16* __restrict__ zz1,
-                  const __nv_bfloat16* __restrict__ zz5, const __nv_bfloat16* __restrict__ w,
+__global__ void __launch_bounds__(sdf90::THREADS, 1)
+sdf_points_kernel(const __grid_constant__ CUtensorMap wmap, const float* __restrict__ pts,
+                  const __nv_bfloat16* __restrict__ w1p, const __nv_bfloat16* __restrict__ w5p,
+                  const __nv_bfloat16* __restrict__ zz1, const __nv_bfloat16* __restrict__ zz5,
                   const __nv_bfloat16* __restrict__ bias, const __nv_bfloat16* __restrict__ w8,
                   float* __restrict__ out, int n) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  PointsSmem& s = *reinterpret_cast<PointsSmem*>(smem_raw);
+  extern __shared__ unsigned char smem_raw[];
+  sdf90::Smem& s = sdf90::aligned_smem<sdf90::Smem>(smem_raw);
+  sdf90::setup(s, &wmap, bias, w8, w1p, w5p, zz1, zz5);
 
-  const size_t p0 = static_cast<size_t>(blockIdx.x) * BLOCK_M;
-  const int rows = min(BLOCK_M, static_cast<int>(n - p0));
-
-  sdf::start_trunk(s.trunk, w, bias, w8, zz5);
-  for (int i = threadIdx.x; i < BLOCK_M * 3; i += THREADS)
-    s.in.pts[i / 3][i % 3] = i / 3 < rows ? sdf::round_bf16(pts[p0 * 3 + i]) : 0.f;
-  sdf::load_projections(s.in, w1p, w5p);
-  __syncthreads();
-
-  sdf::points_layer1(s.trunk, s.in, zz1);
-  sdf::run_trunk(s.trunk, w, sdf::PointsSkip{&s.in});
-
-  const float v = sdf::head(s.trunk);
-  const int row = threadIdx.x >> 1;
-  if ((threadIdx.x & 1) == 0 && row < rows) out[p0 + row] = v;
+  const int wg = threadIdx.x / 128;
+  if (wg == sdf90::CONSUMERS) {
+    sdf90::producer_start();
+    if (threadIdx.x == sdf90::PRODUCER_THREAD) sdf90::produce(s, &wmap);
+  } else {
+    sdf90::consumer_start(wg);
+    const int t = threadIdx.x & 127, q = t & 3;
+    const int r0 = (t >> 5) * 16 + ((t & 31) >> 2);
+    sdf90::RingPos pos;
+    for (long long tile = 2LL * blockIdx.x + wg;; tile += 2LL * gridDim.x) {
+      const long long row0 = tile * ROWS + r0, row1 = row0 + 8;
+      if (!sdf90::consumers_any(tile * ROWS < n)) break;
+      const float2 v = sdf90::evaluate(s, wg, pos, rounded_point(pts, row0, n), rounded_point(pts, row1, n));
+      if (q == 0 && row0 < n) out[row0] = v.x;
+      if (q == 1 && row1 < n) out[row1] = v.y;
+    }
+    sdf90::consumer_finish(s, wg);
+  }
 }
 
 }  // namespace
@@ -61,15 +69,22 @@ extern "C" int sdf_points_forward(const void* pts, const void* w1p, const void* 
                                   void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(sdf_points_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(sizeof(PointsSmem)));
+  if (n <= 0) return cudaErrorInvalidValue;
+  CUtensorMap wmap;
+  err = sdf90::weight_map(&wmap, w);
   if (err != cudaSuccess) return err;
-  const unsigned blocks = static_cast<unsigned>((static_cast<long long>(n) + BLOCK_M - 1) / BLOCK_M);
-  sdf_points_kernel<<<blocks, THREADS, sizeof(PointsSmem), static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(pts), static_cast<const __nv_bfloat16*>(w1p),
-      static_cast<const __nv_bfloat16*>(w5p), static_cast<const __nv_bfloat16*>(zz1),
-      static_cast<const __nv_bfloat16*>(zz5), static_cast<const __nv_bfloat16*>(w),
-      static_cast<const __nv_bfloat16*>(bias), static_cast<const __nv_bfloat16*>(w8),
-      static_cast<float*>(out), n);
+  const int smem = static_cast<int>(sizeof(sdf90::Smem)) + 1024;
+  err = cudaFuncSetAttribute(sdf_points_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (static_cast<long long>(n) + sdf90::BLOCK_ROWS - 1) / sdf90::BLOCK_ROWS;
+  const unsigned blocks = static_cast<unsigned>(tiles < sms ? tiles : sms);
+  using bf = __nv_bfloat16;
+  sdf_points_kernel<<<blocks, sdf90::THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      wmap, static_cast<const float*>(pts), static_cast<const bf*>(w1p), static_cast<const bf*>(w5p),
+      static_cast<const bf*>(zz1), static_cast<const bf*>(zz5), static_cast<const bf*>(bias),
+      static_cast<const bf*>(w8), static_cast<float*>(out), n);
   return cudaGetLastError();
 }

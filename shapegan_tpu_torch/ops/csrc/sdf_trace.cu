@@ -1,7 +1,6 @@
-// K masked sphere-trace iterations per launch over rays [N]: each 128-lane
-// tile keeps its lane state (points, directions, status, escape height) in
-// shared memory for all K iterations and runs the single-shape SDF forward
-// on its points every iteration.
+// K masked sphere-trace iterations per launch over rays [N]: every lane
+// takes exactly min(K, steps until it resolves) steps of the single-shape
+// SDF forward, its state kept on chip between them.
 //
 // Replaces the Pallas TPU kernel built by `_make_trace_kernel` and launched
 // by `trace_steps_fused` in shapegan_tpu/ops/sdf_mlp_pallas.py. Per
@@ -17,106 +16,145 @@
 // __fmul_rn / __fadd_rn so nvcc contracts nothing into an FMA: each product
 // and sum rounds once, as the plain PyTorch version's separate operations do.
 //
-// What bounds it on the H100: per lane and iteration the trunk does
-// 6 x 2 x 256 x 256 flops on the tensor cores, the same work as the points
-// kernel (sdf_points.cu), with which it shares the trunk (sdf_trunk.cuh);
-// the lane state crosses device memory once per launch (28 bytes in, 16 out)
-// instead of once per iteration. The 768 KB of trunk weights stream from L2
-// through the cp.async ring once per iteration, as in the points kernel. A
-// tile whose lanes are all resolved stops early (__syncthreads_or on "any
-// active"): resolved lanes never change, so the result is the same.
-#include "sdf_trunk.cuh"
+// What bounds it on the H100: per lane-step the trunk's 6 x 2 x 256 x 256
+// flops on the tensor cores (the points kernel's work, with which it shares
+// the trunk of sdf_trunk_sm90.cuh); the lane state crosses device memory
+// once (28 bytes in, 16 out). Only the lane-steps the rays need count:
+// 39.47 M of the 51.2 M at 1600^2 x k=20 on the chair, 31.4 ms.
+//
+// The design against resolved lanes riding along: one persistent block per
+// SM, each consumer warpgroup holding 64 lane slots (a slot: point,
+// direction, escape height, its own step count, lane index). After each
+// evaluation a slot whose lane has resolved or taken its K steps writes the
+// lane out and takes the next lane index from a work counter in device
+// memory (zeroed by the wrapper); a lane that is not ACTIVE on entry is
+// written through unevaluated. Lanes are independent and each takes the
+// same steps wherever it runs, so the result does not depend on which slot
+// or block takes it, nor on the order. The block stops when the counter is
+// spent and its slots are empty.
+#include "sdf_trunk_sm90.cuh"
 
 namespace {
 
-using sdf::BLOCK_M;
-using sdf::THREADS;
-using sdf::WIDTH;
+using sdf90::ROWS;
 
 constexpr int ACTIVE = 0, HIT = 1, MISS = 2;
 
-struct __align__(16) TraceSmem {
-  sdf::TrunkSmem trunk;
-  sdf::PointsInput in;  // in.pts: the bf16-rounded points of this iteration
-  float pos[BLOCK_M][3];
-  float dir[BLOCK_M][3];
-  float escape[BLOCK_M];
-  float sdf[BLOCK_M];
-  int status[BLOCK_M];
+struct Slot {
+  float pos[3];
+  float dir[3];
+  float escape;
+  int steps;
+  int lane;  // -1: empty
 };
 
-__global__ void __launch_bounds__(THREADS, 1)
-sdf_trace_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
-                 const int* __restrict__ status, const float* __restrict__ escape,
+struct TraceSmem {
+  sdf90::Smem trunk;
+  Slot slot[sdf90::CONSUMERS][ROWS];
+};
+
+// The rays and the trace's constants (a __grid_constant__ parameter: read
+// in place, never copied).
+struct Trace {
+  const float* pts;
+  const float* dirs;
+  const int* status;
+  const float* escape;  // shadow rays' escape heights, or null: radius
+  float* pts_out;
+  int* status_out;
+  int* next;  // the work counter
+  int n, k, shadow;
+  float threshold, step_clamp, sdf_offset, radius, radius_sq;
+};
+
+// Fill `slot` with the next ACTIVE lane, writing the lanes that are not
+// ACTIVE through on the way; empty once the counter is spent.
+__device__ __forceinline__ void refill(Slot& slot, const Trace& r) {
+  for (;;) {
+    const int lane = atomicAdd(r.next, 1);
+    if (lane >= r.n) {
+      slot.lane = -1;
+      for (int i = 0; i < 3; ++i) slot.pos[i] = 0.f;
+      return;
+    }
+    const int st = r.status[lane];
+    if (st != ACTIVE) {
+      for (int i = 0; i < 3; ++i) r.pts_out[3LL * lane + i] = r.pts[3LL * lane + i];
+      r.status_out[lane] = st;
+      continue;
+    }
+    for (int i = 0; i < 3; ++i) {
+      slot.pos[i] = r.pts[3LL * lane + i];
+      slot.dir[i] = r.dirs[3LL * lane + i];
+    }
+    slot.escape = r.escape != nullptr ? r.escape[lane] : r.radius;
+    slot.steps = 0;
+    slot.lane = lane;
+    return;
+  }
+}
+
+// One trace step of the lane in `sl` given the SDF at its point; a lane
+// that resolves or has taken its K steps is written out and the slot
+// refilled. Out of line: none of the trunk's registers are live here.
+__device__ __noinline__ void advance(Slot& sl, float sdf, const Trace& r) {
+  const float d = fminf(fmaxf(__fadd_rn(sdf, r.sdf_offset), -r.step_clamp), r.step_clamp);
+  const float x = __fadd_rn(sl.pos[0], __fmul_rn(sl.dir[0], d));
+  const float y = __fadd_rn(sl.pos[1], __fmul_rn(sl.dir[1], d));
+  const float z = __fadd_rn(sl.pos[2], __fmul_rn(sl.dir[2], d));
+  sl.pos[0] = x;
+  sl.pos[1] = y;
+  sl.pos[2] = z;
+  const bool outside =
+      r.shadow ? y > sl.escape
+               : __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z)) > r.radius_sq;
+  const int st = d > 0.f && d < r.threshold ? HIT : outside ? MISS : ACTIVE;
+  sl.steps += 1;
+  if (st != ACTIVE || sl.steps >= r.k) {
+    const long long lane = sl.lane;
+    r.pts_out[3 * lane] = x;
+    r.pts_out[3 * lane + 1] = y;
+    r.pts_out[3 * lane + 2] = z;
+    r.status_out[lane] = st;
+    refill(sl, r);
+  }
+}
+
+__device__ __noinline__ void first_fill(Slot& sl, const Trace& r) { refill(sl, r); }
+
+__device__ __forceinline__ float3 rounded_pos(const Slot& slot) {
+  return make_float3(sdf90::round_bf16(slot.pos[0]), sdf90::round_bf16(slot.pos[1]),
+                     sdf90::round_bf16(slot.pos[2]));
+}
+
+__global__ void __launch_bounds__(sdf90::THREADS, 1)
+sdf_trace_kernel(const __grid_constant__ CUtensorMap wmap, const __grid_constant__ Trace trace,
                  const __nv_bfloat16* __restrict__ w1p, const __nv_bfloat16* __restrict__ w5p,
                  const __nv_bfloat16* __restrict__ zz1, const __nv_bfloat16* __restrict__ zz5,
-                 const __nv_bfloat16* __restrict__ w, const __nv_bfloat16* __restrict__ bias,
-                 const __nv_bfloat16* __restrict__ w8, float* __restrict__ pts_out,
-                 int* __restrict__ status_out, int n, int k, int shadow, float threshold,
-                 float step_clamp, float sdf_offset, float radius, float radius_sq) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  TraceSmem& s = *reinterpret_cast<TraceSmem*>(smem_raw);
+                 const __nv_bfloat16* __restrict__ bias, const __nv_bfloat16* __restrict__ w8) {
+  extern __shared__ unsigned char smem_raw[];
+  TraceSmem& s = sdf90::aligned_smem<TraceSmem>(smem_raw);
+  sdf90::setup(s.trunk, &wmap, bias, w8, w1p, w5p, zz1, zz5);
 
-  const size_t p0 = static_cast<size_t>(blockIdx.x) * BLOCK_M;
-  const int rows = min(BLOCK_M, static_cast<int>(n - p0));
-
-  // Constant operands once per launch; the lane state; padded lanes are MISS.
-  for (int i = threadIdx.x; i < 8 * WIDTH; i += THREADS) s.trunk.bias[i] = bias[i];
-  for (int i = threadIdx.x; i < WIDTH; i += THREADS) {
-    s.trunk.w8[i] = w8[i];
-    s.trunk.zz5[i] = zz5[i];
-  }
-  sdf::load_projections(s.in, w1p, w5p);
-  for (int i = threadIdx.x; i < BLOCK_M * 3; i += THREADS) {
-    const bool live = i / 3 < rows;
-    s.pos[i / 3][i % 3] = live ? pts[p0 * 3 + i] : 0.f;
-    s.dir[i / 3][i % 3] = live ? dirs[p0 * 3 + i] : 0.f;
-  }
-  if (threadIdx.x < BLOCK_M) {
-    const int t = threadIdx.x;
-    s.status[t] = t < rows ? status[p0 + t] : MISS;
-    s.escape[t] = t < rows && escape != nullptr ? escape[p0 + t] : radius;
-  }
-
-  for (int it = 0; it < k; ++it) {
-    // Publishes the lane state (and, in later iterations, orders this
-    // iteration's writes after every thread's reads of the last one).
-    if (!__syncthreads_or(threadIdx.x < BLOCK_M && s.status[threadIdx.x] == ACTIVE)) break;
-    sdf::start_weight_ring(s.trunk, w);
-    for (int i = threadIdx.x; i < BLOCK_M * 3; i += THREADS)
-      s.in.pts[i / 3][i % 3] = sdf::round_bf16(s.pos[i / 3][i % 3]);
-    __syncthreads();
-
-    sdf::points_layer1(s.trunk, s.in, zz1);
-    sdf::run_trunk(s.trunk, w, sdf::PointsSkip{&s.in});
-    const float v = sdf::head(s.trunk);
-    if ((threadIdx.x & 1) == 0) s.sdf[threadIdx.x >> 1] = v;
-    __syncthreads();
-
-    if (threadIdx.x < BLOCK_M) {
-      const int t = threadIdx.x;
-      const float d = fminf(fmaxf(__fadd_rn(s.sdf[t], sdf_offset), -step_clamp), step_clamp);
-      const bool active = s.status[t] == ACTIVE;
-      const float step = active ? d : 0.f;
-      const float x = __fadd_rn(s.pos[t][0], __fmul_rn(s.dir[t][0], step));
-      const float y = __fadd_rn(s.pos[t][1], __fmul_rn(s.dir[t][1], step));
-      const float z = __fadd_rn(s.pos[t][2], __fmul_rn(s.dir[t][2], step));
-      s.pos[t][0] = x;
-      s.pos[t][1] = y;
-      s.pos[t][2] = z;
-      const bool outside =
-          shadow ? y > s.escape[t]
-                 : __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z)) > radius_sq;
-      if (active && d > 0.f && d < threshold)
-        s.status[t] = HIT;
-      else if (active && outside)
-        s.status[t] = MISS;
+  const int wg = threadIdx.x / 128;
+  if (wg == sdf90::CONSUMERS) {
+    sdf90::producer_start();
+    if (threadIdx.x == sdf90::PRODUCER_THREAD) sdf90::produce(s.trunk, &wmap);
+  } else {
+    sdf90::consumer_start(wg);
+    const int t = threadIdx.x & 127, q = t & 3;
+    const int r0 = (t >> 5) * 16 + ((t & 31) >> 2);
+    // Lanes 0 and 1 of each quad keep the slots of rows r0 and r0 + 8.
+    Slot* mine = q < 2 ? &s.slot[wg][r0 + 8 * q] : nullptr;
+    if (mine != nullptr) first_fill(*mine, trace);
+    sdf90::RingPos pos;
+    while (sdf90::consumers_any(mine != nullptr && mine->lane >= 0)) {
+      const float2 v = sdf90::evaluate(s.trunk, wg, pos, rounded_pos(s.slot[wg][r0]),
+                                       rounded_pos(s.slot[wg][r0 + 8]));
+      if (mine != nullptr && mine->lane >= 0) advance(*mine, q ? v.y : v.x, trace);
     }
+    sdf90::consumer_finish(s.trunk, wg);
   }
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < rows * 3; i += THREADS) pts_out[p0 * 3 + i] = s.pos[i / 3][i % 3];
-  if (threadIdx.x < rows) status_out[p0 + threadIdx.x] = s.status[threadIdx.x];
 }
 
 }  // namespace
@@ -124,23 +162,31 @@ sdf_trace_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
 extern "C" int sdf_trace_steps(const void* pts, const void* dirs, const void* status,
                                const void* escape, const void* w1p, const void* w5p,
                                const void* zz1, const void* zz5, const void* w, const void* bias,
-                               const void* w8, void* pts_out, void* status_out, int n, int k,
-                               int shadow, float threshold, float step_clamp, float sdf_offset,
+                               const void* w8, void* pts_out, void* status_out, void* counter, int n,
+                               int k, int shadow, float threshold, float step_clamp, float sdf_offset,
                                float radius, float radius_sq, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (n <= 0 || k < 0) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(sdf_trace_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(sizeof(TraceSmem)));
+  if (n <= 0 || k <= 0) return cudaErrorInvalidValue;
+  CUtensorMap wmap;
+  err = sdf90::weight_map(&wmap, w);
   if (err != cudaSuccess) return err;
-  const unsigned blocks = static_cast<unsigned>((static_cast<long long>(n) + BLOCK_M - 1) / BLOCK_M);
+  const int smem = static_cast<int>(sizeof(TraceSmem)) + 1024;
+  err = cudaFuncSetAttribute(sdf_trace_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (static_cast<long long>(n) + sdf90::BLOCK_ROWS - 1) / sdf90::BLOCK_ROWS;
+  const unsigned blocks = static_cast<unsigned>(tiles < sms ? tiles : sms);
+  const Trace trace{static_cast<const float*>(pts), static_cast<const float*>(dirs),
+                    static_cast<const int*>(status), static_cast<const float*>(escape),
+                    static_cast<float*>(pts_out), static_cast<int*>(status_out),
+                    static_cast<int*>(counter), n, k, shadow, threshold, step_clamp, sdf_offset,
+                    radius, radius_sq};
   using bf = __nv_bfloat16;
-  sdf_trace_kernel<<<blocks, THREADS, sizeof(TraceSmem), static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(pts), static_cast<const float*>(dirs),
-      static_cast<const int*>(status), static_cast<const float*>(escape),
-      static_cast<const bf*>(w1p), static_cast<const bf*>(w5p), static_cast<const bf*>(zz1),
-      static_cast<const bf*>(zz5), static_cast<const bf*>(w), static_cast<const bf*>(bias),
-      static_cast<const bf*>(w8), static_cast<float*>(pts_out), static_cast<int*>(status_out), n,
-      k, shadow, threshold, step_clamp, sdf_offset, radius, radius_sq);
+  sdf_trace_kernel<<<blocks, sdf90::THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      wmap, trace, static_cast<const bf*>(w1p), static_cast<const bf*>(w5p), static_cast<const bf*>(zz1),
+      static_cast<const bf*>(zz5), static_cast<const bf*>(bias), static_cast<const bf*>(w8));
   return cudaGetLastError();
 }

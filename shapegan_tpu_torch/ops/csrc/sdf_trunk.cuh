@@ -1,13 +1,14 @@
-// Shared trunk of the hand-written SDF-MLP kernels for Hopper (sm_90a).
+// Shared trunk of the hand-written mma.sync SDF-MLP kernels for Hopper (sm_90a).
 //
-// The forward kernels (sdf_grid.cu: grid forward, sdf_points.cu: single-shape
-// points forward, sdf_trace.cu: K sphere-trace steps of the points forward,
-// sdf_rowwise.cu: points with per-row latent terms) run the same six 256x256
-// trunk layers and the same head on a tile of
+// The forward kernels (sdf_grid.cu: grid forward B1 and its stash instance
+// B5a, sdf_rowwise.cu: points with per-row latent terms B6a) run the same
+// six 256x256 trunk layers and the same head on a tile of
 // BLOCK_M rows that stays in shared memory from the first layer to the
 // output; only the [rows] float32 result goes back to device memory. The
-// point-GAN generator (point_gen.cu) runs the same products through
-// run_layers with an epilogue of its own (LayerNorm).
+// point-GAN generator (point_gen.cu, B7) runs the same products through
+// run_layers with an epilogue of its own (LayerNorm). The single-shape
+// points forward (B3) and the sphere trace (B4) run the wgmma trunk of
+// sdf_trunk_sm90.cuh instead.
 //
 // What bounds it on the H100: the six bf16 trunk products (6 x 2 x 256 x 256
 // flops per row) are tensor-core work; device-memory traffic per row is a
@@ -23,8 +24,8 @@
 // layer. Products are bf16 mma.sync.m16n8k16 with float32 accumulation, on
 // fragments loaded with ldmatrix. On the H100 at 700 W this reaches ~20 % of
 // the bf16 tensor-core peak (PERF.md). With one 256-thread block per SM the
-// tensor cores likely sit idle during each layer's epilogue; wgmma with a
-// persistent, warp-specialized loop would overlap the two.
+// tensor cores sit idle during each layer's epilogue; sdf_trunk_sm90.cuh
+// overlaps the two with wgmma in a persistent, warp-specialized loop.
 //
 // Rounding points follow the Pallas kernels (shapegan_tpu/ops/
 // sdf_mlp_pallas.py, _kernel and _points_trunk), not the XLA path: each
@@ -135,8 +136,8 @@ __device__ __forceinline__ void load_weight_chunk(TrunkSmem& s, const __nv_bfloa
 }
 
 // Start the copies of the first weight slices into the ring. run_trunk
-// consumes the ring once; a kernel that runs the trunk again (the trace
-// kernel, once per iteration) restarts it after run_trunk has returned.
+// consumes the ring once; a kernel that runs the trunk again restarts it
+// after run_trunk has returned.
 __device__ __forceinline__ void start_weight_ring(TrunkSmem& s, const __nv_bfloat16* __restrict__ w) {
 #pragma unroll
   for (int c = 0; c < STAGES - 1; ++c) {
@@ -248,7 +249,7 @@ __device__ __forceinline__ void run_layers(TrunkSmem& s, const __nv_bfloat16* __
   __syncthreads();  // the last layer's activations are complete
 }
 
-// The DeepSDF trunk's epilogue (B1-B4, B6a): the product rounded to bf16,
+// The DeepSDF trunk's epilogue (B1, B5a, B6a): the product rounded to bf16,
 // plus the bf16 bias (layer 5: the skip term, then zz5), each sum rounded
 // to bf16, relu. `skip(row, col)` returns the bf16 pp5 pair of tile row
 // `row`, columns col and col + 1, as floats; `zz5(row, col)` the bf16 zz5
@@ -317,8 +318,8 @@ __device__ __forceinline__ float head(const TrunkSmem& s) {
   return tanhf(sum + __bfloat162float(s.bias[HEAD_BIAS_ROW * WIDTH]));
 }
 
-// The raw-point input of the kernels that project in the kernel (points B3,
-// trace B4, rowwise B6a and its backward B6b):
+// The raw-point input of the kernels that project in the kernel (rowwise
+// B6a and its backward B6b, and the generator B7):
 // the tile's bf16-rounded xyz and both fan-in projection weights as floats.
 // Each projection is a float32 sum of bf16 x bf16 products, rounded to bf16
 // (the TPU kernel's K=8 matmul with a float32 result).
@@ -359,19 +360,6 @@ __device__ __forceinline__ void load_projections(PointsInput& in, const __nv_bfl
   for (int i = threadIdx.x; i < 3 * WIDTH; i += THREADS) {
     in.w1p[i / WIDTH][i % WIDTH] = __bfloat162float(w1p[i]);
     in.w5p[i / WIDTH][i % WIDTH] = __bfloat162float(w5p[i]);
-  }
-}
-
-// Layer 1 into the activation tile: relu(bf16(pts @ w1p) + zz1), two
-// columns per step. Needs in.pts (and the projections) published.
-__device__ __forceinline__ void points_layer1(TrunkSmem& s, const PointsInput& in,
-                                              const __nv_bfloat16* __restrict__ zz1) {
-  for (int i = threadIdx.x; i < BLOCK_M * WIDTH / 2; i += THREADS) {
-    const int r = i / (WIDTH / 2), c = (i % (WIDTH / 2)) * 2;
-    const float2 a = project(in.pts[r], in.w1p, c);
-    const float2 z = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(zz1 + c));
-    *reinterpret_cast<__nv_bfloat162*>(s.x + r * X_STRIDE + c) =
-        __floats2bfloat162_rn(fmaxf(a.x + z.x, 0.f), fmaxf(a.y + z.y, 0.f));
   }
 }
 

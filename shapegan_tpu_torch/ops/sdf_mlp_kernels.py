@@ -544,12 +544,14 @@ def trace_steps_cuda(pts, dirs, status, escape, w1p, w5p, zz1, zz5, w, b, w8, *,
         return pts.clone(), status.clone()
     pts_out = torch.empty_like(pts)
     status_out = torch.empty_like(status)
+    counter = torch.zeros(1, dtype=torch.int32, device=device)  # the lanes handed out so far
     lib = _build.load()
     code = lib.sdf_trace_steps(
         pts.data_ptr(), dirs.data_ptr(), status.data_ptr(),
         None if escape is None else escape.data_ptr(), w1p.data_ptr(), w5p.data_ptr(),
         zz1.data_ptr(), zz5.data_ptr(), w.data_ptr(), b.data_ptr(), w8.data_ptr(),
-        pts_out.data_ptr(), status_out.data_ptr(), n, k, int(shadow), threshold, step_clamp,
+        pts_out.data_ptr(), status_out.data_ptr(), counter.data_ptr(), n, k, int(shadow),
+        threshold, step_clamp,
         sdf_offset, radius, radius * radius, device.index,
         torch.cuda.current_stream(device).cuda_stream)
     _build.check(lib, "sdf_trace_steps", code)

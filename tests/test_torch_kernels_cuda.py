@@ -207,23 +207,67 @@ def _trace_operands(device, kind, n=3001, seed=7):
     return (t(pts), t(dirs), t(status, torch.int32), escape) + weights, kw
 
 
-@pytest.mark.parametrize("kind", ["primary", "shadow"])
-def test_trace_kernel_matches_plain(cuda, kind):
-    ops, kw = _trace_operands(cuda, kind)
-    before = K.trace_steps_cuda.launch_count
-    got = K.trace_steps_cuda(*ops, **kw)
-    assert K.trace_steps_cuda.launch_count == before + 1
-    want = K.trace_steps_plain(*ops, **kw)
+def _trace_close(got, want, ops):
+    """B4 against its plain version by the bounds above; pre-resolved lanes
+    keep their points and status exactly."""
     torch.cuda.synchronize()
     assert got[0].shape == want[0].shape and got[1].dtype == torch.int32
     same = got[1] == want[1]
     assert float(same.float().mean()) >= TRACE_AGREE
     dp = (got[0] - want[0]).abs().amax(1)[same]
     assert float(dp.max()) <= TRACE_MAX_DP and float((dp > 1e-6).float().mean()) <= TRACE_MOVED_SHARE
-    assert float((got[1] != K.TRACE_ACTIVE).float().mean()) > 0.3  # the fixture resolves lanes
     resolved = ops[2] != K.TRACE_ACTIVE
     assert torch.equal(got[0][resolved], ops[0][resolved])
     assert torch.equal(got[1][resolved], ops[2][resolved])
+
+
+@pytest.mark.parametrize("kind", ["primary", "shadow"])
+def test_trace_kernel_matches_plain(cuda, kind):
+    ops, kw = _trace_operands(cuda, kind)
+    before = K.trace_steps_cuda.launch_count
+    got = K.trace_steps_cuda(*ops, **kw)
+    assert K.trace_steps_cuda.launch_count == before + 1
+    _trace_close(got, K.trace_steps_plain(*ops, **kw), ops)
+    assert float((got[1] != K.TRACE_ACTIVE).float().mean()) > 0.3  # the fixture resolves lanes
+
+
+@pytest.mark.parametrize("k", [1, 37])
+@pytest.mark.parametrize("n", [1, 127, 129, 3001])
+def test_trace_kernel_lane_counts_and_steps(cuda, n, k):
+    """B4 with fewer lanes than one block's 128 slots (1, 127), just more
+    (129: a second block) and many (3001), one step and 37: every 10th lane
+    pre-resolved (HIT or MISS, interleaved with active ones), the others
+    resolving at staggered steps, so slots are refilled mid-launch."""
+    ops, kw = _trace_operands(cuda, "primary", n=n, seed=n)
+    kw = dict(kw, k=k)
+    _trace_close(K.trace_steps_cuda(*ops, **kw), K.trace_steps_plain(*ops, **kw), ops)
+    if n == 3001 and k == 37:  # lanes resolve at staggered steps
+        early = K.trace_steps_plain(*ops, **dict(kw, k=20))[1]
+        final = K.trace_steps_plain(*ops, **kw)[1]
+        active = ops[2] == K.TRACE_ACTIVE
+        assert (early[active] != K.TRACE_ACTIVE).any()
+        assert ((early == K.TRACE_ACTIVE) & (final != K.TRACE_ACTIVE)).any()
+
+
+def test_trace_kernel_launches_are_bitwise_equal(cuda):
+    """Which block and slot takes a lane depends on the work counter's
+    order; each lane's steps do not: two launches agree bit for bit."""
+    ops, kw = _trace_operands(cuda, "shadow", n=50000, seed=11)
+    a, b = K.trace_steps_cuda(*ops, **kw), K.trace_steps_cuda(*ops, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    _trace_close(a, K.trace_steps_plain(*ops, **kw), ops)
+
+
+@pytest.mark.parametrize("n", [127, 3001, 128**3])
+def test_points_kernel_persistent_sizes(cuda, n):
+    """B3's persistent grid at a part of one tile, a tail tile, and 128^3
+    (more tiles than the grid has warpgroups); two launches bit for bit."""
+    params, pts, lats = _setup(cuda, n, 1, seed=12)
+    ops = K.points_operands(sdf_mlp.fold_latent(params, lats[0]), pts, lats[0, :0])
+    out = K.points_forward_cuda(*ops)
+    assert torch.equal(out, K.points_forward_cuda(*ops))
+    _close(out, K.points_forward_plain(*ops))
 
 
 def test_trace_wrapper_rejects_bad_operands(cuda):

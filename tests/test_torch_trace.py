@@ -187,6 +187,51 @@ def test_trace_update_hit_beats_miss_and_resolved_lanes_stay():
     assert int(s[4]) == K.TRACE_MISS and abs(float(p[4, 1]) - 0.92) < 1e-6
 
 
+def _plain_trace_case(kind, n, seed):
+    """Operands and keywords of B4's plain version on the octahedron:
+    inward rays with pre-resolved lanes (primary) or upward rays with
+    escape heights (shadow)."""
+    params, latent = _network("octahedron")
+    weights = K.point_weights(_tparams(params), torch.tensor(latent))
+    if kind == "primary":
+        pts, dirs, status = _inward_rays(n, seed)
+        escape = None
+        kw = dict(shadow=False, threshold=0.005, step_clamp=0.05, sdf_offset=0.0, radius=1.0)
+    else:
+        pts, dirs, status, escape = _upward_rays(n, seed)
+        escape = torch.tensor(escape)
+        kw = dict(shadow=True, threshold=0.005, step_clamp=0.1, sdf_offset=0.0, radius=1.0)
+    return (torch.tensor(pts), torch.tensor(dirs), torch.tensor(status), escape) + weights, kw
+
+
+@pytest.mark.parametrize("kind", ["primary", "shadow"])
+def test_trace_plain_is_permutation_equivariant(kind):
+    """The trace kernel hands lanes to slots in any order: permuting the
+    lanes permutes the plain version's outputs bit for bit."""
+    ops, kw = _plain_trace_case(kind, 300, seed=21)
+    perm = torch.tensor(np.random.default_rng(22).permutation(300))
+    lanes = [t if t is None else t[perm] for t in ops[:4]]
+    want = K.trace_steps_plain(*ops, k=16, **kw)
+    got = K.trace_steps_plain(*lanes, *ops[4:], k=16, **kw)
+    assert torch.equal(got[0], want[0][perm]) and torch.equal(got[1], want[1][perm])
+    assert (want[1] != K.TRACE_ACTIVE).any() and (want[1] == K.TRACE_ACTIVE).any()
+
+
+@pytest.mark.parametrize("kind, k1, k2", [("primary", 5, 11), ("primary", 1, 15), ("shadow", 7, 9)])
+def test_trace_plain_steps_compose(kind, k1, k2):
+    """Each lane's steps depend on the lane alone, so k1 steps and then k2
+    more equal k1 + k2 steps in one call, bit for bit: the kernel may run a
+    lane's steps in any evaluations of any slot."""
+    ops, kw = _plain_trace_case(kind, 300, seed=23)
+    mid_pts, mid_status = K.trace_steps_plain(*ops, k=k1, **kw)
+    got = K.trace_steps_plain(mid_pts, ops[1], mid_status, *ops[3:], k=k2, **kw)
+    want = K.trace_steps_plain(*ops, k=k1 + k2, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # lanes still marching after k1 steps, and lanes that resolve in the k2
+    assert (mid_status == K.TRACE_ACTIVE).any()
+    assert ((mid_status == K.TRACE_ACTIVE) & (want[1] != K.TRACE_ACTIVE)).any()
+
+
 def test_trace_cuda_wrapper_raises_on_cpu_tensors():
     """The trace kernel's wrapper launches or raises; it never falls back."""
     params, latent = _network("octahedron")
