@@ -17,11 +17,15 @@ Phases, each fatal on failure (nothing is caught):
      table, the bundled weights) and at N=3001 with random weights; the
      point-GAN generator kernel at the D step's 32 x 4096 points and at
      B=3, N=1000 (a tail tile, tiles spanning two items), fresh weights;
-     the stash forward kernel (B5a: its output equal to B1's, its planes
-     to the plain version's) and the stash backward kernel (B5b) at
-     16 x 64^3 and B=3, P=3001 with random weights, stash sets (2,4,6) and
-     (1..6);
-  4. median times of kernel and plain version at the main path's shapes,
+     the grid backward's rows pass alone (B2's Hopper rows kernel,
+     ``sdf_grid_backward_rows``: its h and dz planes, dx1 and gz against
+     ``grid_backward_rows_plain``) at 16 x 64^3 with the bundled weights (one
+     shape a call) and at B=3, P=3001 with random weights; the stash forward
+     kernel (B5a: its output equal to B1's, its planes to the plain
+     version's) and the stash backward kernel (B5b) at 16 x 64^3 and B=3,
+     P=3001 with random weights, stash sets (2,4,6) and (1..6);
+  4. median times of kernel and plain version at the main path's shapes
+     (B2's rows pass also alone, beside its own bound and B2's total),
      and of 20 per-iteration points-kernel trace steps beside the trace
      kernel's 20; the rowwise kernels at 20,000 and 65,536 rows; the
      generator kernel at 32 x 4096 and 6 x 32768 beside the bf16 module (the
@@ -198,6 +202,22 @@ GEN_VS_MODULE_MAX_ABS = 2e-2
 # summed ones; the mutants read L2 >= 8e-2.
 STASH_PLANE_SHARE = 1e-4
 STASH_PLANE_MAX = 0.1
+# B2's rows pass alone (sdf_grid_backward_rows) against
+# grid_backward_rows_plain: per h and dz plane the share of differing bf16
+# elements and their largest difference over the plane's largest value; dx1
+# and gz by max |d| over max |ref|. The wgmma products sum in another order
+# than the plain matmul, so a few bf16 roundings flip and spread through the
+# later planes, and a flipped mask moves a dz element by its whole value.
+# Measured on the H100 (both cases): share <= 3.3e-3 (dz2), largest <= 0.73
+# (dz7), dx1 <= 0.13, gz <= 1.9e-5; four wrong kernels (kernel_mutants.py)
+# read shares >= 5.2e-2 on some plane (the product rounded before the bias,
+# the backward mask from the layer's output, the backward's K-blocks at the
+# wrong offset, a wrong descriptor offset). The share bound sits between;
+# the others catch gross errors only.
+ROWS_PLANE_SHARE = 1e-2
+ROWS_PLANE_MAX = 1.0
+ROWS_DX1_MAX = 0.5
+ROWS_GZ_MAX = 1e-4
 STASH_SETS = ((2, 4, 6), (1, 2, 3, 4, 5, 6))
 # The stash sets of the G-step A/B (the JAX package's bench_profile.py
 # stash_breakdown sets).
@@ -362,6 +382,64 @@ def compare_stash_forward(name: str, got, want, b1, stash) -> float:
         raise AssertionError(f"{name}: planes {wrong} disagree with the plain version's "
                              f"(share <= {STASH_PLANE_SHARE}, largest <= {STASH_PLANE_MAX})")
     return err
+
+
+def rows_readings(got, want) -> dict:
+    """B2's rows pass against its plain version: plane -> (share of
+    differing elements, largest difference over the plane's largest value)
+    for h1..h7 and dz2..dz7; dx1 and gz -> (0, max |d| over max |ref|)."""
+    import torch
+
+    torch.cuda.synchronize()
+    (h, dz, dx1, gz), (ph, pdz, pdx1, pgz) = got, want
+    pairs = [(f"h{j + 1}", h[j], ph[j]) for j in range(7)]
+    pairs += [(f"dz{layer + 2}", dz[layer], pdz[layer]) for layer in range(6)]
+    pairs += [("dx1", dx1, pdx1), ("gz", gz, pgz)]
+    readings = {}
+    for label, a, b in pairs:
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            raise AssertionError(f"rows {label}: shape {tuple(a.shape)} vs {tuple(b.shape)}, "
+                                 f"finite={bool(torch.isfinite(a).all())}")
+        diff = (a.float() - b.float()).abs()
+        share = float((a != b).float().mean()) if a.dtype == torch.bfloat16 else 0.0
+        readings[label] = (share, float(diff.max() / b.float().abs().max().clamp_min(1e-30)))
+    return readings
+
+
+def check_rows(name: str, readings: list) -> None:
+    """Fails unless the worst of ``readings`` (rows_readings of each part of
+    a case) holds the ROWS_* bounds."""
+    worst = {label: tuple(max(r[label][i] for r in readings) for i in range(2)) for label in readings[0]}
+    log(f"  {name} (share differing / largest difference, relative): "
+        + ", ".join(f"{label} {s:.2e}/{m:.2e}" for label, (s, m) in worst.items()))
+    wrong = [label for label, (share, largest) in worst.items()
+             if share > ROWS_PLANE_SHARE or largest > {"dx1": ROWS_DX1_MAX, "gz": ROWS_GZ_MAX}.get(
+                 label, ROWS_PLANE_MAX)]
+    if wrong:
+        raise AssertionError(f"{name}: {wrong} outside the bounds (share <= {ROWS_PLANE_SHARE}, "
+                             f"planes <= {ROWS_PLANE_MAX}, dx1 <= {ROWS_DX1_MAX}, gz <= {ROWS_GZ_MAX})")
+
+
+def shapes_of(ops, g, s: int, n: int = 1) -> tuple:
+    """The grid operands and cotangent of shapes s .. s + n - 1."""
+    pp1, pp5, zz1, zz5, w, b, w8 = ops
+    return pp1, pp5, zz1[s:s + n], zz5[s:s + n], w, b, w8, g[s:s + n]
+
+
+def rows_checks(ops, g) -> None:
+    """Phase 3: B2's rows pass at one case (grid operands, cotangent), one
+    shape a call when the batch exceeds one chunk."""
+    import torch
+    from shapegan_tpu_torch.ops import sdf_mlp_kernels as K
+
+    batch, points = g.shape
+    step = 1 if batch * points > K.ROW_CAP else batch
+    readings = []
+    for s in range(0, batch, step):
+        part = shapes_of(ops, g, s, step)
+        readings.append(rows_readings(K.grid_backward_rows_cuda(*part), K.grid_backward_rows_plain(*part)))
+        torch.cuda.empty_cache()
+    check_rows(f"grid_bwd rows B={batch} P={points}", readings)
 
 
 def stash_case(params, points, batch: int, seed: int, device):
@@ -1215,6 +1293,9 @@ def main() -> int:
     bwd_err = max(bwd_err, compare_backward("grid_bwd B=3 P=3001",
                                             K.grid_backward_cuda(*odd_bwd_ops, g3),
                                             K.grid_backward_plain(*odd_bwd_ops, g3)))
+    # B2's rows pass alone, its planes against the plain version's.
+    rows_checks(grid_ops, g16)
+    rows_checks(odd_bwd_ops, g3)
     # B5a and B5b with random weights and latents at the G step's shape and
     # at the odd shape (three chunks of B2's size, and one), the sets (2,4,6)
     # and (1..6); random cotangents.
@@ -1287,6 +1368,20 @@ def main() -> int:
     log(f"  grid_bwd: kernel {kernel_ms:.3f} ms ({n_points * 3 * trunk_flop / kernel_ms / 1e9:.1f} "
         f"TFLOP/s over the 18 products) | plain {plain_ms:.3f} ms | n={n_points} | "
         f"bound {bounds['grid_bwd'][0]:.3f} ms ({bounds['grid_bwd'][1]})")
+    # B2's rows pass alone (16 one-shape calls): 12 products a row; h1..h7,
+    # dz2..dz7 (bf16), dx1 (float32) and gz written, pp1, pp5 (one shape a
+    # call: re-read per shape) and g read.
+    def rows_pass():
+        for s in range(16):
+            K.grid_backward_rows_cuda(*shapes_of(grid_ops, g16, s))
+
+    rows_ms = time_ms(rows_pass, iters=5)
+    rows_bound = bound(n_points * 2 * trunk_flop, n_points * (7 * 512 + 6 * 512 + 1024 + 4 + 2 * 512 + 4)
+                       + 2 * weight_bytes)
+    rows_rate = n_points * 2 * trunk_flop / rows_ms / 1e9
+    log(f"  grid_bwd rows pass: {rows_ms:.3f} ms ({rows_rate:.1f} TFLOP/s over its 12 products) | bound "
+        f"{rows_bound[0]:.3f} ms ({rows_bound[1]}): {rows_bound[0] / rows_ms:.3f} of the bound's rate | "
+        f"B2 {kernel_ms:.3f} ms, its other passes {kernel_ms - rows_ms:.3f} ms")
     # B5a and B5b at the G step's shape, beside B1 and B2 (above): B5a does
     # B1's products and writes B*P*512 bytes a stashed position; B5b does
     # 18 - s products a row (s stashed among h2..h7) and reads the planes.
@@ -1503,7 +1598,7 @@ def main() -> int:
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         raise AssertionError("jax was imported")
 
-    def kernel_entry(name, counter, source, replaces, err):
+    def kernel_entry(name, counter, source, replaces, err, **extra):
         # library_ms: no single PyTorch call computes an 8-layer MLP (or its
         # recompute backward, or K trace steps of it), so none is timed.
         # launches: the runs at the shipped switch settings only.
@@ -1512,12 +1607,15 @@ def main() -> int:
                 "launches": sum(p[counter] for path, p in paths.items() if path not in OFF_DEFAULT),
                 "launches_by_path": {path: p[counter] for path, p in paths.items() if p[counter]},
                 "max_abs_err": err, "ms": times[counter][0], "plain_ms": times[counter][1],
-                "bound_ms": bounds[counter][0], "bound_by": bounds[counter][1], "library_ms": None}
+                "bound_ms": bounds[counter][0], "bound_by": bounds[counter][1], "library_ms": None,
+                **extra}
 
     kernels = [
         kernel_entry("sdf_grid", "grid", "sdf_grid.cu", "sdf_mlp_pallas.py:50", grid_err),
         kernel_entry("sdf_points", "points", "sdf_points.cu", "sdf_mlp_pallas.py:199", points_err),
-        kernel_entry("sdf_grid_bwd", "grid_bwd", "sdf_grid_bwd.cu", "sdf_mlp_pallas.py:469", bwd_err),
+        kernel_entry("sdf_grid_bwd", "grid_bwd", "sdf_grid_bwd.cu", "sdf_mlp_pallas.py:469", bwd_err,
+                     rows_source="shapegan_tpu_torch/ops/csrc/sdf_grid_bwd_sm90.cuh", rows_ms=rows_ms,
+                     rows_bound_ms=rows_bound[0], rows_bound_by=rows_bound[1]),
         kernel_entry("sdf_trace", "trace", "sdf_trace.cu", "sdf_mlp_pallas.py:331", trace_err),
         kernel_entry("sdf_rowwise", "rowwise", "sdf_rowwise.cu", "sdf_mlp_pallas.py:1132",
                      rowwise_err),

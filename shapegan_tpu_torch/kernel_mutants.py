@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Do ``chip_smoke.py``'s bounds for the rowwise backward kernel (B6b), the
 point-GAN generator kernel (B7), the stash kernels (B5a, B5b), the points
-kernel (B3) and the trace kernel (B4) tell a wrong kernel from a sound one?
-On one GPU:
+kernel (B3), the trace kernel (B4) and the grid backward's rows pass (B2)
+tell a wrong kernel from a sound one? On one GPU:
 
     python -m shapegan_tpu_torch.kernel_mutants
 
@@ -12,8 +12,9 @@ rounding flips), then builds each wrong copy of ``ops/csrc/sdf_rowwise_bwd.cu``,
 ``ops/csrc/point_gen.cu``, ``ops/csrc/sdf_grid.cu`` (B5a),
 ``ops/csrc/sdf_grid_bwd.cu`` (B5b), ``ops/csrc/sdf_trunk_sm90.cuh`` (the
 trunk of B3 and B4, held at B3's cases) and ``ops/csrc/sdf_trace.cu`` (B4)
-in a temporary directory (never in the checkout) and reports whether it
-fails the bounds at every case (B4's mutants: at any of chip_smoke's three
+and ``ops/csrc/sdf_grid_bwd_sm90.cuh`` (B2's rows pass, held by its planes
+at chip_smoke's two cases) in a temporary directory (never in the
+checkout) and reports whether it fails the bounds at every case (B4's mutants: at any of chip_smoke's three
 trace cases, since phase 3 runs them all and a wrong lane update shows only
 where lanes resolve in its way). A wrong kernel that passes is printed as
 ``PASSES``.
@@ -104,6 +105,19 @@ TRACE_MUTANTS = (
      "    slot.steps = 0;\n", ""),
 )
 
+# ... and in sdf_grid_bwd_sm90.cuh (B2's rows pass), held by its planes.
+ROWS_MUTANTS = (
+    ("the rebuilt layers at B3's rounding (the product rounded before the bias)",
+     "float v0 = d[4 * i + 2 * hh], v1 = d[4 * i + 2 * hh + 1];",
+     "float v0 = sdf90::round_bf16(d[4 * i + 2 * hh]), v1 = sdf90::round_bf16(d[4 * i + 2 * hh + 1]);"),
+    ("the backward mask taken from the layer's output instead of its input",
+     "load_bits(s, L, bits);", "load_bits(s, L < LAYERS - 1 ? L + 1 : L, bits);"),
+    ("the backward's K-blocks at the wrong offset (the wt slices' K coordinate swapped in pairs)",
+     "+ back % CHUNKS_PER_LAYER;", "+ (back % CHUNKS_PER_LAYER ^ 1);"),
+    ("each slice's K-blocks read in the wrong order (the wgmma descriptor's offset)",
+     "desc + 2 * kk, kc | kk)", "desc + 2 * (kk ^ 1), kc | kk)"),
+)
+
 
 def rowwise_backward_float64(pts, w1p, w5p, zz1, zz5, w, b, w8, g):
     """The plain version's math with float64 sums at the same bf16 rounding
@@ -188,6 +202,11 @@ def _points_check(cs, cases, name):
     return lambda: cs.compare(f"points {name}", got, want)
 
 
+def _rows_check(cs, case):
+    ops, g = case
+    return lambda: cs.rows_checks(ops, g)
+
+
 def _trace_check(cs, case, weights):
     name, pts, dirs, status, escape, kw = case
     ops = (pts, dirs, status, escape) + weights
@@ -249,12 +268,20 @@ def main() -> int:
     bundled = checkpoints.load("sdf_net", base=os.path.join(REPO, "shapegan_tpu", "examples"),
                                device=device)
     random = sdf_mlp.init(torch.Generator().manual_seed(1), device=device)
+    grid64 = voxel_coordinates(64, device=device)
+    odd = (torch.rand(3001, 3, generator=torch.Generator().manual_seed(0)) * 2.2 - 1.1).to(device)
+    rows_cases = {"B=16 P=64^3": cs.stash_case(bundled, grid64, 16, 15, device),
+                  "B=3 P=3001": cs.stash_case(random, odd, 3, 16, device)}
+    print(f"== B2's rows pass against its plain version ({torch.cuda.get_device_name(0)}; "
+          f"{cs.nvidia_smi_line()})")
+    sound = all([_holds(_rows_check(cs, case)) for case in rows_cases.values()])
+    caught = _wrong_kernels("sdf_grid_bwd_sm90.cuh", ROWS_MUTANTS,
+                            {name: (lambda case=case: _rows_check(cs, case))
+                             for name, case in rows_cases.items()})
     cases = {n: cs.rowwise_case(p, n, seed, device)
              for n, p, seed in ((20000, bundled, 6), (3001, random, 7))}
     gen_cases = {(b, n): cs.point_gen_case(b, n, seed, device)
                  for b, n, seed in ((32, 4096, 10), (3, 1000, 11))}
-    grid64 = voxel_coordinates(64, device=device)
-    odd = (torch.rand(3001, 3, generator=torch.Generator().manual_seed(0)) * 2.2 - 1.1).to(device)
     stash_cases = {"B=16 P=64^3": cs.stash_case(random, grid64, 16, 13, device),
                    "B=3 P=3001": cs.stash_case(random, odd, 3, 14, device)}
     stash_keys = [(name, stash) for name in stash_cases for stash in cs.STASH_SETS]
@@ -275,7 +302,6 @@ def main() -> int:
     trace_cases = cs.trace_cases(chair_folded, device)
     print(f"== sound kernels, and float64 sums, against the plain versions "
           f"({torch.cuda.get_device_name(0)}; {cs.nvidia_smi_line()})")
-    sound = True
     for n in cases:
         sound &= _holds(_rowwise_bwd_check(cs, cases, n))
         _holds(_rowwise_bwd_check(cs, cases, n, kernel=rowwise_backward_float64))
@@ -289,7 +315,7 @@ def main() -> int:
     for case in trace_cases:
         sound &= _holds(_trace_check(cs, case, chair_weights))
 
-    caught = _wrong_kernels(
+    caught &= _wrong_kernels(
         "sdf_rowwise_bwd.cu", ROWWISE_BWD_MUTANTS,
         {n: (lambda n=n: _rowwise_bwd_check(cs, cases, n)) for n in cases})
     caught &= _wrong_kernels(

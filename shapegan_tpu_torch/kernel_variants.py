@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""The design choices of the wgmma trunk (``ops/csrc/sdf_trunk_sm90.cuh``),
+"""The design choices of the wgmma trunk (``ops/csrc/sdf_trunk_sm90.cuh``)
+and of the grid backward's Hopper rows pass (``ops/csrc/sdf_grid_bwd_sm90.cuh``),
 timed against the shipped kernels. On one GPU:
 
-    python -m shapegan_tpu_torch.kernel_variants
+    python -m shapegan_tpu_torch.kernel_variants [trunk | rows]
 
 Each variant is the shipped source with one choice undone, built in a
 temporary directory (never in the checkout) as ``kernel_mutants`` builds
@@ -10,11 +11,15 @@ its wrong kernels, and timed in turns with the shipped build (shipped,
 variant, variant, shipped; CUDA events, medians): B3 at 128^3 and B4 on the
 chair's 1600^2 primary rays x k=20, chip_smoke's main-path shapes. A
 variant that changes the results is timed on B3 only (B4's work would
-change with them) and says so.
+change with them) and says so. The rows-pass variants are timed by B2's
+rows pass at 16 x 64^3 (bundled weights, sixteen one-shape calls of
+``grid_backward_rows_cuda``), whatever they do to the results. With an
+argument only that group runs.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 
 import torch
@@ -44,13 +49,76 @@ VARIANTS = (
     }""")], False),
 )
 
+ROWS = "sdf_grid_bwd_sm90.cuh"
+# (name, edits): each a diagnosis of where the rows pass's time goes.
+_NO_DX1 = (ROWS, "void store_f32x2(float* p, float x, float y, bool ok) {",
+           "void store_f32x2(float* p, float x, float y, bool ok) { return;")
+ROWS_VARIANTS = (
+    ("no stores of h, dz and dx1 (the staging kept)",
+     [(ROWS, "@p st.global.v4.b32 [%0], {%1, %2, %3, %4};", ""), _NO_DX1]),
+    ("no dx1 stores", [_NO_DX1]),
+    ("dz2..dz6 not stored (5 of the 13 bf16 planes)",
+     [(ROWS, "return L > 0 ? stage(c, r, a, g.dz + (L - 1) * g.plane) : Pending{nullptr, 0};",
+       "return Pending{nullptr, 0};")]),
+    ("streaming stores (st.global.cs: evict first)",
+     [(ROWS, "@p st.global.v4.b32 [%0]", "@p st.global.cs.v4.b32 [%0]"),
+      (ROWS, "@p st.global.v2.f32 [%0]", "@p st.global.cs.v2.f32 [%0]")]),
+    ("no weight traffic after the ring's first fill (stale weights: the L2 traffic's cost)",
+     [(ROWS, """    sdf90::bar_expect(&s.full[pos.stage], sdf90::SLICE_BYTES);
+    sdf90::load_slice(s.ring[pos.stage], back < 0 ? wmap : wtmap, chunk, &s.full[pos.stage]);""",
+       """    if (issued < STAGES) {
+      sdf90::bar_expect(&s.full[pos.stage], sdf90::SLICE_BYTES);
+      sdf90::load_slice(s.ring[pos.stage], back < 0 ? wmap : wtmap, chunk, &s.full[pos.stage]);
+    } else {
+      sdf90::bar_expect(&s.full[pos.stage], 0);
+    }""")]),
+)
 
-def main() -> int:
+
+def rows_variants(cs, device) -> None:
+    from shapegan_tpu_torch import checkpoints
+
+    params = checkpoints.load("sdf_net", base=os.path.join(cs.REPO, "shapegan_tpu", "examples"),
+                              device=device)
+    gen = torch.Generator().manual_seed(0)
+    ops = K.grid_operands(params, voxel_coordinates(64, device=device),
+                          (torch.randn((16, 128), generator=gen) * 0.1).to(device))
+    g = torch.randn((16, 64**3), generator=gen).to(device)
+
+    def rows_ms():
+        return cs.time_ms(lambda: [K.grid_backward_rows_cuda(*cs.shapes_of(ops, g, s)) for s in range(16)],
+                          iters=5)
+
+    # The card's own store and copy rates on a 2 GiB buffer, the yardstick
+    # for the rows pass's 8.7 KB a row.
+    buf = torch.empty(2**30, dtype=torch.bfloat16, device=device)
+    other = torch.empty_like(buf)
+    zero_ms = cs.time_ms(buf.zero_, iters=5)
+    copy_ms = cs.time_ms(lambda: other.copy_(buf), iters=5)
+    print(f"== zero_ of 2 GiB: {zero_ms:.3f} ms ({2**31 / zero_ms / 1e9:.3f} TB/s written); copy_: "
+          f"{copy_ms:.3f} ms ({2**32 / copy_ms / 1e9:.3f} TB/s read + written)", flush=True)
+    del buf, other
+    for name, edits in ROWS_VARIANTS:
+        print(f"== rows pass: {name}", flush=True)
+        readings = [("shipped", rows_ms())]
+        with built_with(edits):
+            readings += [("variant", rows_ms()), ("variant", rows_ms())]
+        readings.append(("shipped", rows_ms()))
+        for turn, ms in readings:
+            print(f"  {turn}: B2 rows pass 16 x 64^3 {ms:.3f} ms", flush=True)
+
+
+def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print("kernel_variants: CUDA is not available", file=sys.stderr)
         return 1
     cs = _chip_smoke()
     device = torch.device("cuda", 0)
+    print(f"== {torch.cuda.get_device_name(0)}; {cs.nvidia_smi_line()}", flush=True)
+    if "trunk" not in argv:
+        rows_variants(cs, device)
+    if "rows" in argv:
+        return 0
     chair, code = fit_chair(device)
     folded = sdf_mlp.fold_latent(chair, code)
     points = K.points_operands(folded, voxel_coordinates(128, device=device), code[:0])
@@ -66,20 +134,16 @@ def main() -> int:
         b4_text = "not timed (the results change)" if b4 is None else f"{b4:.3f} ms"
         print(f"  {label}: B3 128^3 {b3:.3f} ms | B4 chair 1600^2 x k=20 {b4_text}", flush=True)
 
-    print(f"== {torch.cuda.get_device_name(0)}; {cs.nvidia_smi_line()}", flush=True)
     for name, edits, exact in VARIANTS:
         print(f"== {name}", flush=True)
-        readings = []
-        for turn in ("shipped", "variant", "variant", "shipped"):
-            if turn == "shipped":
-                readings.append((turn, *times(exact)))
-            else:
-                with built_with(edits):
-                    readings.append((turn, *times(exact)))
+        readings = [("shipped", *times(exact))]
+        with built_with(edits):
+            readings += [("variant", *times(exact)), ("variant", *times(exact))]
+        readings.append(("shipped", *times(exact)))
         for turn, b3, b4 in readings:
             show(turn, b3, b4)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -28,8 +28,11 @@
 // the 227 KB of shared memory a block may use. So the backward is split into
 // passes over device-memory scratch, sized by the wrapper for a chunk of at
 // most ROW_CAP rows (whole shapes; 16 x 64^3 runs as 16 chunks of one shape):
-//   1. rows pass (one block per 128-row tile of one shape): the forward
-//      layers that are rebuilt (the Plan's sequence; all six for B2) on the
+//   1. rows pass. B2 (nothing stashed) runs the Hopper rows kernel of
+//      sdf_grid_bwd_sm90.cuh (wgmma, TMA weight ring, persistent
+//      warp-specialized blocks; it writes the same scratch). B5b runs
+//      bwd_rows_kernel below, one block per 128-row tile of one shape: the
+//      forward layers that are rebuilt (the Plan's sequence) on the
 //      sdf_trunk.cuh main loop (same cp.async weight ring and mma.sync
 //      fragments, with this file's own epilogue), then the six backward
 //      products dh = dz @ W^T on the same ring, fed the [in, out] weight
@@ -65,6 +68,7 @@
 #include <utility>
 
 #include "sdf_bwd_passes.cuh"
+#include "sdf_grid_bwd_sm90.cuh"
 
 namespace {
 
@@ -312,6 +316,30 @@ Layout layout(int points, int shapes_per_chunk, int h_planes) {
 
 int h_planes(const Plan& plan) { return HIDDEN - __builtin_popcount(plan.stashed); }
 
+// The rows pass of B2 (sdf_grid_bwd_sm90.cuh) over the chunk of `shapes`
+// shapes from shape s0 on, into the scratch `base` laid out as `l`.
+cudaError_t rows_sm90(const void* pp1, const void* pp5, const void* zz1, const void* zz5, const void* w,
+                      const void* wt, const void* bias, const void* w8, const void* g, unsigned char* base,
+                      const Layout& l, int s0, int shapes, int points, int device, cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  sdf90_bwd::Args args{};
+  args.pp1 = static_cast<const bf*>(pp1);
+  args.pp5 = static_cast<const bf*>(pp5);
+  args.zz1 = static_cast<const bf*>(zz1) + static_cast<size_t>(s0) * WIDTH;
+  args.zz5 = static_cast<const bf*>(zz5) + static_cast<size_t>(s0) * WIDTH;
+  args.bias = static_cast<const bf*>(bias);
+  args.w8 = static_cast<const bf*>(w8);
+  args.g = static_cast<const float*>(g) + static_cast<size_t>(s0) * points;
+  args.h = reinterpret_cast<bf*>(base + l.h);
+  args.dz = reinterpret_cast<bf*>(base + l.dz);
+  args.dx1 = reinterpret_cast<float*>(base + l.dx1);
+  args.gz = reinterpret_cast<float*>(base + l.gz);
+  args.plane = static_cast<long long>(shapes) * points * WIDTH;
+  args.shapes = shapes;
+  args.points = points;
+  return sdf90_bwd::rows_pass(w, wt, args, device, stream);
+}
+
 // Both entry points: `stash` holds HIDDEN plane pointers ([B, P, 256] bf16),
 // NULL for a position that is not stashed (every one for B2).
 int grid_backward(const void* pp1, const void* pp5, const void* zz1, const void* zz5, const void* w,
@@ -352,16 +380,22 @@ int grid_backward(const void* pp1, const void* pp5, const void* zz1, const void*
       sc.h.p[j] = ((plan.stashed >> j) & 1u) ? static_cast<bf*>(stash[j]) + static_cast<size_t>(s0) * pw
                                              : scratch_h + (k++) * plane;
 
-    const long long blocks = ceil_div(points, BLOCK_M) * shapes;
-    if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-    bwd_rows_kernel<<<static_cast<unsigned>(blocks), THREADS, sizeof(RowsSmem), stream>>>(
-        static_cast<const bf*>(pp1), static_cast<const bf*>(pp5),
-        static_cast<const bf*>(zz1) + static_cast<size_t>(s0) * WIDTH,
-        static_cast<const bf*>(zz5) + static_cast<size_t>(s0) * WIDTH, static_cast<const bf*>(w),
-        static_cast<const bf*>(wt), static_cast<const bf*>(bias), static_cast<const bf*>(w8),
-        static_cast<const float*>(g) + static_cast<size_t>(s0) * points, sc, plan, shapes, points,
-        rows);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if (mask == 0) {  // B2: the Hopper rows kernel
+      err = rows_sm90(pp1, pp5, zz1, zz5, w, wt, bias, w8, g, base, full, s0, shapes, points, device,
+                      stream);
+      if (err != cudaSuccess) return err;
+    } else {  // B5b: the rows kernel that reads stashed planes
+      const long long blocks = ceil_div(points, BLOCK_M) * shapes;
+      if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+      bwd_rows_kernel<<<static_cast<unsigned>(blocks), THREADS, sizeof(RowsSmem), stream>>>(
+          static_cast<const bf*>(pp1), static_cast<const bf*>(pp5),
+          static_cast<const bf*>(zz1) + static_cast<size_t>(s0) * WIDTH,
+          static_cast<const bf*>(zz5) + static_cast<size_t>(s0) * WIDTH, static_cast<const bf*>(w),
+          static_cast<const bf*>(wt), static_cast<const bf*>(bias), static_cast<const bf*>(w8),
+          static_cast<const float*>(g) + static_cast<size_t>(s0) * points, sc, plan, shapes, points,
+          rows);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    }
     err = grid_bwd_passes(sc.h, sc.dz, sc.dx1, sc.gz, sc.w_part, sc.col_part, shapes, points, s0, out,
                           stream);
     if (err != cudaSuccess) return err;
@@ -379,6 +413,30 @@ extern "C" int sdf_grid_backward_chunk_shapes(int points, int batch) {
 extern "C" long long sdf_grid_backward_scratch_bytes(int points, int shapes_per_chunk, int mask) {
   return static_cast<long long>(
       layout(points, shapes_per_chunk, h_planes(make_plan(static_cast<unsigned>(mask)))).total);
+}
+
+// The byte offsets of a chunk's scratch (h planes, dz planes, dx1, gz) and
+// its size: out[5].
+extern "C" void sdf_grid_backward_offsets(int points, int shapes_per_chunk, int mask, long long* out) {
+  const Layout l = layout(points, shapes_per_chunk, h_planes(make_plan(static_cast<unsigned>(mask))));
+  const size_t offsets[5] = {l.h, l.dz, l.dx1, l.gz, l.total};
+  for (int i = 0; i < 5; ++i) out[i] = static_cast<long long>(offsets[i]);
+}
+
+// B2's rows pass alone over `shapes` shapes (one chunk: shapes x points <=
+// the chunk's rows, or one shape), into `scratch` laid out as for a chunk
+// of `shapes` shapes with nothing stashed.
+extern "C" int sdf_grid_backward_rows(const void* pp1, const void* pp5, const void* zz1, const void* zz5,
+                                      const void* w, const void* wt, const void* bias, const void* w8,
+                                      const void* g, void* scratch, int shapes, int points, int device,
+                                      void* stream_ptr) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (shapes <= 0 || points <= 0 || shapes > sdf_grid_backward_chunk_shapes(points, shapes))
+    return cudaErrorInvalidValue;
+  return rows_sm90(pp1, pp5, zz1, zz5, w, wt, bias, w8, g, static_cast<unsigned char*>(scratch),
+                   layout(points, shapes, HIDDEN), 0, shapes, points, device,
+                   static_cast<cudaStream_t>(stream_ptr));
 }
 
 // B2.

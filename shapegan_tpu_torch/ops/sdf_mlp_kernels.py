@@ -219,8 +219,49 @@ def grid_backward_plain(pp1, pp5, zz1, zz5, w, b, w8, g):
     bias (layer 5: pp5, then zz5) to the float32 product and rounds once;
     each dz is rounded to bf16 before it is used; dh and dx1 stay float32.
     Products take bf16 operands in float32 (``a.float() @ b.float()``), exact
-    per product, so a float32 result is never rounded to bf16 on the way."""
+    per product, so a float32 result is never rounded to bf16 on the way.
+    The outputs are the sums of :func:`grid_backward_rows_plain`'s planes
+    (the kernel's passes 2-4), one shape at a time."""
     return grid_backward_stash_plain(pp1, pp5, zz1, zz5, w, b, w8, g, (), ())
+
+
+def grid_backward_rows_plain(pp1, pp5, zz1, zz5, w, b, w8, g):
+    """Plain PyTorch version of the grid backward kernel's rows pass: the
+    scratch it writes for B shapes over P points, row s·P + p for shape s
+    and point p (R = B·P rows). Returns (h [7, R, 256] bf16: h1..h7; dz
+    [6, R, 256] bf16, plane l the gradient at trunk layer l's output; dx1
+    [R, 256] float32; gz [R] float32), at :func:`grid_backward_plain`'s
+    rounding points."""
+    wf, bf, w8f = w.float(), b.float(), w8.float()
+    shapes = [_grid_rows(pp1, pp5, zz1, zz5, wf, bf, w8f, g, {}, s) for s in range(zz1.shape[0])]
+    h, dz, dx1, gz = zip(*shapes)
+    return (torch.stack([torch.cat(planes) for planes in zip(*h)]),
+            torch.stack([torch.cat(planes) for planes in zip(*dz)]), torch.cat(dx1), torch.cat(gz))
+
+
+def _grid_rows(pp1, pp5, zz1, zz5, wf, bf, w8f, g, planes, s):
+    """The rows pass of shape s (float32 weights ``wf``, ``bf``, ``w8f``;
+    ``planes``: stashed position → [B, P, 256] bf16 plane): (h1..h7 [P, 256]
+    bf16, dz [P, 256] bf16 per trunk layer, dx1 [P, 256], gz [P] float32)."""
+    h = [torch.relu(pp1.float() + zz1[s].float()).to(BF16)]
+    for layer in range(len(TRUNK_KEYS)):
+        if layer + 1 in planes:
+            h.append(planes[layer + 1][s])
+            continue
+        acc = h[-1].float() @ wf[layer].t()
+        if layer == SKIP_LAYER:
+            acc = acc + pp5.float() + zz5[s].float()
+        else:
+            acc = acc + bf[layer]
+        h.append(torch.relu(acc).to(BF16))
+    out = torch.tanh(h[-1].float() @ w8f + bf[HEAD_BIAS_ROW, 0])
+    gz = g[s].float() * (1.0 - out * out)
+    dz = [None] * len(TRUNK_KEYS)
+    dh = gz[:, None] * w8f[None, :]
+    for layer in reversed(range(len(TRUNK_KEYS))):
+        dz[layer] = (dh * (h[layer + 1] > 0)).to(BF16)
+        dh = dz[layer].float() @ wf[layer]
+    return h, dz, dh * (h[0] > 0), gz
 
 
 def grid_backward_stash_plain(pp1, pp5, zz1, zz5, w, b, w8, g, stashed, stash):
@@ -232,7 +273,8 @@ def grid_backward_stash_plain(pp1, pp5, zz1, zz5, w, b, w8, g, stashed, stash):
     value; a position that is not stashed is rebuilt, in ascending order,
     from its predecessor (which may be stashed) at the grid backward's
     rounding points; the sweep is the grid backward's. A stashed position 0
-    is ignored, as the TPU kernel ignores it."""
+    is ignored, as the TPU kernel ignores it. The outputs are sums of the
+    rows pass's planes, one shape at a time."""
     stash = check_stash(stash)
     if len(stashed) != len(stash):
         raise ValueError(f"{len(stashed)} stashed planes for the stash {stash}")
@@ -251,32 +293,17 @@ def grid_backward_stash_plain(pp1, pp5, zz1, zz5, w, b, w8, g, stashed, stash):
     d_w8 = torch.zeros(width, dtype=f32, device=pp1.device)
     d_b8 = torch.zeros(1, dtype=f32, device=pp1.device)
     for s in range(zz1.shape[0]):
-        h = [torch.relu(pp1.float() + zz1[s].float()).to(BF16)]
-        for layer in range(len(TRUNK_KEYS)):
-            if layer + 1 in planes:
-                h.append(planes[layer + 1][s])
-                continue
-            acc = h[-1].float() @ wf[layer].t()
-            if layer == SKIP_LAYER:
-                acc = acc + pp5.float() + zz5[s].float()
-            else:
-                acc = acc + bf[layer]
-            h.append(torch.relu(acc).to(BF16))
-        out = torch.tanh(h[-1].float() @ w8f + bf[HEAD_BIAS_ROW, 0])
-        gz = g[s].float() * (1.0 - out * out)
+        h, dz, dx1, gz = _grid_rows(pp1, pp5, zz1, zz5, wf, bf, w8f, g, planes, s)
         d_w8 += h[-1].float().t() @ gz
         d_b8 += gz.sum()
-        dh = gz[:, None] * w8f[None, :]
         for layer in reversed(range(len(TRUNK_KEYS))):
-            dz = (dh * (h[layer + 1] > 0)).to(BF16).float()
-            d_w[layer] += h[layer].float().t() @ dz
+            dzf = dz[layer].float()
+            d_w[layer] += h[layer].float().t() @ dzf
             if layer == SKIP_LAYER:
-                d_pp5 += dz
-                d_zz5[s] = dz.sum(0)
+                d_pp5 += dzf
+                d_zz5[s] = dzf.sum(0)
             else:
-                d_b[layer] += dz.sum(0)
-            dh = dz @ wf[layer]
-        dx1 = dh * (h[0] > 0)
+                d_b[layer] += dzf.sum(0)
         d_pp1 += dx1
         d_zz1[s] = dx1.sum(0)
     return d_pp1, d_pp5, d_zz1, d_zz5, d_w, d_b, d_w8, d_b8
@@ -438,6 +465,41 @@ def grid_backward_cuda(pp1, pp5, zz1, zz5, w, b, w8, g):
 
 
 grid_backward_cuda.launch_count = 0
+
+
+def grid_backward_rows_cuda(pp1, pp5, zz1, zz5, w, b, w8, g):
+    """Launch the grid backward kernel's rows pass alone
+    (``csrc/sdf_grid_bwd_sm90.cuh``, the C entry point
+    ``sdf_grid_backward_rows``) over the B shapes as one chunk; returns what
+    :func:`grid_backward_rows_plain` returns, as views of the scratch the
+    passes after it would read. B·P must fit one chunk (``ROW_CAP`` rows, or
+    one shape)."""
+    device, points, batch = _check_grid(pp1, pp5, zz1, zz5, w, b, w8)
+    _check("g", device, g, (batch, points), torch.float32)
+    lib = _build.load()
+    if batch == 0 or points == 0 or lib.sdf_grid_backward_chunk_shapes(points, batch) < batch:
+        raise ValueError(f"the rows pass takes one chunk of B > 0 shapes, got B={batch} P={points}")
+    offsets = (ctypes.c_longlong * 5)()
+    lib.sdf_grid_backward_offsets(points, batch, 0, offsets)
+    scratch = torch.empty(offsets[4], dtype=torch.uint8, device=device)
+    wt = w.transpose(1, 2).contiguous()
+    code = lib.sdf_grid_backward_rows(
+        pp1.data_ptr(), pp5.data_ptr(), zz1.data_ptr(), zz5.data_ptr(), w.data_ptr(), wt.data_ptr(),
+        b.data_ptr(), w8.data_ptr(), g.data_ptr(), scratch.data_ptr(), batch, points, device.index,
+        torch.cuda.current_stream(device).cuda_stream)
+    _build.check(lib, "sdf_grid_backward_rows", code)
+    grid_backward_rows_cuda.launch_count += 1
+    rows = batch * points
+
+    def view(i, dtype, *shape):
+        n = torch.Size(shape).numel() * dtype.itemsize
+        return scratch[offsets[i]:offsets[i] + n].view(dtype).view(shape)
+
+    return (view(0, BF16, HIDDEN, rows, WIDTH), view(1, BF16, len(TRUNK_KEYS), rows, WIDTH),
+            view(2, torch.float32, rows, WIDTH), view(3, torch.float32, rows))
+
+
+grid_backward_rows_cuda.launch_count = 0
 
 
 def _grid_grad_buffers(device, points: int, batch: int, g: torch.Tensor):

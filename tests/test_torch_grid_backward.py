@@ -125,3 +125,97 @@ def test_grid_backward_cuda_raises_on_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA kernel"):  # a non-CPU, non-CUDA device
         sdf_mlp_kernels.grid_backward(*(t.to("meta") for t in ops), g.to("meta"))
     assert sdf_mlp_kernels.grid_backward_cuda.launch_count == before
+
+
+# The rows pass alone (grid_backward_rows_plain: the scratch the kernel's
+# rows pass writes). A share of differing bf16 plane elements above
+# ROWS_PLANE_SHARE fails a plane comparison, as in chip_smoke.py phase 3.
+ROWS_PLANE_SHARE = 1e-2
+# The planes of rows computed in two calls against one call: bit for bit on
+# this CPU (every reading 0). A matmul whose sum order followed the row
+# count would flip a few bf16 roundings; these bounds leave room for that.
+SPLIT_SHARE = 1e-3
+SPLIT_REL = 1e-5
+# The sums of the planes in float64 against grid_backward_plain's float32
+# sums over 3 x 3001 rows: relative L2 per output (float32 sums of a few
+# thousand terms: ~1e-7 each).
+SUMS_L2 = 1e-5
+
+
+def _rows_case():
+    _, params = _params()
+    pts, lats, cot = _case("P3001x3")
+    ops = sdf_mlp_kernels.grid_operands(params, torch.tensor(pts), torch.tensor(lats))
+    return ops, torch.tensor(cot)
+
+
+def _by_shape(t, batch):
+    """[..., B·P, ...] rows as [..., B, P, ...]."""
+    lead = 1 if t.dim() == 3 else 0
+    return t.reshape(t.shape[:lead] + (batch, -1) + t.shape[lead + 1:])
+
+
+@pytest.mark.parametrize("split", [1, 1237, 3000])
+def test_grid_backward_rows_plain_is_row_local(split):
+    """The rows pass is row-local: the planes of P = 3001 points x 3 shapes
+    computed in two calls, split at an odd point, equal one call's."""
+    ops, g = _rows_case()
+    whole = sdf_mlp_kernels.grid_backward_rows_plain(*ops, g)
+    parts = [sdf_mlp_kernels.grid_backward_rows_plain(ops[0][sl], ops[1][sl], *ops[2:], g[:, sl])
+             for sl in (slice(0, split), slice(split, None))]
+    for name, one, a, b in zip(("h", "dz", "dx1", "gz"), whole, *parts):
+        joined = torch.cat([_by_shape(a, 3), _by_shape(b, 3)], dim=2 if one.dim() == 3 else 1)
+        one = _by_shape(one, 3)
+        assert joined.shape == one.shape, name
+        if one.dtype == torch.bfloat16:
+            assert float((joined != one).float().mean()) <= SPLIT_SHARE, name
+        else:
+            diff = float((joined - one).abs().max())
+            assert diff <= SPLIT_REL * float(one.abs().max()), (name, diff)
+
+
+def test_grid_backward_rows_plain_sums_match_grid_backward_plain():
+    """The sums of the rows pass's planes (passes 2-4, here in float64)
+    reproduce grid_backward_plain's eight outputs."""
+    ops, g = _rows_case()
+    h, dz, dx1, gz = (t.double() for t in sdf_mlp_kernels.grid_backward_rows_plain(*ops, g))
+    batch, points = g.shape
+    skip = sdf_mlp_kernels.SKIP_LAYER
+    d_w = torch.einsum("lri,lro->lio", h[:6], dz)
+    d_b = torch.zeros((8, 256), dtype=torch.float64)
+    d_b[[0, 1, 2, 4, 5]] = dz[[0, 1, 2, 4, 5]].sum(1)
+    want = (dx1.reshape(batch, points, 256).sum(0), dz[skip].reshape(batch, points, 256).sum(0),
+            dx1.reshape(batch, points, 256).sum(1), dz[skip].reshape(batch, points, 256).sum(1),
+            d_w, d_b, h[6].t() @ gz, gz.sum().reshape(1))
+    got = sdf_mlp_kernels.grid_backward_plain(*ops, g)
+    for name, a, b in zip(("d_pp1", "d_pp5", "d_zz1", "d_zz5", "d_w", "d_b", "d_w8", "d_b8"), got, want):
+        assert a.shape == b.shape, name
+        assert float((a.double() - b).norm() / b.norm()) <= SUMS_L2, name
+
+
+def _rows_rounded_before_bias(pp1, pp5, zz1, zz5, w, b, w8, g):
+    """A wrong rows pass: each rebuilt layer rounds its product to bf16
+    before the bias is added (B3's rounding points, not the backward's)."""
+    bf16 = torch.bfloat16
+    wf, bf, w8f = w.float(), b.float(), w8.float()
+    planes = []
+    for s in range(zz1.shape[0]):
+        h = [torch.relu(pp1.float() + zz1[s].float()).to(bf16)]
+        for layer in range(6):
+            acc = (h[-1].float() @ wf[layer].t()).to(bf16).float()
+            acc = acc + pp5.float() + zz5[s].float() if layer == 3 else acc + bf[layer]
+            h.append(torch.relu(acc).to(bf16))
+        planes.append(torch.stack(h))
+    return torch.cat(planes, dim=1)
+
+
+def test_grid_backward_rows_rounding_mutant_fails_plane_bound():
+    """The product rounded before the bias moves more than ROWS_PLANE_SHARE
+    of the rebuilt h planes' elements; the sound twin against itself moves
+    none."""
+    ops, g = _rows_case()
+    h = sdf_mlp_kernels.grid_backward_rows_plain(*ops, g)[0]
+    wrong = _rows_rounded_before_bias(*ops, g)
+    shares = [float((a != b).float().mean()) for a, b in zip(wrong, h)]
+    assert shares[0] == 0.0  # h1 has no product
+    assert all(share > ROWS_PLANE_SHARE for share in shares[1:]), shares

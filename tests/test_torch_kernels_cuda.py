@@ -166,6 +166,73 @@ def test_apply_grid_trainable_autograd_matches_plain(cuda):
         assert l2 <= BWD_L2, (name, l2)
 
 
+@pytest.mark.parametrize("n_points, n_latents", [(1, 1), (65, 2), (129, 3), (3001, 2)])
+def test_grid_backward_kernel_tail_tiles(cuda, n_points, n_latents):
+    """B2 on the Hopper rows kernel at one row, parts of a 64-row tile and a
+    tail tile: its outputs against the plain version's, and two launches
+    bit for bit (no atomics; a tile's rows do not depend on which
+    warpgroup takes it)."""
+    params, pts, lats = _setup(cuda, n_points, n_latents, seed=7)
+    g = torch.tensor(np.random.default_rng(7).normal(size=(n_latents, n_points)).astype(np.float32),
+                     device=cuda)
+    ops = K.grid_operands(params, pts, lats)
+    got = K.grid_backward_cuda(*ops, g)
+    again = K.grid_backward_cuda(*ops, g)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _bwd_close(got, K.grid_backward_plain(*ops, g))
+
+
+def test_points_gradient_two_chunks_matches_plain(cuda):
+    """B = 1, P = 262,145 through points_value_and_gradient: two B2 chunks
+    (262,144 points and one), the gradient against the plain versions'."""
+    params, pts, lats = _setup(cuda, K.ROW_CAP + 1, 1, seed=9)
+    before = K.grid_backward_cuda.launch_count
+    _, grads = K.points_value_and_gradient(params, pts, lats[0])
+    assert K.grid_backward_cuda.launch_count - before == 2
+    want = []
+    for chunk in pts.split(K.ROW_CAP):
+        ops = K.grid_operands(params, chunk, lats[:1])
+        d_pp1, d_pp5 = K.grid_backward_plain(*ops, torch.ones((1, chunk.shape[0]), device=cuda))[:2]
+        want.append(d_pp1 @ params["w1p"].t() + d_pp5 @ params["w5p"].t())
+    want = torch.cat(want).double()
+    assert float((grads.double() - want).norm() / want.norm()) <= BWD_L2
+
+
+# B2's rows pass alone against grid_backward_rows_plain, by chip_smoke.py's
+# bounds: per h and dz plane the share of differing bf16 elements and their
+# largest difference over the plane's largest value (a flipped mask moves a
+# dz element by its whole value); dx1 and gz by max |d| over max |ref|.
+ROWS_PLANE_SHARE = 1e-2
+ROWS_PLANE_MAX = 1.0
+ROWS_DX1_MAX = 0.5
+ROWS_GZ_MAX = 1e-4
+
+
+@pytest.mark.parametrize("n_points, n_latents", [(3001, 3), (16**3, 16)])
+def test_grid_backward_rows_matches_plain(cuda, n_points, n_latents):
+    params, pts, lats = _setup(cuda, n_points, n_latents, seed=10)
+    g = torch.tensor(np.random.default_rng(10).normal(size=(n_latents, n_points)).astype(np.float32),
+                     device=cuda)
+    ops = K.grid_operands(params, pts, lats)
+    before = K.grid_backward_rows_cuda.launch_count
+    h, dz, dx1, gz = K.grid_backward_rows_cuda(*ops, g)
+    assert K.grid_backward_rows_cuda.launch_count == before + 1
+    assert torch.equal(h, K.grid_backward_rows_cuda(*ops, g)[0])
+    ph, pdz, pdx1, pgz = K.grid_backward_rows_plain(*ops, g)
+    torch.cuda.synchronize()
+    for name, a, b in [(f"h{j + 1}", h[j], ph[j]) for j in range(7)] + [
+            (f"dz{j + 2}", dz[j], pdz[j]) for j in range(6)]:
+        share = float((a != b).float().mean())
+        largest = float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30))
+        print(f"  {name}: share {share:.3e} largest {largest:.3e}")
+        assert share <= ROWS_PLANE_SHARE and largest <= ROWS_PLANE_MAX, (name, share, largest)
+    for name, a, b, bound in (("dx1", dx1, pdx1, ROWS_DX1_MAX), ("gz", gz, pgz, ROWS_GZ_MAX)):
+        rel = float((a - b).abs().max() / b.abs().max())
+        print(f"  {name}: {rel:.3e}")
+        assert torch.isfinite(a).all() and rel <= bound, (name, rel)
+
+
 # B4 (trace) against its plain version: the share of lanes whose status
 # agrees, the largest |dp| over them and the share of them with |dp| > 1e-6
 # (the bounds of chip_smoke.py; a flipped bf16 rounding of a lane's point
