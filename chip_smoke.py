@@ -23,7 +23,10 @@ Phases, each fatal on failure (nothing is caught):
      shape a call) and at B=3, P=3001 with random weights; the stash forward
      kernel (B5a: its output equal to B1's, its planes to the plain
      version's) and the stash backward kernel (B5b) at 16 x 64^3 and B=3,
-     P=3001 with random weights, stash sets (2,4,6) and (1..6);
+     P=3001 with random weights, stash sets (2,4,6) and (1..6); B1 and B5a
+     (both sets; its output equal to B1's) also at B1's four cases
+     (grid_cases: 16 x 64^3 and B=3, P=3001 with the bundled weights, B=1
+     and B=5, P=6401 with random weights);
   4. median times of kernel and plain version at the main path's shapes
      (B2's rows pass also alone, beside its own bound and B2's total),
      and of 20 per-iteration points-kernel trace steps beside the trace
@@ -31,7 +34,8 @@ Phases, each fatal on failure (nothing is caught):
      generator kernel at 32 x 4096 and 6 x 32768 beside the bf16 module (the
      fused switch's other side); B5a and B5b at 16 x 64^3 for both stash
      sets beside B1 and B2 (the kernels line takes the trainers' set,
-     ``hybrid_gan._GRID_STASH``); each kernel's bound (the larger of its
+     ``hybrid_gan._GRID_STASH``, or (1..6) when the trainers ship the
+     recompute); each kernel's bound (the larger of its
      operations over the bf16 tensor-core peak and its bytes over the
      memory rate, from this run's shapes; the trace kernel's from the
      lane-steps its rays need), and each kernel's TFLOP/s and share of its
@@ -54,10 +58,11 @@ Phases, each fatal on failure (nothing is caught):
   7. the training path: the progressive WGAN-GP trainer's entry point for
      iterations 0 -> 3 in turn (synthetic=32, epochs=1, batch 16, nogui) in
      a temporary directory; its losses, checkpoints and CSV checked, and the
-     counts must show the grid kernel ran in every iteration, and the G
-     step's VJP that ``hybrid_gan._GRID_STASH`` picks (by default the stash
-     kernels B5a and B5b and no grid backward; with it None the grid
-     backward kernel);
+     counts must show the grid kernel once a D step in every iteration,
+     and the G step's VJP that ``hybrid_gan._GRID_STASH`` picks once a G
+     step (by default None: the grid kernel and the grid backward kernel,
+     and no stash kernel; with a stash set the stash kernels B5a and B5b and
+     no grid backward);
   8. the trainer's G-step and D-step times at each resolution (host clock
      after a synchronize, median of 5), the G step through the default VJP;
   9. the autodecoder path: the DeepSDF autodecoder trainer's entry point
@@ -80,9 +85,10 @@ Phases, each fatal on failure (nothing is caught):
      on and off) and G step times at 32 x 4096 and the steps/s they give;
  11. the hybrid GAN and hybrid WGAN paths: each trainer's entry point
      (synthetic=32, batch 8, 32^3, epochs=1, then ``continue`` to epochs=2)
-     in temporary directories with the stash switch on (the trainers' set,
-     ``hybrid_gan._GRID_STASH``), then off; on, each G step must launch B5a and B5b and no B2, each D step B1;
-     off, each G step B1 and B2; losses, checkpoints, snapshots, sidecars
+     in temporary directories with the stash switch at its shipped setting
+     (``hybrid_gan._GRID_STASH``), then the other way (off, or on with
+     (1..6)); on, each G step must launch B5a and B5b and no B2, each D step
+     B1; off, each G step B1 and B2; losses, checkpoints, snapshots, sidecars
      and CSV checked; the G-step gradients with the switch off and on
      against float32 truth by the bf16 rule; the A/B behind the switch's
      default: the progressive trainer's G step at 64^3, batch 16, with the
@@ -219,6 +225,7 @@ ROWS_PLANE_MAX = 1.0
 ROWS_DX1_MAX = 0.5
 ROWS_GZ_MAX = 1e-4
 STASH_SETS = ((2, 4, 6), (1, 2, 3, 4, 5, 6))
+FULL_STASH = STASH_SETS[-1]
 # The stash sets of the G-step A/B (the JAX package's bench_profile.py
 # stash_breakdown sets).
 AB_SETS = (None, (2, 4, 6), (1, 2, 4, 6), (1, 2, 3, 4, 5, 6))
@@ -440,6 +447,53 @@ def rows_checks(ops, g) -> None:
         readings.append(rows_readings(K.grid_backward_rows_cuda(*part), K.grid_backward_rows_plain(*part)))
         torch.cuda.empty_cache()
     check_rows(f"grid_bwd rows B={batch} P={points}", readings)
+
+
+def path_latents(device) -> tuple:
+    """The bundled latent codes, and 16 codes on a Catmull-Rom path through
+    them (slice A's) on the card."""
+    import torch
+    from shapegan_tpu_torch import checkpoints, demo_sdf_net
+    from shapegan_tpu_torch.models import LATENT_CODES_FILENAME
+
+    codes = checkpoints.load_array(LATENT_CODES_FILENAME, base=os.path.join(REPO, "shapegan_tpu", "examples"))
+    return codes, torch.tensor(demo_sdf_net.catmull_rom(codes, 2)[:16].astype("float32"), device=device)
+
+
+def grid_cases(params, rand_params, latents16, grid64, odd_pts, device) -> dict:
+    """Phase 3's B1 (and B5a) cases, name -> grid operands: the bundled
+    weights at the main path's 16 x 64^3 and at B=3, P=3001; random weights
+    at B=1 (one shape: the tile order's modulus 1) and at B=5, P=64 x 100 + 1
+    (a one-row tail tile; 505 tiles, whose pairs do not divide over the
+    SMs)."""
+    import torch
+    from shapegan_tpu_torch.ops import sdf_mlp_kernels as K
+
+    gen = torch.Generator().manual_seed(17)
+    tail_pts = (torch.rand(64 * 100 + 1, 3, generator=gen) * 2.2 - 1.1).to(device)
+    latents = torch.randn((6, 128), generator=gen).to(device)
+    return {"B=16 P=64^3": K.grid_operands(params, grid64, latents16),
+            "B=3 P=3001": K.grid_operands(params, odd_pts, latents16[:3]),
+            "B=1 P=3001": K.grid_operands(rand_params, odd_pts, latents[:1]),
+            "B=5 P=6401": K.grid_operands(rand_params, tail_pts, latents[1:])}
+
+
+def grid_check(name: str, ops, sets=STASH_SETS) -> tuple:
+    """Phase 3 at one B1 case: B1 against its plain version, then B5a at
+    each stash set against B1 (bit for bit) and its plain version. Returns
+    the largest errors (B1's, B5a's)."""
+    import torch
+    from shapegan_tpu_torch.ops import sdf_mlp_kernels as K
+
+    b1 = K.grid_forward_cuda(*ops)
+    err = compare(f"grid {name}", b1, K.grid_forward_plain(*ops))
+    stash_err = 0.0
+    for stash in sets:
+        stash_err = max(stash_err, compare_stash_forward(
+            f"grid_stash {name} {stash}", K.grid_forward_stash_cuda(*ops, stash),
+            K.grid_forward_stash_plain(*ops, stash), b1, stash))
+        torch.cuda.empty_cache()
+    return err, stash_err
 
 
 def stash_case(params, points, batch: int, seed: int, device):
@@ -732,13 +786,18 @@ def train_chain() -> dict:
                     raise AssertionError(f"iteration {iteration}: bad losses {rows[0]}")
                 if missing:
                     raise AssertionError(f"iteration {iteration}: checkpoints missing {missing}")
-                # The G step's VJP is the one hybrid_gan._GRID_STASH picks.
+                # The G step's VJP is the one hybrid_gan._GRID_STASH picks: with None
+                # B1 and B2 once a G step, else B5a and B5b; B1 once a D step.
+                g_steps, d_steps = len(result["g_step_s"]), len(result["d_step_s"])
+                want = dict.fromkeys(counts, 0)
                 if HG._GRID_STASH is None:
-                    check_counts(f"training iteration {iteration}", counts,
-                                 launched=("grid", "grid_bwd"), idle=("grid_stash", "grid_stash_bwd"))
+                    want.update(grid=d_steps + g_steps, grid_bwd=g_steps)
                 else:
-                    check_counts(f"training iteration {iteration}", counts,
-                                 launched=("grid", "grid_stash", "grid_stash_bwd"), idle=("grid_bwd",))
+                    want.update(grid=d_steps, grid_stash=g_steps, grid_stash_bwd=g_steps)
+                check_counts(f"training iteration {iteration}", counts,
+                             launched=[k for k, v in want.items() if v], idle=[k for k, v in want.items() if not v])
+                if counts != want:
+                    raise AssertionError(f"iteration {iteration}: launches {counts}, expected {want}")
                 net = result["net"]
                 if net.device.type != "cuda":
                     raise AssertionError(f"the generator lies on {net.device}")
@@ -792,11 +851,11 @@ def step_times() -> dict:
 def hybrid_gan_path() -> dict:
     """Phase 11: the hybrid GAN and hybrid WGAN trainers' entry points
     (synthetic=32, batch 8, 32^3) in temporary directories, epochs=1 and a
-    ``continue`` to epochs=2, with the stash switch on (its shipped set,
-    ``hybrid_gan._GRID_STASH``) and off;
-    returns the launch counts per run. With the switch on each G step
-    launches B5a and B5b and no B2, each D (critic) step B1; off, each G
-    step launches B1 and B2."""
+    ``continue`` to epochs=2, with the stash switch at its shipped setting
+    (``hybrid_gan._GRID_STASH``) and the other way (off, or on with (1..6)
+    when the shipped setting is off); returns the launch counts per
+    run. With the switch on each G step launches B5a and B5b and no B2, each
+    D (critic) step B1; off, each G step launches B1 and B2."""
     import csv
     import math
 
@@ -811,7 +870,7 @@ def hybrid_gan_path() -> dict:
         with tempfile.TemporaryDirectory() as tmp:
             cwd = os.getcwd()
             try:
-                for switch in (default, None):
+                for switch in (default, None if default else FULL_STASH):
                     HG._GRID_STASH = switch
                     for module, kind in ((HG, "hybrid GAN"), (HW, "hybrid WGAN")):
                         sub = os.path.join(tmp, f"{module.G_NAME}-{switch is not None}")
@@ -872,7 +931,7 @@ def hybrid_grads_vs_float32(device) -> None:
     """Phase 11: the generator's gradients through the trainers'
     generate_volumes (8 x 32^3, the hybrid GAN's fresh weights, a random
     cotangent), with the stash switch off (B1, B2) and on (B5a, B5b, the
-    shipped set ``hybrid_gan._GRID_STASH``),
+    shipped set ``hybrid_gan._GRID_STASH``, or (1..6) when it is off),
     against float32 truth (``sdf_mlp.apply_grid``, TF32 off) by the rule of
     the JAX package's tests/test_pallas_kernels.py: each VJP's error within
     twice the bf16 autograd path's plus 0.02. The two VJPs are not held
@@ -900,7 +959,7 @@ def hybrid_grads_vs_float32(device) -> None:
         truth = grads(lambda: sdf_mlp.apply_grid(params, grid, z))
         pts = grid[None].expand(8, -1, -1).reshape(-1, 3)
         bf16 = grads(lambda: apply_bf16_autograd(params, pts, z.repeat_interleave(32**3, 0)))
-        for switch in (None, default):
+        for switch in (None, default or FULL_STASH):
             HG._GRID_STASH = switch
             got = grads(lambda: HG.generate_volumes(net, grid, z, 32))
             margins = {}
@@ -925,7 +984,7 @@ def stash_ab(kind: str) -> None:
     stash set of AB_SETS in turns, host clock after a synchronize, median
     (and range) of 5, and each setting's peak device memory over one step;
     then the hybrid GAN's G and D steps at 32^3, batch 8, switch off and on
-    (the shipped set)."""
+    (the shipped set, or (1..6) when it is off)."""
     import torch
     from shapegan_tpu_torch import LATENT_CODE_SIZE
     from shapegan_tpu_torch.optim import RMSprop
@@ -994,7 +1053,7 @@ def stash_ab(kind: str) -> None:
             return fn
 
         steps = {(setting, which): hybrid(setting, which)
-                 for setting in (None, default) for which in ("G", "D")}
+                 for setting in (None, default or FULL_STASH) for which in ("G", "D")}
         for (setting, which), t in in_turns(steps).items():
             log(f"  hybrid GAN {which} step 32^3 x 8, stash switch {setting}: "
                 f"{statistics.median(t):.3f} ms (host clock, median of 5 in turns; range "
@@ -1228,7 +1287,6 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from shapegan_tpu_torch import checkpoints, demo_sdf_net
     from shapegan_tpu_torch.examples import fit_chair
-    from shapegan_tpu_torch.models import LATENT_CODES_FILENAME
     from shapegan_tpu_torch.models.sdf_net import SDFNet
     from shapegan_tpu_torch.ops import _build, sdf_mlp
     from shapegan_tpu_torch.ops import point_gen_kernels as PG
@@ -1258,22 +1316,22 @@ def main() -> int:
 
     params = checkpoints.load("sdf_net", base=os.path.join(REPO, "shapegan_tpu", "examples"),
                               device=device)
-    codes = checkpoints.load_array(LATENT_CODES_FILENAME,
-                                   base=os.path.join(REPO, "shapegan_tpu", "examples"))
-    path16 = demo_sdf_net.catmull_rom(codes, 2)[:16].astype("float32")  # 16 codes
-    latents16 = torch.tensor(path16, device=device)
+    codes, latents16 = path_latents(device)
     grid64 = voxel_coordinates(64, device=device)
     grid128 = voxel_coordinates(128, device=device)
     gen = torch.Generator(device="cpu").manual_seed(0)
     odd_pts = (torch.rand(3001, 3, generator=gen) * 2.2 - 1.1).to(device)
 
     log(f"== 3. kernels vs plain versions ({kind})")
-    grid_ops = K.grid_operands(params, grid64, latents16)
-    grid_err = compare("grid B=16 P=64^3",
-                       K.grid_forward_cuda(*grid_ops), K.grid_forward_plain(*grid_ops))
-    odd_ops = K.grid_operands(params, odd_pts, latents16[:3])
-    grid_err = max(grid_err, compare("grid B=3 P=3001",
-                                     K.grid_forward_cuda(*odd_ops), K.grid_forward_plain(*odd_ops)))
+    # B1, and B5a at each stash set, at four cases (grid_cases).
+    rand_params = sdf_mlp.init(torch.Generator().manual_seed(1), device=device)
+    b1_cases = grid_cases(params, rand_params, latents16, grid64, odd_pts, device)
+    grid_err = stash_err = 0.0
+    for name, ops in b1_cases.items():
+        errs = grid_check(name, ops)
+        grid_err, stash_err = max(grid_err, errs[0]), max(stash_err, errs[1])
+    grid_ops, odd_ops = b1_cases["B=16 P=64^3"], b1_cases["B=3 P=3001"]
+    del b1_cases
     folded = sdf_mlp.fold_latent(params, latents16[0])
     points_ops = K.points_operands(folded, grid128, latents16[0, :0])
     points_err = compare("points N=128^3 L=0",
@@ -1287,7 +1345,6 @@ def main() -> int:
     g16 = torch.randn((16, 64**3), generator=gen).to(device)
     bwd_err = compare_backward("grid_bwd B=16 P=64^3", K.grid_backward_cuda(*grid_ops, g16),
                                K.grid_backward_plain(*grid_ops, g16))
-    rand_params = sdf_mlp.init(torch.Generator().manual_seed(1), device=device)
     odd_bwd_ops = K.grid_operands(rand_params, odd_pts, torch.randn((3, 128), generator=gen).to(device))
     g3 = torch.randn((3, 3001), generator=gen).to(device)
     bwd_err = max(bwd_err, compare_backward("grid_bwd B=3 P=3001",
@@ -1301,7 +1358,8 @@ def main() -> int:
     # and (1..6); random cotangents.
     stash_cases = {"B=16 P=64^3": stash_case(rand_params, grid64, 16, 13, device),
                    "B=3 P=3001": stash_case(rand_params, odd_pts, 3, 14, device)}
-    stash_err, stash_bwd_err = stash_checks(stash_cases)
+    fwd_err, stash_bwd_err = stash_checks(stash_cases)
+    stash_err = max(stash_err, fwd_err)
     # B4 with a network that has a real surface: the chair, fitted here with
     # the float32 reference math (the bundled network has none).
     t0 = time.perf_counter()
@@ -1403,11 +1461,13 @@ def main() -> int:
         rows_stashed = len(set(stash) - {0})
         bwd_bound = bound(n_points * (18 - rows_stashed) * trunk_flop / 6, moved + 2 * weight_bytes
                           + plane_bytes)
-        if stash == _GRID_STASH:  # the kernels line's figures: the trainers' set
+        if stash == (_GRID_STASH or FULL_STASH):  # the kernels line's: the trainers' set, else (1..6)
             times["grid_stash"], times["grid_stash_bwd"] = fwd, bwd
             bounds["grid_stash"], bounds["grid_stash_bwd"] = fwd_bound, bwd_bound
-        log(f"  grid_stash {stash}: kernel {fwd[0]:.3f} ms (B1 {times['grid'][0]:.3f}) | plain "
-            f"{fwd[1]:.3f} ms | bound {fwd_bound[0]:.3f} ms ({fwd_bound[1]}); grid_stash_bwd: kernel "
+        log(f"  grid_stash {stash}: kernel {fwd[0]:.3f} ms (B1 {times['grid'][0]:.3f}; "
+            f"{n_points * trunk_flop / fwd[0] / 1e9:.1f} trunk TFLOP/s, {fwd_bound[0] / fwd[0]:.3f} of the "
+            f"bound's rate) | plain {fwd[1]:.3f} ms | bound {fwd_bound[0]:.3f} ms ({fwd_bound[1]}); "
+            f"grid_stash_bwd: kernel "
             f"{bwd[0]:.3f} ms (B2 {times['grid_bwd'][0]:.3f}; "
             f"{n_points * (18 - rows_stashed) * trunk_flop / 6 / bwd[0] / 1e9:.1f} TFLOP/s over its "
             f"{18 - rows_stashed} products) | plain {bwd[1]:.3f} ms | bound {bwd_bound[0]:.3f} ms "
@@ -1590,8 +1650,8 @@ def main() -> int:
     point_gan_step_times(device, f"{kind}; {smi}")
     from shapegan_tpu_torch.train.hybrid_gan import _GRID_STASH
 
-    log(f"== 11. hybrid GAN and hybrid WGAN paths, stash switch on {_GRID_STASH} and off; the "
-        f"stash A/B ({kind}; {smi})")
+    log(f"== 11. hybrid GAN and hybrid WGAN paths, stash switch at its shipped setting {_GRID_STASH} and "
+        f"the other way; the stash A/B ({kind}; {smi})")
     paths.update(hybrid_gan_path())
     hybrid_grads_vs_float32(device)
     stash_ab(f"{kind}; {smi}")

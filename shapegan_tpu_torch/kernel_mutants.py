@@ -41,82 +41,108 @@ from shapegan_tpu_torch.ops.coords import voxel_coordinates
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BF16 = torch.bfloat16
 
-# (what is wrong, source text, its replacement) in sdf_rowwise_bwd.cu ...
+# (what is wrong, source file in ops/csrc/, source text, its replacement):
+# in sdf_rowwise_bwd.cu ...
+ROWWISE_BWD = "sdf_rowwise_bwd.cu"
 ROWWISE_BWD_MUTANTS = (
-    ("the layer-1 projection rounded to bf16 before zz1 is added (B2's rounding)",
+    ("the layer-1 projection rounded to bf16 before zz1 is added (B2's rounding)", ROWWISE_BWD,
      "const float2 a = sdf::project_f32(in.pts[r], in.w1p, c);",
      "const float2 a = sdf::project(in.pts[r], in.w1p, c);"),
-    ("the layer-5 projection rounded to bf16 before it is added",
+    ("the layer-5 projection rounded to bf16 before it is added", ROWWISE_BWD,
      "const float2 p = sdf::project_f32(in.pts[row], in.w5p, col);",
      "const float2 p = sdf::project(in.pts[row], in.w5p, col);"),
-    ("the rebuilt layers at the forward's rounding (product rounded before the bias)",
+    ("the rebuilt layers at the forward's rounding (product rounded before the bias)", ROWWISE_BWD,
      "v0 = __fadd_rn(v0, __bfloat162float(s.bias[layer * WIDTH + col]));",
      "v0 = __fadd_rn(sdf::round_bf16(v0), __bfloat162float(s.bias[layer * WIDTH + col]));"),
 )
-# ... and in point_gen.cu.
+# ... in point_gen.cu ...
+POINT_GEN = "point_gen.cu"
 POINT_GEN_MUTANTS = (
-    ("the pre-LayerNorm sum rounded to bf16 (flax's rounding point)",
+    ("the pre-LayerNorm sum rounded to bf16 (flax's rounding point)", POINT_GEN,
      "const float2 v = make_float2(v0, v1);",
      "const float2 v = make_float2(sdf::round_bf16(v0), sdf::round_bf16(v1));"),
-    ("every row reading item 0's zz rows",
+    ("every row reading item 0's zz rows", POINT_GEN,
      "min((p0 + row) / n, static_cast<long long>(batch - 1))",
      "0LL"),
-    ("the variance taken without subtracting the mean",
+    ("the variance taken without subtracting the mean", POINT_GEN,
      "const float dev = __fsub_rn(acc[mi][ni][2 * h + e], mean[mi][h]);",
      "const float dev = acc[mi][ni][2 * h + e];"),
 )
 
-# ... in sdf_grid.cu (the stash forward's part) ...
-STASH_FWD_MUTANTS = (
-    ("each plane written one layer late",
-     "sdf::pick(stash.plane, layer + 1)", "sdf::pick(stash.plane, layer)"),
+# ... in the wgmma trunk (sdf_trunk_sm90.cuh: the products and the forward
+# epilogue of B1, B5a, B3 and B4, and the products of B2's rows pass) ...
+TRUNK = "sdf_trunk_sm90.cuh"
+DESCRIPTOR_MUTANT = ("each slice's K-blocks read in the wrong order (a K-slice descriptor offset wrong)", TRUNK,
+                     "desc + 2 * kk, kc | kk)", "desc + 2 * (kk ^ 1), kc | kk)")
+LATE_ROUND_MUTANT = ("the product rounded after the bias, not before (_bwd_kernel's rounding)", TRUNK,
+                     "float2 v = unpack_bf16(pack_bf16(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]));",
+                     "float2 v = make_float2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);")
+# ... checked at B3's cases ...
+TRUNK_SM90_MUTANTS = (DESCRIPTOR_MUTANT, LATE_ROUND_MUTANT)
+# ... in sdf_grid.cu (B1 and its stash instance B5a), checked at phase 3's
+# B1 cases (B1 and B5a at each) ...
+GRID = "sdf_grid.cu"
+GRID_MUTANTS = (
+    LATE_ROUND_MUTANT,
+    ("pp5 read one point tile off (the next tile of the same shape)", GRID,
+     "sdf90::load_tile(a, g.pp5, r.point, r);",
+     "const Rows o = sdf90::rows_of((r.point - r.r0) / ROWS * static_cast<long long>(g.shapes) + g.shapes"
+     " + r.shape, g.shapes, g.points, g.tiles); sdf90::load_tile(a, g.pp5, o.point, o);"),
+    DESCRIPTOR_MUTANT,
+    ("each stash plane written one layer late", GRID,
+     "return kept<kStash>(c, r, a, g.plane[L + 1]);", "return kept<kStash>(c, r, a, g.plane[L]);"),
 )
-# ... and in sdf_grid_bwd.cu (the stash backward's part): checked at every case ...
+# ... and at the B1 cases of more than one shape (with one shape the next
+# shape is the shape itself, and this kernel the sound one).
+GRID_SHAPES_MUTANTS = (
+    ("zz5 of the next shape", GRID,
+     "const bf16* z5 = g.zz5 + static_cast<size_t>(r.shape) * WIDTH;",
+     "const bf16* z5 = g.zz5 + static_cast<size_t>((r.shape + 1) % g.shapes) * WIDTH;"),
+)
+# ... in sdf_grid_bwd.cu (the stash backward's part): checked at every case ...
+GRID_BWD = "sdf_grid_bwd.cu"
 STASH_BWD_MUTANTS = (
-    ("the stashed positions rebuilt at B2's rounding points (nothing read from the stash)",
+    ("the stashed positions rebuilt at B2's rounding points (nothing read from the stash)", GRID_BWD,
      "plan.stashed = mask & 0x7eu;", "plan.stashed = 0u;"),
 )
 # ... and at the cases of more than one chunk (16 x 64^3: sixteen; the odd
 # case is one chunk, where this kernel is the sound one).
 STASH_BWD_CHUNK_MUTANTS = (
-    ("every chunk reading the stashed planes of the batch's first shapes",
+    ("every chunk reading the stashed planes of the batch's first shapes", GRID_BWD,
      "static_cast<bf*>(stash[j]) + static_cast<size_t>(s0) * pw", "static_cast<bf*>(stash[j])"),
 )
-
-# ... in sdf_trunk_sm90.cuh (the wgmma trunk of B3 and B4), checked at B3's
-# cases ...
-TRUNK_SM90_MUTANTS = (
-    ("each slice's K-blocks read in the wrong order (a descriptor offset wrong)",
-     "desc + 2 * kk, kc | kk)", "desc + 2 * (kk ^ 1), kc | kk)"),
-    ("no bf16 round of the product before the bias",
-     "float2 v = unpack_bf16(pack_bf16(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]));",
-     "float2 v = make_float2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);"),
-)
-# ... and in sdf_trace.cu (B4's lane update and refill), at its cases.
+# ... in sdf_trace.cu (B4's lane update and refill), at its cases.
+TRACE = "sdf_trace.cu"
 TRACE_MUTANTS = (
-    ("the trace advance as an FMA",
+    ("the trace advance as an FMA", TRACE,
      """  const float x = __fadd_rn(sl.pos[0], __fmul_rn(sl.dir[0], d));
   const float y = __fadd_rn(sl.pos[1], __fmul_rn(sl.dir[1], d));
   const float z = __fadd_rn(sl.pos[2], __fmul_rn(sl.dir[2], d));""",
      """  const float x = fmaf(sl.dir[0], d, sl.pos[0]);
   const float y = fmaf(sl.dir[1], d, sl.pos[1]);
   const float z = fmaf(sl.dir[2], d, sl.pos[2]);"""),
-    ("a refilled slot keeping the previous lane's step count",
+    ("a refilled slot keeping the previous lane's step count", TRACE,
      "    slot.steps = 0;\n", ""),
 )
 
 # ... and in sdf_grid_bwd_sm90.cuh (B2's rows pass), held by its planes.
+ROWS_PASS = "sdf_grid_bwd_sm90.cuh"
 ROWS_MUTANTS = (
-    ("the rebuilt layers at B3's rounding (the product rounded before the bias)",
+    ("the rebuilt layers at B3's rounding (the product rounded before the bias)", ROWS_PASS,
      "float v0 = d[4 * i + 2 * hh], v1 = d[4 * i + 2 * hh + 1];",
      "float v0 = sdf90::round_bf16(d[4 * i + 2 * hh]), v1 = sdf90::round_bf16(d[4 * i + 2 * hh + 1]);"),
-    ("the backward mask taken from the layer's output instead of its input",
+    ("the backward mask taken from the layer's output instead of its input", ROWS_PASS,
      "load_bits(s, L, bits);", "load_bits(s, L < LAYERS - 1 ? L + 1 : L, bits);"),
-    ("the backward's K-blocks at the wrong offset (the wt slices' K coordinate swapped in pairs)",
+    ("the backward's K-blocks at the wrong offset (the wt slices' K coordinate swapped in pairs)", ROWS_PASS,
      "+ back % CHUNKS_PER_LAYER;", "+ (back % CHUNKS_PER_LAYER ^ 1);"),
-    ("each slice's K-blocks read in the wrong order (the wgmma descriptor's offset)",
-     "desc + 2 * kk, kc | kk)", "desc + 2 * (kk ^ 1), kc | kk)"),
+    DESCRIPTOR_MUTANT,
 )
+
+# Every wrong kernel above (the CPU tests check that each one's source text
+# occurs exactly once in its file, so that none is a no-op).
+ALL_MUTANTS = tuple(dict.fromkeys(
+    ROWWISE_BWD_MUTANTS + POINT_GEN_MUTANTS + TRUNK_SM90_MUTANTS + GRID_MUTANTS + GRID_SHAPES_MUTANTS
+    + STASH_BWD_MUTANTS + STASH_BWD_CHUNK_MUTANTS + TRACE_MUTANTS + ROWS_MUTANTS))
 
 
 def rowwise_backward_float64(pts, w1p, w5p, zz1, zz5, w, b, w8, g):
@@ -240,15 +266,15 @@ def built_with(edits):
             _build.load.cache_clear()
 
 
-def _wrong_kernels(source_name, mutants, checks, every=True) -> bool:
-    """Build each mutant of ``ops/csrc/<source_name>`` in a temporary
-    directory and run ``checks`` (case → a check, made after the build)
-    against it; True if every mutant fails at every case (``every``) or at
-    one case at least."""
+def _wrong_kernels(mutants, checks, every=True) -> bool:
+    """Build each mutant (what, file, text, replacement) of ``ops/csrc/`` in
+    a temporary directory and run ``checks`` (case → a check, made after the
+    build) against it; True if every mutant fails at every case (``every``)
+    or at one case at least."""
     caught = True
-    for what, old, new in mutants:
-        with built_with([(source_name, old, new)]):
-            print(f"== wrong kernel ({source_name}): {what}")
+    for what, name, old, new in mutants:
+        with built_with([(name, old, new)]):
+            print(f"== wrong kernel ({name}): {what}", flush=True)
             held = [case for case, check in checks.items() if _holds(check())]
             if held:
                 print(f"  holds the bounds at {held}")
@@ -258,10 +284,15 @@ def _wrong_kernels(source_name, mutants, checks, every=True) -> bool:
     return caught
 
 
-def main() -> int:
+GROUPS = ("grid", "rows", "rowwise_bwd", "point_gen", "stash", "trunk", "trace")
+
+
+def main(argv=()) -> int:
+    """Runs the groups named in ``argv`` (of GROUPS), or all of them."""
     if not torch.cuda.is_available():
         print("kernel_mutants: CUDA is not available", file=sys.stderr)
         return 1
+    groups = [g for g in GROUPS if g in argv] or list(GROUPS)
     torch.backends.cuda.matmul.allow_tf32 = False
     cs = _chip_smoke()
     device = torch.device("cuda", 0)
@@ -270,78 +301,87 @@ def main() -> int:
     random = sdf_mlp.init(torch.Generator().manual_seed(1), device=device)
     grid64 = voxel_coordinates(64, device=device)
     odd = (torch.rand(3001, 3, generator=torch.Generator().manual_seed(0)) * 2.2 - 1.1).to(device)
-    rows_cases = {"B=16 P=64^3": cs.stash_case(bundled, grid64, 16, 15, device),
-                  "B=3 P=3001": cs.stash_case(random, odd, 3, 16, device)}
-    print(f"== B2's rows pass against its plain version ({torch.cuda.get_device_name(0)}; "
-          f"{cs.nvidia_smi_line()})")
-    sound = all([_holds(_rows_check(cs, case)) for case in rows_cases.values()])
-    caught = _wrong_kernels("sdf_grid_bwd_sm90.cuh", ROWS_MUTANTS,
-                            {name: (lambda case=case: _rows_check(cs, case))
-                             for name, case in rows_cases.items()})
-    cases = {n: cs.rowwise_case(p, n, seed, device)
-             for n, p, seed in ((20000, bundled, 6), (3001, random, 7))}
-    gen_cases = {(b, n): cs.point_gen_case(b, n, seed, device)
-                 for b, n, seed in ((32, 4096, 10), (3, 1000, 11))}
-    stash_cases = {"B=16 P=64^3": cs.stash_case(random, grid64, 16, 13, device),
-                   "B=3 P=3001": cs.stash_case(random, odd, 3, 14, device)}
-    stash_keys = [(name, stash) for name in stash_cases for stash in cs.STASH_SETS]
-    sound_stash = {}
-    for name, stash in stash_keys:
-        ops, g = stash_cases[name]
-        planes = K.grid_forward_stash_cuda(*ops, stash)[1]
-        sound_stash[(name, stash)] = planes, K.grid_backward_stash_plain(*ops, g, planes, stash)
-    # B3 at chip_smoke's two shapes (zero latents), B4 at its three trace cases (on the
-    # chair fitted here).
-    folded = sdf_mlp.fold_latent(bundled, torch.zeros(128, device=device))
-    points_cases = {"N=128^3 L=0": K.points_operands(folded, voxel_coordinates(128, device=device),
-                                                     torch.zeros(0, device=device)),
-                    "N=3001 L=128": K.points_operands(bundled, odd, torch.zeros(128, device=device))}
-    chair, chair_code = fit_chair(device)
-    chair_folded = sdf_mlp.fold_latent(chair, chair_code)
-    chair_weights = K.point_weights(chair_folded, chair_code[:0])
-    trace_cases = cs.trace_cases(chair_folded, device)
-    print(f"== sound kernels, and float64 sums, against the plain versions "
-          f"({torch.cuda.get_device_name(0)}; {cs.nvidia_smi_line()})")
-    for n in cases:
-        sound &= _holds(_rowwise_bwd_check(cs, cases, n))
-        _holds(_rowwise_bwd_check(cs, cases, n, kernel=rowwise_backward_float64))
-    for shape in gen_cases:
-        sound &= _holds(_point_gen_check(cs, gen_cases, shape))
-    for key in stash_keys:
-        sound &= _holds(_stash_fwd_check(cs, stash_cases, key))
-        sound &= _holds(_stash_bwd_check(cs, stash_cases, key, sound_stash))
-    for name in points_cases:
-        sound &= _holds(_points_check(cs, points_cases, name))
-    for case in trace_cases:
-        sound &= _holds(_trace_check(cs, case, chair_weights))
+    print(f"== groups {groups} ({torch.cuda.get_device_name(0)}; {cs.nvidia_smi_line()})", flush=True)
+    sound = caught = True
 
-    caught &= _wrong_kernels(
-        "sdf_rowwise_bwd.cu", ROWWISE_BWD_MUTANTS,
-        {n: (lambda n=n: _rowwise_bwd_check(cs, cases, n)) for n in cases})
-    caught &= _wrong_kernels(
-        "point_gen.cu", POINT_GEN_MUTANTS,
-        {shape: (lambda shape=shape: _point_gen_check(cs, gen_cases, shape)) for shape in gen_cases})
-    caught &= _wrong_kernels(
-        "sdf_grid.cu", STASH_FWD_MUTANTS,
-        {key: (lambda key=key: _stash_fwd_check(cs, stash_cases, key)) for key in stash_keys})
-    caught &= _wrong_kernels(
-        "sdf_grid_bwd.cu", STASH_BWD_MUTANTS,
-        {key: (lambda key=key: _stash_bwd_check(cs, stash_cases, key, sound_stash))
-         for key in stash_keys})
-    caught &= _wrong_kernels(
-        "sdf_grid_bwd.cu", STASH_BWD_CHUNK_MUTANTS,
-        {key: (lambda key=key: _stash_bwd_check(cs, stash_cases, key, sound_stash))
-         for key in stash_keys if key[0] == "B=16 P=64^3"})
-    caught &= _wrong_kernels(
-        "sdf_trunk_sm90.cuh", TRUNK_SM90_MUTANTS,
-        {name: (lambda name=name: _points_check(cs, points_cases, name)) for name in points_cases})
-    caught &= _wrong_kernels(
-        "sdf_trace.cu", TRACE_MUTANTS,
-        {case[0]: (lambda case=case: _trace_check(cs, case, chair_weights)) for case in trace_cases},
-        every=False)
+    if "grid" in groups:
+        # B1 and B5a at phase 3's four cases (the bundled codes as chip_smoke's).
+        latents16 = cs.path_latents(device)[1]
+        grid_cases = cs.grid_cases(bundled, random, latents16, grid64, odd, device)
+        checks = {name: (lambda name=name: lambda: cs.grid_check(name, grid_cases[name])) for name in grid_cases}
+        print("== B1 and B5a against their plain versions", flush=True)
+        sound &= all([_holds(check()) for check in checks.values()])
+        caught &= _wrong_kernels(GRID_MUTANTS, checks)
+        caught &= _wrong_kernels(GRID_SHAPES_MUTANTS,
+                                 {name: check for name, check in checks.items() if not name.startswith("B=1 ")})
+    if "rows" in groups:
+        rows_cases = {"B=16 P=64^3": cs.stash_case(bundled, grid64, 16, 15, device),
+                      "B=3 P=3001": cs.stash_case(random, odd, 3, 16, device)}
+        print("== B2's rows pass against its plain version", flush=True)
+        sound &= all([_holds(_rows_check(cs, case)) for case in rows_cases.values()])
+        caught &= _wrong_kernels(ROWS_MUTANTS, {name: (lambda case=case: _rows_check(cs, case))
+                                                for name, case in rows_cases.items()})
+    if "rowwise_bwd" in groups:
+        cases = {n: cs.rowwise_case(p, n, seed, device)
+                 for n, p, seed in ((20000, bundled, 6), (3001, random, 7))}
+        print("== B6b, and float64 sums, against the plain version", flush=True)
+        for n in cases:
+            sound &= _holds(_rowwise_bwd_check(cs, cases, n))
+            _holds(_rowwise_bwd_check(cs, cases, n, kernel=rowwise_backward_float64))
+        caught &= _wrong_kernels(ROWWISE_BWD_MUTANTS,
+                                 {n: (lambda n=n: _rowwise_bwd_check(cs, cases, n)) for n in cases})
+    if "point_gen" in groups:
+        gen_cases = {(b, n): cs.point_gen_case(b, n, seed, device)
+                     for b, n, seed in ((32, 4096, 10), (3, 1000, 11))}
+        print("== B7 against its plain version", flush=True)
+        for shape in gen_cases:
+            sound &= _holds(_point_gen_check(cs, gen_cases, shape))
+        caught &= _wrong_kernels(POINT_GEN_MUTANTS, {shape: (lambda shape=shape: _point_gen_check(cs, gen_cases, shape))
+                                                     for shape in gen_cases})
+    if "stash" in groups:
+        stash_cases = {"B=16 P=64^3": cs.stash_case(random, grid64, 16, 13, device),
+                       "B=3 P=3001": cs.stash_case(random, odd, 3, 14, device)}
+        stash_keys = [(name, stash) for name in stash_cases for stash in cs.STASH_SETS]
+        sound_stash = {}
+        for name, stash in stash_keys:
+            ops, g = stash_cases[name]
+            planes = K.grid_forward_stash_cuda(*ops, stash)[1]
+            sound_stash[(name, stash)] = planes, K.grid_backward_stash_plain(*ops, g, planes, stash)
+        print("== B5a and B5b against their plain versions", flush=True)
+        for key in stash_keys:
+            sound &= _holds(_stash_fwd_check(cs, stash_cases, key))
+            sound &= _holds(_stash_bwd_check(cs, stash_cases, key, sound_stash))
+        checks = {key: (lambda key=key: _stash_bwd_check(cs, stash_cases, key, sound_stash)) for key in stash_keys}
+        caught &= _wrong_kernels(STASH_BWD_MUTANTS, checks)
+        caught &= _wrong_kernels(STASH_BWD_CHUNK_MUTANTS,
+                                 {key: check for key, check in checks.items() if key[0] == "B=16 P=64^3"})
+    if "trunk" in groups:
+        # B3 at chip_smoke's two shapes (zero latents).
+        folded = sdf_mlp.fold_latent(bundled, torch.zeros(128, device=device))
+        points_cases = {"N=128^3 L=0": K.points_operands(folded, voxel_coordinates(128, device=device),
+                                                         torch.zeros(0, device=device)),
+                        "N=3001 L=128": K.points_operands(bundled, odd, torch.zeros(128, device=device))}
+        print("== B3 against its plain version", flush=True)
+        for name in points_cases:
+            sound &= _holds(_points_check(cs, points_cases, name))
+        caught &= _wrong_kernels(TRUNK_SM90_MUTANTS, {name: (lambda name=name: _points_check(cs, points_cases, name))
+                                                      for name in points_cases})
+    if "trace" in groups:
+        # B4 at chip_smoke's three trace cases, on the chair fitted here.
+        chair, chair_code = fit_chair(device)
+        chair_folded = sdf_mlp.fold_latent(chair, chair_code)
+        chair_weights = K.point_weights(chair_folded, chair_code[:0])
+        trace_cases = cs.trace_cases(chair_folded, device)
+        print("== B4 against its plain version", flush=True)
+        for case in trace_cases:
+            sound &= _holds(_trace_check(cs, case, chair_weights))
+        caught &= _wrong_kernels(
+            TRACE_MUTANTS,
+            {case[0]: (lambda case=case: _trace_check(cs, case, chair_weights)) for case in trace_cases},
+            every=False)
     print(f"sound kernels within the bounds: {sound}; every wrong kernel outside them: {caught}")
     return 0 if sound and caught else 1
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""The design choices of the wgmma trunk (``ops/csrc/sdf_trunk_sm90.cuh``)
+"""The design choices of the wgmma trunk (``ops/csrc/sdf_trunk_sm90.cuh``),
+of the grid forward B1 and its stash instance B5a (``ops/csrc/sdf_grid.cu``)
 and of the grid backward's Hopper rows pass (``ops/csrc/sdf_grid_bwd_sm90.cuh``),
 timed against the shipped kernels. On one GPU:
 
-    python -m shapegan_tpu_torch.kernel_variants [trunk | rows]
+    python -m shapegan_tpu_torch.kernel_variants [trunk | rows | grid]
 
 Each variant is the shipped source with one choice undone, built in a
 temporary directory (never in the checkout) as ``kernel_mutants`` builds
@@ -13,8 +14,9 @@ chair's 1600^2 primary rays x k=20, chip_smoke's main-path shapes. A
 variant that changes the results is timed on B3 only (B4's work would
 change with them) and says so. The rows-pass variants are timed by B2's
 rows pass at 16 x 64^3 (bundled weights, sixteen one-shape calls of
-``grid_backward_rows_cuda``), whatever they do to the results. With an
-argument only that group runs.
+``grid_backward_rows_cuda``), whatever they do to the results; the grid
+variants by B1 and B5a (stash set (1..6)) at 16 x 64^3 (bundled weights).
+With an argument only that group runs.
 """
 
 from __future__ import annotations
@@ -31,6 +33,14 @@ from shapegan_tpu_torch.ops import sdf_mlp_kernels as K
 from shapegan_tpu_torch.ops.coords import voxel_coordinates
 
 TRUNK = "sdf_trunk_sm90.cuh"
+_STALE_WEIGHTS = (TRUNK, """    bar_expect(&s.full[pos.stage], SLICE_BYTES);
+    load_slice(s.ring[pos.stage], map, chunk, &s.full[pos.stage]);""",
+                  """    if (issued < N) {
+      bar_expect(&s.full[pos.stage], SLICE_BYTES);
+      load_slice(s.ring[pos.stage], map, chunk, &s.full[pos.stage]);
+    } else {
+      bar_expect(&s.full[pos.stage], 0);
+    }""")
 _NO_TURNS = [(TRUNK, "  named_sync(TURN_BARRIER + wg, 128 * CONSUMERS);\n", ""),
              (TRUNK, "  named_arrive(TURN_BARRIER + (1 - wg), 128 * CONSUMERS);  // the other consumer's turn\n", "")]
 # (name, edits, whether the results stay the kernel's)
@@ -39,30 +49,41 @@ VARIANTS = (
      _NO_TURNS, True),
     ("a 4-stage ring", [(TRUNK, "constexpr int STAGES = 6;", "constexpr int STAGES = 4;")], True),
     ("no weight traffic after the ring's first fill (stale weights: the L2 traffic's cost)",
-     [(TRUNK, """    bar_expect(&s.full[pos.stage], SLICE_BYTES);
-    load_slice(s.ring[pos.stage], map, chunk, &s.full[pos.stage]);""",
-       """    if (issued < STAGES) {
-      bar_expect(&s.full[pos.stage], SLICE_BYTES);
-      load_slice(s.ring[pos.stage], map, chunk, &s.full[pos.stage]);
-    } else {
-      bar_expect(&s.full[pos.stage], 0);
-    }""")], False),
+     [_STALE_WEIGHTS], False),
+)
+
+GRID = "sdf_grid.cu"
+# (name, edits): B1's and B5a's design choices.
+GRID_VARIANTS = (
+    ("B1 on a 4-stage ring (B5a's)",
+     [(GRID, "constexpr int RING_STAGES = kStash ? SLOTS - CONSUMERS : SLOTS;",
+       "constexpr int RING_STAGES = SLOTS - CONSUMERS;")]),
+    ("pp5 prefetched into L2 at the tile's start (the skip epilogue's loads hit L2)",
+     [(GRID, "  sdf90::load_tile(a, g.pp1, r.point, r);\n",
+       "  sdf90::load_tile(a, g.pp1, r.point, r);\n"
+       "  for (int hh = 0; hh < 2; ++hh)\n"
+       "    if (r.ok(hh)) asm volatile(\"prefetch.global.L2 [%0];\" ::\"l\"(sdf90::at(g.pp5, r.point, hh) "
+       "+ 62 * (threadIdx.x & 3)));\n")]),
+    ("no ping-pong (the consumers issue their products when they like)", _NO_TURNS),
+    ("no weight traffic after the ring's first fill (stale weights: the L2 traffic's cost)",
+     [_STALE_WEIGHTS]),
 )
 
 ROWS = "sdf_grid_bwd_sm90.cuh"
+STAGED = "sdf_rows_sm90.cuh"  # the predicated and staged stores, shared with B5a
 # (name, edits): each a diagnosis of where the rows pass's time goes.
-_NO_DX1 = (ROWS, "void store_f32x2(float* p, float x, float y, bool ok) {",
+_NO_DX1 = (STAGED, "void store_f32x2(float* p, float x, float y, bool ok) {",
            "void store_f32x2(float* p, float x, float y, bool ok) { return;")
 ROWS_VARIANTS = (
     ("no stores of h, dz and dx1 (the staging kept)",
-     [(ROWS, "@p st.global.v4.b32 [%0], {%1, %2, %3, %4};", ""), _NO_DX1]),
+     [(STAGED, "@p st.global.v4.b32 [%0], {%1, %2, %3, %4};", ""), _NO_DX1]),
     ("no dx1 stores", [_NO_DX1]),
     ("dz2..dz6 not stored (5 of the 13 bf16 planes)",
      [(ROWS, "return L > 0 ? stage(c, r, a, g.dz + (L - 1) * g.plane) : Pending{nullptr, 0};",
        "return Pending{nullptr, 0};")]),
     ("streaming stores (st.global.cs: evict first)",
-     [(ROWS, "@p st.global.v4.b32 [%0]", "@p st.global.cs.v4.b32 [%0]"),
-      (ROWS, "@p st.global.v2.f32 [%0]", "@p st.global.cs.v2.f32 [%0]")]),
+     [(STAGED, "@p st.global.v4.b32 [%0]", "@p st.global.cs.v4.b32 [%0]"),
+      (STAGED, "@p st.global.v2.f32 [%0]", "@p st.global.cs.v2.f32 [%0]")]),
     ("no weight traffic after the ring's first fill (stale weights: the L2 traffic's cost)",
      [(ROWS, """    sdf90::bar_expect(&s.full[pos.stage], sdf90::SLICE_BYTES);
     sdf90::load_slice(s.ring[pos.stage], back < 0 ? wmap : wtmap, chunk, &s.full[pos.stage]);""",
@@ -108,6 +129,30 @@ def rows_variants(cs, device) -> None:
             print(f"  {turn}: B2 rows pass 16 x 64^3 {ms:.3f} ms", flush=True)
 
 
+def grid_variants(cs, device) -> None:
+    from shapegan_tpu_torch import checkpoints
+
+    params = checkpoints.load("sdf_net", base=os.path.join(cs.REPO, "shapegan_tpu", "examples"),
+                              device=device)
+    ops = K.grid_operands(params, voxel_coordinates(64, device=device), cs.path_latents(device)[1])
+    stash = cs.FULL_STASH
+
+    def grid_ms():
+        b1 = cs.time_ms(lambda: K.grid_forward_cuda(*ops), iters=10)
+        b5a = cs.time_ms(lambda: K.grid_forward_stash_cuda(*ops, stash), iters=5)
+        torch.cuda.empty_cache()
+        return b1, b5a
+
+    for name, edits in GRID_VARIANTS:
+        print(f"== grid: {name}", flush=True)
+        readings = [("shipped", *grid_ms())]
+        with built_with(edits):
+            readings += [("variant", *grid_ms()), ("variant", *grid_ms())]
+        readings.append(("shipped", *grid_ms()))
+        for turn, b1, b5a in readings:
+            print(f"  {turn}: B1 16 x 64^3 {b1:.3f} ms | B5a {stash} {b5a:.3f} ms", flush=True)
+
+
 def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print("kernel_variants: CUDA is not available", file=sys.stderr)
@@ -115,9 +160,11 @@ def main(argv=()) -> int:
     cs = _chip_smoke()
     device = torch.device("cuda", 0)
     print(f"== {torch.cuda.get_device_name(0)}; {cs.nvidia_smi_line()}", flush=True)
-    if "trunk" not in argv:
+    if "grid" in argv or not argv:
+        grid_variants(cs, device)
+    if "rows" in argv or not argv:
         rows_variants(cs, device)
-    if "rows" in argv:
+    if argv and "trunk" not in argv:
         return 0
     chair, code = fit_chair(device)
     folded = sdf_mlp.fold_latent(chair, code)

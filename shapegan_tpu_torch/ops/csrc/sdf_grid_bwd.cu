@@ -147,7 +147,7 @@ bwd_rows_kernel(const __nv_bfloat16* __restrict__ pp1, const __nv_bfloat16* __re
   const int fwd_chunks = plan.fwd_layers * CHUNKS_PER_LAYER;
   const int chunks = fwd_chunks + LAYERS * CHUNKS_PER_LAYER;
 
-  // Ring start and small operands (sdf::start_trunk loads from w only).
+  // Ring start (slices of w and wt, in the plan's order) and small operands.
 #pragma unroll
   for (int c = 0; c < STAGES - 1; ++c) {
     load_plan_chunk(s, w, wt, plan, c);

@@ -1,13 +1,14 @@
 // Shared trunk of the hand-written mma.sync SDF-MLP kernels for Hopper (sm_90a).
 //
-// The forward kernels (sdf_grid.cu: grid forward B1 and its stash instance
-// B5a, sdf_rowwise.cu: points with per-row latent terms B6a) run the same
-// six 256x256 trunk layers and the same head on a tile of
-// BLOCK_M rows that stays in shared memory from the first layer to the
-// output; only the [rows] float32 result goes back to device memory. The
-// point-GAN generator (point_gen.cu, B7) runs the same products through
-// run_layers with an epilogue of its own (LayerNorm). The single-shape
-// points forward (B3) and the sphere trace (B4) run the wgmma trunk of
+// The rowwise forward (sdf_rowwise.cu: points with per-row latent terms,
+// B6a) runs the six 256x256 trunk layers and the head on a tile of BLOCK_M
+// rows that stays in shared memory from the first layer to the output;
+// only the [rows] float32 result goes back to device memory. The point-GAN
+// generator (point_gen.cu, B7) runs the same products through run_layers
+// with an epilogue of its own (LayerNorm), and the rowwise and stash
+// backwards (sdf_rowwise_bwd.cu, sdf_grid_bwd.cu) its ring, fragments and
+// head. The grid forward and its stash instance (B1, B5a), the points
+// forward (B3) and the sphere trace (B4) run the wgmma trunk of
 // sdf_trunk_sm90.cuh instead.
 //
 // What bounds it on the H100: the six bf16 trunk products (6 x 2 x 256 x 256
@@ -28,7 +29,7 @@
 // overlaps the two with wgmma in a persistent, warp-specialized loop.
 //
 // Rounding points follow the Pallas kernels (shapegan_tpu/ops/
-// sdf_mlp_pallas.py, _kernel and _points_trunk), not the XLA path: each
+// sdf_mlp_pallas.py, _points_trunk), not the XLA path: each
 // layer's product is accumulated in float32 and rounded to bf16 BEFORE the
 // bf16 bias is added (sum rounded to bf16), then relu. Layer 5 adds the
 // skip term pp5 and then zz5, rounding to bf16 after each add. The head is
@@ -69,16 +70,6 @@ struct __align__(16) TrunkSmem {
   __nv_bfloat16 w8[WIDTH];
   __nv_bfloat16 zz5[WIDTH];
 };
-
-// a[i] for an index known only at run time, as a chain of selects: an
-// array indexed at run time would live in local memory instead of registers.
-template <class T, int N>
-__device__ __forceinline__ T pick(const T (&a)[N], int i) {
-  T v = a[0];
-#pragma unroll
-  for (int k = 1; k < N; ++k) v = i == k ? a[k] : v;
-  return v;
-}
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -145,30 +136,6 @@ __device__ __forceinline__ void start_weight_ring(TrunkSmem& s, const __nv_bfloa
     cp_async_commit();
   }
 }
-
-// Start the weight ring and copy the small per-block operands; call before
-// filling the activation tile so the first slices load meanwhile. The first
-// __syncthreads() of run_trunk publishes these shared-memory writes.
-__device__ __forceinline__ void start_trunk(TrunkSmem& s, const __nv_bfloat16* __restrict__ w,
-                                            const __nv_bfloat16* __restrict__ bias,
-                                            const __nv_bfloat16* __restrict__ w8,
-                                            const __nv_bfloat16* __restrict__ zz5) {
-  start_weight_ring(s, w);
-  for (int i = threadIdx.x; i < 8 * WIDTH; i += THREADS) s.bias[i] = bias[i];
-  for (int i = threadIdx.x; i < WIDTH; i += THREADS) {
-    s.w8[i] = w8[i];
-    s.zz5[i] = zz5[i];
-  }
-}
-
-// run_trunk's default layer-5 latent term: the one zz5 row in shared memory
-// (s.zz5), the same for every tile row.
-struct SharedZz5 {
-  const __nv_bfloat16* zz5;
-  __device__ __forceinline__ float2 operator()(int, int col) const {
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(zz5 + col));
-  }
-};
 
 // A thread's accumulator tile: acc[mi][ni][2 * h + e] is the float32
 // product at tile row frag_row(mi, h), column frag_col(ni) + e (mma.sync's
@@ -249,7 +216,7 @@ __device__ __forceinline__ void run_layers(TrunkSmem& s, const __nv_bfloat16* __
   __syncthreads();  // the last layer's activations are complete
 }
 
-// The DeepSDF trunk's epilogue (B1, B5a, B6a): the product rounded to bf16,
+// The DeepSDF trunk's epilogue (B6a): the product rounded to bf16,
 // plus the bf16 bias (layer 5: the skip term, then zz5), each sum rounded
 // to bf16, relu. `skip(row, col)` returns the bf16 pp5 pair of tile row
 // `row`, columns col and col + 1, as floats; `zz5(row, col)` the bf16 zz5
@@ -292,12 +259,6 @@ template <class Skip, class Zz5>
 __device__ __forceinline__ void run_trunk(TrunkSmem& s, const __nv_bfloat16* __restrict__ w,
                                           const Skip& skip, const Zz5& zz5) {
   run_layers(s, w, TrunkEpilogue<Skip, Zz5>{s, skip, zz5});
-}
-
-template <class Skip>
-__device__ __forceinline__ void run_trunk(TrunkSmem& s, const __nv_bfloat16* __restrict__ w,
-                                          const Skip& skip) {
-  run_trunk(s, w, skip, SharedZz5{s.zz5});
 }
 
 // tanh(h7 . w8 + b8) for tile row threadIdx.x / 2 (two threads per row,

@@ -1,7 +1,10 @@
-// The Hopper trunk of the single-shape SDF kernels: the points forward
-// (sdf_points.cu, B3) and the sphere trace (sdf_trace.cu, B4). The other
-// forward kernels (B1, B5a, B6a, B7) still run the mma.sync trunk of
-// sdf_trunk.cuh.
+// The Hopper trunk of the SDF kernels: the points forward (sdf_points.cu,
+// B3), the sphere trace (sdf_trace.cu, B4), the grid forward and its stash
+// instance (sdf_grid.cu, B1 and B5a) and B2's rows pass
+// (sdf_grid_bwd_sm90.cuh). The ring, the products and the epilogue below are
+// templates over the block's shared-memory layout and the ring's depth, so
+// each kernel sizes its own. The other forward kernels (B6a, B7) still run
+// the mma.sync trunk of sdf_trunk.cuh.
 //
 // What bounds it on the H100: per row, six bf16 256x256 products on the
 // tensor cores (6 x 2 x 256 x 256 flops); device-memory traffic is a few
@@ -33,7 +36,8 @@
 //   when neither has, the producer stops and waits for its last copies.
 // On the H100 at 700 W this runs B3 at ~0.70 and B4 at ~0.61 of their
 // bounds' rates; ping-pong and the 6-stage ring were chosen by
-// kernel_variants.py (PERF.md).
+// kernel_variants.py (PERF.md). A kernel that stages tiles on their way to
+// device memory (B5a, B2's rows pass) cuts its ring to 4 stages.
 //
 // Rounding points (the Pallas kernels', shapegan_tpu/ops/sdf_mlp_pallas.py
 // _points_trunk): the float32 xyz rounded to bf16; the K=3 projections as
@@ -278,6 +282,24 @@ __device__ __forceinline__ T& aligned_smem(unsigned char* raw) {
 
 // ----------------------------------------------------------- the block
 
+// One thread: the N-stage ring's barriers and the stop flag of s
+// initialized, and the tensor map prefetched.
+template <int N, class S>
+__device__ __forceinline__ void ring_init(S& s, const CUtensorMap* map) {
+  for (int i = 0; i < N; ++i) {
+    bar_init(&s.full[i], 1);
+    bar_init(&s.empty[i], CONSUMERS);
+  }
+  s.done = 0;
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// dst[i] = float(src[i]) for i < n, over the block's threads.
+__device__ __forceinline__ void to_float(float* dst, const __nv_bfloat16* __restrict__ src, int n) {
+  for (int i = threadIdx.x; i < n; i += THREADS) dst[i] = __bfloat162float(src[i]);
+}
+
 // Every thread: the small operands into shared memory as floats; thread 0
 // initializes the ring's barriers. Ends with the block's only __syncthreads.
 __device__ __forceinline__ void setup(Smem& s, const CUtensorMap* map, const __nv_bfloat16* __restrict__ bias,
@@ -286,54 +308,55 @@ __device__ __forceinline__ void setup(Smem& s, const CUtensorMap* map, const __n
                                       const __nv_bfloat16* __restrict__ w5p,
                                       const __nv_bfloat16* __restrict__ zz1,
                                       const __nv_bfloat16* __restrict__ zz5) {
-  for (int i = threadIdx.x; i < 8 * WIDTH; i += THREADS) s.bias[i / WIDTH][i % WIDTH] = __bfloat162float(bias[i]);
-  for (int i = threadIdx.x; i < 3 * WIDTH; i += THREADS) {
-    s.w1p[i / WIDTH][i % WIDTH] = __bfloat162float(w1p[i]);
-    s.w5p[i / WIDTH][i % WIDTH] = __bfloat162float(w5p[i]);
-  }
-  for (int i = threadIdx.x; i < WIDTH; i += THREADS) {
-    s.zz1[i] = __bfloat162float(zz1[i]);
-    s.zz5[i] = __bfloat162float(zz5[i]);
-    s.w8[i] = __bfloat162float(w8[i]);
-  }
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < STAGES; ++i) {
-      bar_init(&s.full[i], 1);
-      bar_init(&s.empty[i], CONSUMERS);
-    }
-    s.done = 0;
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
-  }
+  to_float(s.bias[0], bias, 8 * WIDTH);
+  to_float(s.w1p[0], w1p, 3 * WIDTH);
+  to_float(s.w5p[0], w5p, 3 * WIDTH);
+  to_float(s.zz1, zz1, WIDTH);
+  to_float(s.zz5, zz5, WIDTH);
+  to_float(s.w8, w8, WIDTH);
+  if (threadIdx.x == 0) ring_init<STAGES>(s, map);
   __syncthreads();
 }
 
-__device__ __forceinline__ bool stopped(const Smem& s) {
+template <class S>
+__device__ __forceinline__ bool stopped(const S& s) {
   return *reinterpret_cast<const volatile int*>(&s.done) != 0;
 }
 
-// A position in the ring: the stage, and the parity of that stage's fill
-// (the fill count's low bit), advanced one slice at a time (no division).
-struct RingPos {
+// A position in an N-stage ring: the stage, and the parity of that stage's
+// fill (the fill count's low bit), advanced one slice at a time (no
+// division).
+template <int N>
+struct Ring {
   int stage = 0;
   uint32_t phase = 0;
   __device__ __forceinline__ void next() {
-    if (++stage == STAGES) {
+    if (++stage == N) {
       stage = 0;
       phase ^= 1u;
     }
   }
 };
+using RingPos = Ring<STAGES>;
 
-// The producer's one thread: the slices in order, for as long as the
-// consumers run; then it waits until its last copies have landed (a block
-// must not exit with copies in flight).
-__device__ __forceinline__ void produce(Smem& s, const CUtensorMap* map) {
-  RingPos pos;
+// The producer's wait for its last copies, `issued` in all, to land (the
+// ring's position is the next stage it would fill).
+template <int N, class S>
+__device__ __forceinline__ void drain(S& s, const Ring<N>& pos, int issued) {
+  for (int i = 0; i < N && i < issued; ++i)
+    bar_wait(&s.full[i], i < pos.stage ? pos.phase : pos.phase ^ 1u);
+}
+
+// The producer's one thread: the slices in order through the N-stage ring
+// of s, for as long as the consumers run; then it waits until its last
+// copies have landed (a block must not exit with copies in flight).
+template <int N = STAGES, class S>
+__device__ __forceinline__ void produce(S& s, const CUtensorMap* map) {
+  Ring<N> pos;
   int chunk = 0, issued = 0;
   for (;;) {
     bool stop = stopped(s);
-    if (issued >= STAGES)  // both consumers have released this stage's last fill
+    if (issued >= N)  // both consumers have released this stage's last fill
       while (!stop && !bar_try_wait(&s.empty[pos.stage], pos.phase ^ 1u)) stop = stopped(s);
     if (stop) break;
     bar_expect(&s.full[pos.stage], SLICE_BYTES);
@@ -342,12 +365,12 @@ __device__ __forceinline__ void produce(Smem& s, const CUtensorMap* map) {
     ++issued;
     pos.next();
   }
-  for (int i = 0; i < STAGES && i < issued; ++i)
-    bar_wait(&s.full[i], i < pos.stage ? pos.phase : pos.phase ^ 1u);
+  drain(s, pos, issued);
 }
 
 // Consumer warpgroup frees a stage (one arrival a warpgroup).
-__device__ __forceinline__ void release(Smem& s, int stage) {
+template <class S>
+__device__ __forceinline__ void release(S& s, int stage) {
   // Predicated in the instruction, not branched: a divergent path among the
   // products would make ptxas serialize the wgmmas.
   asm volatile(
@@ -361,12 +384,14 @@ __device__ __forceinline__ void release(Smem& s, int stage) {
 }
 
 // One layer's products over the next four slices of the ring, in consumer
-// warpgroup wg's turn: d = a @ w_layer^T. The turn covers issuing the 16
+// warpgroup wg's turn: d = a @ slice^T. The turn covers issuing the 16
 // wgmmas (one commit group a slice); the other consumer may issue its own
-// as soon as these are queued, while this one waits for them slice by
+// as soon as these are queued, while this one runs `between` (e.g. copies
+// of a staged tile out to device memory), then waits for them slice by
 // slice, releasing each stage, and then runs its epilogue.
-__device__ __forceinline__ void layer_products(Smem& s, int wg, RingPos& pos, const uint32_t (&a)[16][4],
-                                               float (&d)[128]) {
+template <class S, int N, class Between>
+__device__ __forceinline__ void layer_products(S& s, int wg, Ring<N>& pos, const uint32_t (&a)[16][4],
+                                               float (&d)[128], Between between) {
   int stage[CHUNKS_PER_LAYER];
   named_sync(TURN_BARRIER + wg, 128 * CONSUMERS);
   fence_operand(d);
@@ -382,6 +407,7 @@ __device__ __forceinline__ void layer_products(Smem& s, int wg, RingPos& pos, co
     pos.next();
   }
   named_arrive(TURN_BARRIER + (1 - wg), 128 * CONSUMERS);  // the other consumer's turn
+  between();
   wgmma_wait<3>();
   release(s, stage[0]);
   wgmma_wait<2>();
@@ -391,6 +417,12 @@ __device__ __forceinline__ void layer_products(Smem& s, int wg, RingPos& pos, co
   wgmma_wait<0>();
   fence_operand(d);
   release(s, stage[3]);
+}
+
+template <class S, int N>
+__device__ __forceinline__ void layer_products(S& s, int wg, Ring<N>& pos, const uint32_t (&a)[16][4],
+                                               float (&d)[128]) {
+  layer_products(s, wg, pos, a, d, [] {});
 }
 
 // The epilogues round in pairs: one cvt.rn.bf16x2 rounds two float32 values
@@ -430,44 +462,63 @@ __device__ __forceinline__ float2 project(const float3 p, const float (*wp)[WIDT
 enum EpilogueKind { kBias, kSkip, kHead };
 
 // A layer's epilogue over the accumulator d: each product rounded to bf16,
-// plus the bf16 row `add` (kSkip: first pp5 from the row's point, rounding
-// between), rounded, relu. kBias and kSkip pack the result into a, the next
-// layer's A operand; kHead returns tanh(h7 . w8 + b8) of both rows (the
-// order of the sum: see the top of this file).
-template <int KIND>
-__device__ __forceinline__ float2 epilogue(const Smem& s, const float (&d)[128], uint32_t (&a)[16][4],
-                                           const float* add, const float3 p0, const float3 p1) {
+// (kSkip) plus the row's pp5 pair, rounded, plus the bf16 pair add(c),
+// rounded, relu. kBias and kSkip pack the result into a, the next layer's A
+// operand (and kHead too when kPackHead: h7 for a stash plane); kHead
+// returns tanh(h7 . w8 + b8) of both rows (the order of the sum: see the top
+// of this file). add(c): the bias (or zz5) pair at columns c, c + 1;
+// skip(j, h, c): the pp5 pair of row r0 + 8 h at those columns, read before
+// a[j / 2][2 (j % 2) + h] is written.
+template <int KIND, bool kPackHead = false, class Add, class Skip>
+__device__ __forceinline__ float2 trunk_epilogue(const float (&d)[128], uint32_t (&a)[16][4], Add add,
+                                                 Skip skip, const float* w8, const float* b8) {
   const int q = threadIdx.x & 3;
   float head[2] = {0.f, 0.f};
 #pragma unroll
   for (int j = 0; j < 32; ++j) {
     const int c = 8 * j + 2 * q;
-    const float2 b = pair(add, c);
+    const float2 b = add(c);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float2 v = unpack_bf16(pack_bf16(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]));
       if (KIND == kSkip) {
-        const float2 pp = project(h ? p1 : p0, s.w5p, c);
+        const float2 pp = skip(j, h, c);
         v = unpack_bf16(pack_bf16(v.x + pp.x, v.y + pp.y));
       }
       const uint32_t x = relu_bf16(pack_bf16(v.x + b.x, v.y + b.y));
       if (KIND == kHead) {
-        const float2 f = unpack_bf16(x), w = pair(s.w8, c);
+        const float2 f = unpack_bf16(x), w = pair(w8, c);
         head[h] = fmaf(f.x, w.x, head[h]);
         head[h] = fmaf(f.y, w.y, head[h]);
-      } else {
-        a[j / 2][2 * (j % 2) + h] = x;
       }
+      if (KIND != kHead || kPackHead) a[j / 2][2 * (j % 2) + h] = x;
     }
   }
-  if (KIND != kHead) return make_float2(0.f, 0.f);
+  if constexpr (KIND == kHead) {
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    head[h] += __shfl_xor_sync(0xffffffffu, head[h], 1);
-    head[h] += __shfl_xor_sync(0xffffffffu, head[h], 2);
-    head[h] = tanhf(head[h] + s.bias[HEAD_BIAS_ROW][0]);
+    for (int h = 0; h < 2; ++h) {
+      head[h] += __shfl_xor_sync(0xffffffffu, head[h], 1);
+      head[h] += __shfl_xor_sync(0xffffffffu, head[h], 2);
+      head[h] = tanhf(head[h] + *b8);
+    }
   }
   return make_float2(head[0], head[1]);
+}
+
+// The bias pair of a float row in shared memory, as trunk_epilogue's add.
+struct RowPair {
+  const float* row;
+  __device__ __forceinline__ float2 operator()(int c) const { return pair(row, c); }
+};
+
+// B3's and B4's epilogue: the row `add` in shared memory, pp5 projected from
+// the rows' points p0 and p1 in the kernel.
+template <int KIND>
+__device__ __forceinline__ float2 epilogue(const Smem& s, const float (&d)[128], uint32_t (&a)[16][4],
+                                           const float* add, const float3 p0, const float3 p1) {
+  return trunk_epilogue<KIND>(
+      d, a, RowPair{add}, [&](int, int h, int c) { return project(h ? p1 : p0, s.w5p, c); }, s.w8,
+      &s.bias[HEAD_BIAS_ROW][0]);
 }
 
 // The SDF of the two rows a consumer thread holds: row r0 = 16 warp + lane / 4
@@ -518,7 +569,8 @@ __device__ __forceinline__ void consumer_start(int wg) {
 // A consumer warpgroup's exit after the vote to stop: the first warpgroup
 // takes the second's last turn signal, so no barrier is left half-arrived,
 // and stops the producer.
-__device__ __forceinline__ void consumer_finish(Smem& s, int wg) {
+template <class S>
+__device__ __forceinline__ void consumer_finish(S& s, int wg) {
   if (wg == 0) {
     named_sync(TURN_BARRIER + 0, 128 * CONSUMERS);
     if (threadIdx.x == 0) *reinterpret_cast<volatile int*>(&s.done) = 1;

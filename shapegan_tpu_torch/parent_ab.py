@@ -15,13 +15,16 @@ JSON line:
   median of 5) and its passes (``torch.profiler``, device time of one call by
   kernel name: the rows pass, the weight pass, the column sums with their
   fixed-order finish, the shape sums), and the grid forward B1;
-* the stash backward B5b (stash set (1..6), random weights) at 16 x 64^3;
+* the stash forward B5a and the stash backward B5b (stash set (1..6),
+  random weights) at 16 x 64^3, B5b on the plain version's planes (so its
+  inputs do not depend on the tree's B5a);
 * the points kernel B3 at 128^3 and the trace kernel B4 at 1600^2 x k=20 on
   the chair fitted on the card;
 * ``render_image`` 800^2 x ssaa 2 with the fused trace on (host clock after
   a synchronize, median of the last 3 of 4);
-* a SHA-256 of B3's, B4's (chip_smoke's three trace cases) and B5b's
-  outputs on fixed inputs: equal digests mean bit-identical results.
+* a SHA-256 of B3's, B4's (chip_smoke's three trace cases), B2's rows
+  pass's (one 64^3 shape, its scratch planes) and B5b's outputs on fixed
+  inputs: equal digests mean bit-identical results.
 """
 
 from __future__ import annotations
@@ -94,13 +97,16 @@ def measure() -> dict:
     out["b1_ms"] = cs.time_ms(lambda: K.grid_forward_cuda(*ops), iters=10)
     out["b2_ms"] = cs.time_ms(lambda: K.grid_backward_cuda(*ops, g16), iters=5)
     out["b2_passes_ms"] = _b2_passes(lambda: K.grid_backward_cuda(*ops, g16))
+    out["b2_rows_digest"] = _digest(*K.grid_backward_rows_cuda(*cs.shapes_of(ops, g16, 3)))
     del ops
     torch.cuda.empty_cache()
 
     stash = (1, 2, 3, 4, 5, 6)
     sops, g = cs.stash_case(sdf_mlp.init(torch.Generator().manual_seed(1), device=device),
                             voxel_coordinates(64, device=device), 16, 13, device)
-    planes = K.grid_forward_stash_cuda(*sops, stash)[1]
+    out["b5a_ms"] = cs.time_ms(lambda: K.grid_forward_stash_cuda(*sops, stash), iters=10)
+    torch.cuda.empty_cache()
+    planes = K.grid_forward_stash_plain(*sops, stash)[1]
     out["b5b_digest"] = _digest(*K.grid_backward_stash_cuda(*sops, g, planes, stash))
     out["b5b_ms"] = cs.time_ms(lambda: K.grid_backward_stash_cuda(*sops, g, planes, stash), iters=5)
     del sops, planes
@@ -161,11 +167,11 @@ def main(argv) -> int:
         result["turn"] = turn
         results.append(result)
         print(f"{turn}: {json.dumps(result)} ({time.perf_counter() - t0:.1f} s with its build)", flush=True)
-    for key in ("b2_ms", "b1_ms", "b5b_ms", "b3_ms", "b4_ms", "frame_ms"):
+    for key in ("b2_ms", "b1_ms", "b5a_ms", "b5b_ms", "b3_ms", "b4_ms", "frame_ms"):
         print(f"  {key}: " + " / ".join(f"{r[key]:.3f}" for r in results))
     for name in results[0]["b2_passes_ms"]:
         print(f"  b2 {name}: " + " / ".join(f"{r['b2_passes_ms'][name]:.3f}" for r in results))
-    for key in ("b3_digest", "b4_digest", "b5b_digest"):
+    for key in ("b3_digest", "b4_digest", "b2_rows_digest", "b5b_digest"):
         same = len({r[key] for r in results}) == 1
         print(f"  {key}: {'equal in every turn' if same else 'DIFFERS: ' + str([r[key] for r in results])}")
     return 0

@@ -21,9 +21,9 @@ the moments and resumes at the epoch count the CSV records; without
 ``epochs`` the run goes on until interrupted.
 
 On the GPU the generator's volumes go through the hand-written kernels:
-the grid kernel forward for the D step's fakes, and for the G step either
-the grid kernel and the grid backward kernel (the recompute VJP) or the
-stash forward and stash backward kernels (:data:`_GRID_STASH`). With
+the grid kernel forward for the D step's fakes, and for the G step the
+grid kernel and the grid backward kernel (the recompute VJP, the default)
+or the stash forward and stash backward kernels (:data:`_GRID_STASH`). With
 ``cpu`` their plain versions run on the CPU. The latents are drawn on the
 device from a ``torch.Generator`` seeded per epoch (not the JAX trainer's
 noise); the steps take them as arguments, so a test can hand both packages
@@ -81,15 +81,18 @@ OPT_NAME = "hybrid_gan_optimizer"
 # (h-chain positions, 0-indexed into h1..h7, e.g. (2, 4, 6)) takes
 # apply_grid_trainable_stash, whose backward reads those activations from
 # the forward's planes (2.15 GB each at 16 x 64^3) instead of rebuilding
-# them. Default: all six positions a product makes (h2..h7), the fastest
-# setting of chip_smoke.py's A/B on an NVIDIA H100 80GB HBM3 at 700 W: the
-# progressive trainer's G step at 64^3, batch 16, took 109.943 ms (range
-# 109.123-110.722 over 5 in turns) against 126.589 (125.899-127.078) with the
-# recompute, 117.210 with (2, 4, 6) and 114.518 with (1, 2, 4, 6); its peak
-# device memory 15.5 GB against 3.4 GB (PERF.md, section 6). This is the one
-# place that sets the trainers' stash set. The JAX package keeps the
-# recompute on its TPU.
-_GRID_STASH = (1, 2, 3, 4, 5, 6)
+# them. Default: the recompute, the fastest setting of chip_smoke.py's A/B
+# on an NVIDIA H100 80GB HBM3 at 700 W: the progressive trainer's G step at
+# 64^3, batch 16, took 80.315 ms (range 79.847-80.550 over 5 in turns)
+# against 98.409 (97.740-99.222) with (1..6), 103.207 with (1, 2, 4, 6) and
+# 105.468 with (2, 4, 6), at a peak device memory of 3.431 GB against
+# 15.510 GB with (1..6); the hybrid GAN's G step at 32^3, batch 8, 6.690 ms
+# against 7.784 (PERF.md, section 6). The stash saves the backward's six
+# rebuilt products (3.3 TFLOP at 16 x 64^3) at the price of reading its
+# 12.9 GB of planes back, which the recompute never does. This is the one
+# place that sets the trainers' stash set; the JAX package keeps the
+# recompute on its TPU too.
+_GRID_STASH = None
 
 Grads = Dict[str, torch.Tensor]
 

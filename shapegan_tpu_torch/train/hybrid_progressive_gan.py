@@ -17,9 +17,9 @@ epochs (default 1; the last epoch always) and a snapshot every 10; the CSV
 On the GPU the generator's volumes go through the hand-written kernels: the
 grid kernel forward for the critic's fakes, and for the generator's loss
 and gradients the VJP that :data:`shapegan_tpu_torch.train.hybrid_gan._GRID_STASH`
-picks (by default the stash forward and stash backward kernels; with it
-None, the grid kernel and the grid backward kernel). With ``cpu`` their plain versions
-run on the CPU; without it the trainer needs CUDA. The noise (latents and
+picks (by default None: the grid kernel and the grid backward kernel; with
+a stash set, the stash forward and stash backward kernels). With ``cpu``
+their plain versions run on the CPU; without it the trainer needs CUDA. The noise (latents and
 the penalty's interpolation coefficients) is drawn on the device from a
 ``torch.Generator`` seeded per epoch, so it is not the JAX trainer's noise;
 the steps take it as arguments, so a test can hand both the same. The GL

@@ -87,6 +87,29 @@ def test_grid_kernel_matches_plain(cuda, n_points, n_latents):
     _close(out, K.grid_forward_plain(*ops))
 
 
+@pytest.mark.parametrize("n_points, n_latents", [(37, 1), (64 * 7 + 1, 5), (5000, 1), (32**3, 16)])
+def test_grid_kernel_persistent_sizes(cuda, n_points, n_latents):
+    """B1's persistent grid on the wgmma trunk at a part of one tile, a tail
+    tile with B=5 (tile pairs that do not divide over the SMs), B=1 (one
+    shape: the tile order's modulus 1) and more tiles than the grid has
+    warpgroups; two launches bit for bit. B5a (all seven positions) at the
+    same shapes: its output B1's bit for bit, its planes the plain
+    version's."""
+    params, pts, lats = _setup(cuda, n_points, n_latents, seed=13)
+    ops = K.grid_operands(params, pts, lats)
+    out = K.grid_forward_cuda(*ops)
+    assert torch.equal(out, K.grid_forward_cuda(*ops))
+    _close(out, K.grid_forward_plain(*ops))
+    stash = tuple(range(K.HIDDEN))
+    got, planes = K.grid_forward_stash_cuda(*ops, stash)
+    _, want_planes = K.grid_forward_stash_plain(*ops, stash)
+    torch.cuda.synchronize()
+    assert torch.equal(got, out)
+    for j, a, b in zip(stash, planes, want_planes):
+        share = float((a != b).float().mean())
+        assert share <= STASH_PLANE_SHARE, (j, share)
+
+
 @pytest.mark.parametrize("n_points, folded", [(3001, False), (3001, True), (127, True), (20**3, True)])
 def test_points_kernel_matches_plain(cuda, n_points, folded):
     params, pts, lats = _setup(cuda, n_points, 1, seed=1)
@@ -559,11 +582,10 @@ def test_stash_kernels_match_b1_and_plain(cuda, n_points, n_latents, stash):
 
 
 def test_apply_grid_trainable_stash_launches_stash_kernels(cuda):
-    """Gradients through B5a and B5b on the card, with the trainers' stash
-    set, against the same autograd function on CPU copies (the plain
-    versions); neither B1 nor B2 runs."""
-    from shapegan_tpu_torch.train import hybrid_gan as HG
-
+    """Gradients through B5a and B5b on the card, with the full stash set
+    (1..6) whatever the trainers' ``hybrid_gan._GRID_STASH`` is, against the
+    same autograd function on CPU copies (the plain versions); neither B1
+    nor B2 runs."""
     params, _, lats = _setup(cuda, 1, 3, seed=9)
     pts = voxel_coordinates(16, device=cuda)
     cot = torch.tensor(np.random.default_rng(9).normal(size=(3, 16**3)).astype(np.float32))
@@ -575,7 +597,7 @@ def test_apply_grid_trainable_stash_launches_stash_kernels(cuda):
         grid = pts.detach().to(device).requires_grad_(True)
         latents = lats.detach().to(device).requires_grad_(True)
         counts = [c.launch_count for c in counters]
-        K.apply_grid_trainable_stash(leaves, grid, latents, HG._GRID_STASH).backward(cot.to(device))
+        K.apply_grid_trainable_stash(leaves, grid, latents, STASH_SETS[-1]).backward(cot.to(device))
         launched = [c.launch_count - n for c, n in zip(counters, counts)]
         assert launched == ([0, 0, 1, 1] if device.type == "cuda" else [0, 0, 0, 0])
         grads.append([leaves[k].grad for k in sdf_mlp.PARAM_KEYS] + [grid.grad, latents.grad])
