@@ -20,7 +20,13 @@ Phases, each fatal on failure (nothing is caught):
      the grid backward's rows pass alone (B2's Hopper rows kernel,
      ``sdf_grid_backward_rows``: its h and dz planes, dx1 and gz against
      ``grid_backward_rows_plain``) at 16 x 64^3 with the bundled weights (one
-     shape a call) and at B=3, P=3001 with random weights; the stash forward
+     shape a call) and at B=3, P=3001 with random weights; the grid
+     backward's passes 2-4 alone (``grid_backward_passes_cuda``: the wgmma
+     weight kernel and the fan-in of ``sdf_bwd_passes_sm90.cuh``) against
+     ``grid_backward_passes_plain`` on the rows pass's planes, at 16 x 64^3
+     (16 one-shape chunks) and at B=3, P=3001 (one chunk of three shapes,
+     and the last two as a chunk from s0 = 1); two calls of B2 giving the
+     same bytes; the stash forward
      kernel (B5a: its output equal to B1's, its planes to the plain
      version's) and the stash backward kernel (B5b) at 16 x 64^3 and B=3,
      P=3001 with random weights, stash sets (2,4,6) and (1..6); B1 and B5a
@@ -28,7 +34,8 @@ Phases, each fatal on failure (nothing is caught):
      (grid_cases: 16 x 64^3 and B=3, P=3001 with the bundled weights, B=1
      and B=5, P=6401 with random weights);
   4. median times of kernel and plain version at the main path's shapes
-     (B2's rows pass also alone, beside its own bound and B2's total),
+     (B2's rows pass and its passes 2-4 also alone, each beside its own
+     bound and B2's total),
      and of 20 per-iteration points-kernel trace steps beside the trace
      kernel's 20; the rowwise kernels at 20,000 and 65,536 rows; the
      generator kernel at 32 x 4096 and 6 x 32768 beside the bf16 module (the
@@ -224,6 +231,16 @@ ROWS_PLANE_SHARE = 1e-2
 ROWS_PLANE_MAX = 1.0
 ROWS_DX1_MAX = 0.5
 ROWS_GZ_MAX = 1e-4
+# B2's passes 2-4 alone (sdf_grid_backward_passes) against
+# grid_backward_passes_plain (float64 sums) on the same planes: relative
+# errors per output, ||d||_2 / ||ref||_2 and max|d| / max|ref|. Only the
+# order of float32 sums differs, so these sit far below BWD_L2 / BWD_MAX:
+# measured on the H100 <= 5.6e-5 (d_w over one 64^3 shape: 23,872-row
+# slabs summed in the wgmma accumulators; 1.1e-6 over 818-row slabs at
+# P=3001), <= 2.5e-6 elsewhere; wrong kernels (kernel_mutants.py) read
+# >= 1e-2.
+PASSES_L2 = 1e-3
+PASSES_MAX = 1e-3
 STASH_SETS = ((2, 4, 6), (1, 2, 3, 4, 5, 6))
 FULL_STASH = STASH_SETS[-1]
 # The stash sets of the G-step A/B (the JAX package's bench_profile.py
@@ -339,10 +356,11 @@ def point_gen_case(batch: int, n: int, seed: int, device):
     return PG.generate_operands(params, pos, z), generator, params, pos, z
 
 
-def compare_backward(name: str, got, want, names=BWD_NAMES, per_row=("d_pp1", "d_pp5")) -> float:
-    """A backward kernel (B2, B6b) against its plain version by the relative
-    bounds above (the per-row outputs exempt from the max bound); returns
-    the largest absolute error over the outputs."""
+def compare_backward(name: str, got, want, names=BWD_NAMES, per_row=("d_pp1", "d_pp5"), l2_bound=BWD_L2,
+                     max_bound=BWD_MAX) -> float:
+    """A backward kernel (B2, B6b, B2's passes 2-4) against its plain version
+    by relative bounds (the per-row outputs exempt from the max bound);
+    returns the largest absolute error over the outputs."""
     import torch
 
     torch.cuda.synchronize()
@@ -357,9 +375,9 @@ def compare_backward(name: str, got, want, names=BWD_NAMES, per_row=("d_pp1", "d
         mx = float(d.max() / b.double().abs().max())
         worst_abs = max(worst_abs, float(d.max()))
         readings.append(f"{out} {l2:.2e}/{mx:.2e}")
-        if l2 > BWD_L2 or (out not in per_row and mx > BWD_MAX):
-            raise AssertionError(f"{name} {out}: L2 {l2:.3e} (<= {BWD_L2}), "
-                                 f"max {mx:.3e} (<= {BWD_MAX}): kernel disagrees with plain")
+        if l2 > l2_bound or (out not in per_row and mx > max_bound):
+            raise AssertionError(f"{name} {out}: L2 {l2:.3e} (<= {l2_bound}), "
+                                 f"max {mx:.3e} (<= {max_bound}): kernel disagrees with plain")
     log(f"  {name}: L2/max relative {', '.join(readings)}; max_abs={worst_abs:.3e}")
     return worst_abs
 
@@ -447,6 +465,48 @@ def rows_checks(ops, g) -> None:
         readings.append(rows_readings(K.grid_backward_rows_cuda(*part), K.grid_backward_rows_plain(*part)))
         torch.cuda.empty_cache()
     check_rows(f"grid_bwd rows B={batch} P={points}", readings)
+
+
+def passes_checks(ops, g) -> float:
+    """Phase 3: B2's passes 2-4 alone on the rows pass's planes at one case,
+    in B2's chunks (one shape a chunk when the batch exceeds one chunk; else
+    the whole batch, and its last shapes as a chunk from s0 = 1); returns
+    the largest absolute error."""
+    import torch
+    from shapegan_tpu_torch.ops import sdf_mlp_kernels as K
+
+    batch, points = g.shape
+    step = 1 if batch * points > K.ROW_CAP else batch
+    chunks = [(s, step) for s in range(0, batch, step)] + ([(1, batch - 1)] if step > 1 else [])
+    worst_abs = 0.0
+    for s0, n in chunks:
+        planes = K.grid_backward_rows_cuda(*shapes_of(ops, g, s0, n))
+        worst_abs = max(worst_abs, compare_backward(
+            f"grid_bwd passes B={batch} P={points} chunk s0={s0} x {n}",
+            K.grid_backward_passes_cuda(*planes, n, points, s0), K.grid_backward_passes_plain(*planes, n, points, s0),
+            per_row=(), l2_bound=PASSES_L2, max_bound=PASSES_MAX))
+        del planes
+        torch.cuda.empty_cache()
+    return worst_abs
+
+
+def passes_device_ms(fn) -> float:
+    """Device time (ms, torch.profiler) of the grid backward's passes 2-4 in
+    one call of fn: the kernels of sdf_bwd_passes_sm90.cuh and the finishes
+    (not the rows pass, nor the zeroing of the outputs)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and ("sdf90_passes" in e.key or "bwd_finish_kernel" in e.key))
+    if total <= 0:
+        raise AssertionError("the profiler saw no passes kernel in a grid backward call")
+    return total / 1e3
 
 
 def path_latents(device) -> tuple:
@@ -1350,9 +1410,17 @@ def main() -> int:
     bwd_err = max(bwd_err, compare_backward("grid_bwd B=3 P=3001",
                                             K.grid_backward_cuda(*odd_bwd_ops, g3),
                                             K.grid_backward_plain(*odd_bwd_ops, g3)))
-    # B2's rows pass alone, its planes against the plain version's.
+    # B2's rows pass alone, its planes against the plain version's; its
+    # passes 2-4 alone on those planes; B2 twice, the same bytes.
     rows_checks(grid_ops, g16)
     rows_checks(odd_bwd_ops, g3)
+    passes_err = max(passes_checks(grid_ops, g16), passes_checks(odd_bwd_ops, g3))
+    first, second = K.grid_backward_cuda(*grid_ops, g16), K.grid_backward_cuda(*grid_ops, g16)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError("grid_bwd B=16 P=64^3: two calls differ")
+    log("  grid_bwd B=16 P=64^3: two calls give the same bytes")
+    del first, second
     # B5a and B5b with random weights and latents at the G step's shape and
     # at the odd shape (three chunks of B2's size, and one), the sets (2,4,6)
     # and (1..6); random cotangents.
@@ -1440,6 +1508,25 @@ def main() -> int:
     log(f"  grid_bwd rows pass: {rows_ms:.3f} ms ({rows_rate:.1f} TFLOP/s over its 12 products) | bound "
         f"{rows_bound[0]:.3f} ms ({rows_bound[1]}): {rows_bound[0] / rows_ms:.3f} of the bound's rate | "
         f"B2 {kernel_ms:.3f} ms, its other passes {kernel_ms - rows_ms:.3f} ms")
+    # B2's passes 2-4: the device time of their kernels in one B2 call
+    # (torch.profiler), and alone, sixteen one-shape chunks (as in B2) on one
+    # shape's planes, s0 = 0 ... 15 (CUDA events; each call also zeroes its
+    # outputs, 0.54 GB of d_pp, which B2 does once a call). They read h1..h7
+    # and dz1..dz6 (bf16), dx1 and gz once, write d_pp1 / d_pp5 and the small
+    # outputs once, and do the 6 weight products a row.
+    passes_ms = passes_device_ms(lambda: K.grid_backward_cuda(*grid_ops, g16))
+    planes = K.grid_backward_rows_cuda(*shapes_of(grid_ops, g16, 0))
+    alone_ms = time_ms(lambda: [K.grid_backward_passes_cuda(*planes, 1, 64**3, s) for s in range(16)],
+                       iters=5)
+    del planes
+    torch.cuda.empty_cache()
+    passes_bound = bound(n_points * trunk_flop, n_points * (13 * 512 + 1024 + 4) + 2 * 64**3 * 1024
+                         + 6 * 256 * 256 * 4 + 16 * 2048 + 9 * 256 * 4)
+    log(f"  grid_bwd passes 2-4: {passes_ms:.3f} ms of device time in a B2 call "
+        f"({n_points * trunk_flop / passes_ms / 1e9:.1f} TFLOP/s over the 6 weight products; alone, with "
+        f"their zeroing, {alone_ms:.3f} ms) | bound {passes_bound[0]:.3f} ms ({passes_bound[1]}): "
+        f"{passes_bound[0] / passes_ms:.3f} of the bound's rate | B2 {kernel_ms:.3f} ms, its rows pass "
+        f"{rows_ms:.3f} ms")
     # B5a and B5b at the G step's shape, beside B1 and B2 (above): B5a does
     # B1's products and writes B*P*512 bytes a stashed position; B5b does
     # 18 - s products a row (s stashed among h2..h7) and reads the planes.
@@ -1675,7 +1762,11 @@ def main() -> int:
         kernel_entry("sdf_points", "points", "sdf_points.cu", "sdf_mlp_pallas.py:199", points_err),
         kernel_entry("sdf_grid_bwd", "grid_bwd", "sdf_grid_bwd.cu", "sdf_mlp_pallas.py:469", bwd_err,
                      rows_source="shapegan_tpu_torch/ops/csrc/sdf_grid_bwd_sm90.cuh", rows_ms=rows_ms,
-                     rows_bound_ms=rows_bound[0], rows_bound_by=rows_bound[1]),
+                     rows_bound_ms=rows_bound[0], rows_bound_by=rows_bound[1],
+                     passes_source="shapegan_tpu_torch/ops/csrc/sdf_bwd_passes_sm90.cuh",
+                     passes_ms=passes_ms, passes_alone_ms=alone_ms, passes_bound_ms=passes_bound[0],
+                     passes_bound_by=passes_bound[1],
+                     passes_max_abs_err=passes_err),
         kernel_entry("sdf_trace", "trace", "sdf_trace.cu", "sdf_mlp_pallas.py:331", trace_err),
         kernel_entry("sdf_rowwise", "rowwise", "sdf_rowwise.cu", "sdf_mlp_pallas.py:1132",
                      rowwise_err),

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Do ``chip_smoke.py``'s bounds for the rowwise backward kernel (B6b), the
 point-GAN generator kernel (B7), the stash kernels (B5a, B5b), the points
-kernel (B3), the trace kernel (B4) and the grid backward's rows pass (B2)
-tell a wrong kernel from a sound one? On one GPU:
+kernel (B3), the trace kernel (B4), the grid backward's rows pass (B2) and
+its passes 2-4 tell a wrong kernel from a sound one? On one GPU:
 
     python -m shapegan_tpu_torch.kernel_mutants
 
@@ -13,7 +13,8 @@ rounding flips), then builds each wrong copy of ``ops/csrc/sdf_rowwise_bwd.cu``,
 ``ops/csrc/sdf_grid_bwd.cu`` (B5b), ``ops/csrc/sdf_trunk_sm90.cuh`` (the
 trunk of B3 and B4, held at B3's cases) and ``ops/csrc/sdf_trace.cu`` (B4)
 and ``ops/csrc/sdf_grid_bwd_sm90.cuh`` (B2's rows pass, held by its planes
-at chip_smoke's two cases) in a temporary directory (never in the
+at chip_smoke's two cases) and ``ops/csrc/sdf_bwd_passes_sm90.cuh`` (B2's
+passes 2-4, held by chip_smoke's passes check) in a temporary directory (never in the
 checkout) and reports whether it fails the bounds at every case (B4's mutants: at any of chip_smoke's three
 trace cases, since phase 3 runs them all and a wrong lane update shows only
 where lanes resolve in its way). A wrong kernel that passes is printed as
@@ -138,11 +139,36 @@ ROWS_MUTANTS = (
     DESCRIPTOR_MUTANT,
 )
 
+# ... and in sdf_bwd_passes_sm90.cuh (B2's passes 2-4, shared with B5b),
+# held by chip_smoke's passes check at its two cases (16 one-shape chunks of
+# 64^3; B=3, P=3001 as one chunk and from s0 = 1) ...
+PASSES = "sdf_bwd_passes_sm90.cuh"
+PASSES_MUTANTS = (
+    ("d_b taken from the next layer's dz (the column sums kept in the next layer's slot)", PASSES,
+     "(static_cast<size_t>(it.layer * SLABS + it.slab) * CONSUMERS + wg)",
+     "(static_cast<size_t>((it.layer + 1) % LAYERS * SLABS + it.slab) * CONSUMERS + wg)"),
+    ("d_pp5 summed over one shape fewer", PASSES,
+     "      add4(pp5[i], d5);\n", "      if (s + 1 < a.shapes) add4(pp5[i], d5);\n"),
+    ("an h tile one row tile off its dz tile", PASSES,
+     "HALF * it.half + BOX_COLS * c, row, bar);", "HALF * it.half + BOX_COLS * c, row + KT, bar);"),
+    ("the MN-major descriptors' LBO and SBO swapped", PASSES,
+     "(static_cast<uint64_t>(BOX_BYTES >> 4) << 16) | (static_cast<uint64_t>(1024 >> 4) << 32)",
+     "(static_cast<uint64_t>(1024 >> 4) << 16) | (static_cast<uint64_t>(BOX_BYTES >> 4) << 32)"),
+)
+# ... and at the case whose chunks end in a part tile (P = 3001; 64^3 chunks
+# are whole tiles, where this kernel is the sound one).
+PASSES_TAIL_MUTANTS = (
+    ("tail rows not zero-filled (the tensor maps' rows rounded up to whole tiles)", PASSES,
+     "const cuuint64_t dims[2] = {WIDTH, static_cast<cuuint64_t>(rows)};",
+     "const cuuint64_t dims[2] = {WIDTH, static_cast<cuuint64_t>((rows + KT - 1) / KT * KT)};"),
+)
+
 # Every wrong kernel above (the CPU tests check that each one's source text
 # occurs exactly once in its file, so that none is a no-op).
 ALL_MUTANTS = tuple(dict.fromkeys(
     ROWWISE_BWD_MUTANTS + POINT_GEN_MUTANTS + TRUNK_SM90_MUTANTS + GRID_MUTANTS + GRID_SHAPES_MUTANTS
-    + STASH_BWD_MUTANTS + STASH_BWD_CHUNK_MUTANTS + TRACE_MUTANTS + ROWS_MUTANTS))
+    + STASH_BWD_MUTANTS + STASH_BWD_CHUNK_MUTANTS + TRACE_MUTANTS + ROWS_MUTANTS + PASSES_MUTANTS
+    + PASSES_TAIL_MUTANTS))
 
 
 def rowwise_backward_float64(pts, w1p, w5p, zz1, zz5, w, b, w8, g):
@@ -284,7 +310,7 @@ def _wrong_kernels(mutants, checks, every=True) -> bool:
     return caught
 
 
-GROUPS = ("grid", "rows", "rowwise_bwd", "point_gen", "stash", "trunk", "trace")
+GROUPS = ("grid", "rows", "passes", "rowwise_bwd", "point_gen", "stash", "trunk", "trace")
 
 
 def main(argv=()) -> int:
@@ -321,6 +347,14 @@ def main(argv=()) -> int:
         sound &= all([_holds(_rows_check(cs, case)) for case in rows_cases.values()])
         caught &= _wrong_kernels(ROWS_MUTANTS, {name: (lambda case=case: _rows_check(cs, case))
                                                 for name, case in rows_cases.items()})
+    if "passes" in groups:
+        passes_cases = {"B=16 P=64^3": cs.stash_case(bundled, grid64, 16, 15, device),
+                        "B=3 P=3001": cs.stash_case(random, odd, 3, 16, device)}
+        checks = {name: (lambda case=case: (lambda: cs.passes_checks(*case))) for name, case in passes_cases.items()}
+        print("== B2's passes 2-4 against their plain version", flush=True)
+        sound &= all([_holds(check()) for check in checks.values()])
+        caught &= _wrong_kernels(PASSES_MUTANTS, checks)
+        caught &= _wrong_kernels(PASSES_TAIL_MUTANTS, {"B=3 P=3001": checks["B=3 P=3001"]})
     if "rowwise_bwd" in groups:
         cases = {n: cs.rowwise_case(p, n, seed, device)
                  for n, p, seed in ((20000, bundled, 6), (3001, random, 7))}

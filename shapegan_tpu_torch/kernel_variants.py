@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """The design choices of the wgmma trunk (``ops/csrc/sdf_trunk_sm90.cuh``),
 of the grid forward B1 and its stash instance B5a (``ops/csrc/sdf_grid.cu``)
-and of the grid backward's Hopper rows pass (``ops/csrc/sdf_grid_bwd_sm90.cuh``),
-timed against the shipped kernels. On one GPU:
+of the grid backward's Hopper rows pass (``ops/csrc/sdf_grid_bwd_sm90.cuh``)
+and of its passes 2-4 (``ops/csrc/sdf_bwd_passes_sm90.cuh``), timed against
+the shipped kernels. On one GPU:
 
-    python -m shapegan_tpu_torch.kernel_variants [trunk | rows | grid]
+    python -m shapegan_tpu_torch.kernel_variants [trunk | rows | grid | passes]
 
 Each variant is the shipped source with one choice undone, built in a
 temporary directory (never in the checkout) as ``kernel_mutants`` builds
@@ -15,7 +16,10 @@ variant that changes the results is timed on B3 only (B4's work would
 change with them) and says so. The rows-pass variants are timed by B2's
 rows pass at 16 x 64^3 (bundled weights, sixteen one-shape calls of
 ``grid_backward_rows_cuda``), whatever they do to the results; the grid
-variants by B1 and B5a (stash set (1..6)) at 16 x 64^3 (bundled weights).
+variants by B1 and B5a (stash set (1..6)) at 16 x 64^3 (bundled weights);
+the passes variants by B2 at 16 x 64^3 and the passes alone over sixteen
+one-shape chunks (one shape's planes), beside ``torch.bmm`` of the weight
+products as a yardstick.
 With an argument only that group runs.
 """
 
@@ -129,6 +133,67 @@ def rows_variants(cs, device) -> None:
             print(f"  {turn}: B2 rows pass 16 x 64^3 {ms:.3f} ms", flush=True)
 
 
+PASSES = "sdf_bwd_passes_sm90.cuh"
+# (name, edits): the design choices of B2's passes 2-4, and two diagnoses.
+PASSES_VARIANTS = (
+    ("dz's two reads apart (the two halves of a (layer, slab) not neighbouring items)",
+     [(PASSES, """  it.half = i % 2;
+  it.slab = (i / 2) % SLABS;
+  it.layer = i / (2 * SLABS);""", """  it.half = i / (LAYERS * SLABS);
+  it.slab = i % SLABS;
+  it.layer = (i / SLABS) % LAYERS;""")]),
+    ("a ring of 8 stages of 32 rows (the shipped: 4 of 64)",
+     [(PASSES, "constexpr int KT = 64; ", "constexpr int KT = 32; "),
+      (PASSES, "constexpr int STAGES = 4; ", "constexpr int STAGES = 8; ")]),
+    ("no column sums in the weight kernel (their cost; d_b wrong)",
+     [(PASSES, "      column_sums(s.b[pos.stage][0], wg * (KT / 2), cs);\n", "")]),
+    ("the fan-in without reading d_pp back (the read-modify-write's cost; d_pp wrong)",
+     [(PASSES, "pp1[i] = ok ? *reinterpret_cast<const float4*>(a.pp1 + o) : zero;", "pp1[i] = zero;"),
+      (PASSES, "pp5[i] = ok ? *reinterpret_cast<const float4*>(a.pp5 + o) : zero;", "pp5[i] = zero;")]),
+)
+
+
+def passes_variants(cs, device) -> None:
+    from shapegan_tpu_torch import checkpoints
+
+    params = checkpoints.load("sdf_net", base=os.path.join(cs.REPO, "shapegan_tpu", "examples"),
+                              device=device)
+    gen = torch.Generator().manual_seed(0)
+    ops = K.grid_operands(params, voxel_coordinates(64, device=device),
+                          (torch.randn((16, 128), generator=gen) * 0.1).to(device))
+    g = torch.randn((16, 64**3), generator=gen).to(device)
+    planes = K.grid_backward_rows_cuda(*cs.shapes_of(ops, g, 0))
+    # The yardstick, off the main path: the weight products of the same
+    # sixteen chunks as one PyTorch call each, torch.bmm of h_l^T and dz_l
+    # in float32 (TF32 off), the operands converted beforehand.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    h_t = planes[0][:6].float().transpose(1, 2)
+    dz = planes[1].float()
+    bmm_ms = cs.time_ms(lambda: [torch.bmm(h_t, dz) for _ in range(16)], iters=5)
+    h_bf, dz_bf = planes[0][:6].transpose(1, 2), planes[1]
+    bmm_bf16_ms = cs.time_ms(lambda: [torch.bmm(h_bf, dz_bf) for _ in range(16)], iters=5)
+    del h_t, dz, h_bf, dz_bf
+    torch.cuda.empty_cache()
+    print(f"== torch.bmm of h_l^T and dz_l, 16 one-shape chunks at 64^3: float32 {bmm_ms:.3f} ms; "
+          f"bf16 in and out {bmm_bf16_ms:.3f} ms", flush=True)
+
+    def passes_ms():
+        b2 = cs.time_ms(lambda: K.grid_backward_cuda(*ops, g), iters=5)
+        alone = cs.time_ms(lambda: [K.grid_backward_passes_cuda(*planes, 1, 64**3, s) for s in range(16)], iters=5)
+        torch.cuda.empty_cache()
+        return b2, alone
+
+    for name, edits in PASSES_VARIANTS:
+        print(f"== passes: {name}", flush=True)
+        readings = [("shipped", *passes_ms())]
+        with built_with(edits):
+            readings += [("variant", *passes_ms()), ("variant", *passes_ms())]
+        readings.append(("shipped", *passes_ms()))
+        for turn, b2, alone in readings:
+            print(f"  {turn}: B2 16 x 64^3 {b2:.3f} ms | passes 2-4 alone, 16 one-shape chunks {alone:.3f} ms",
+                  flush=True)
+
+
 def grid_variants(cs, device) -> None:
     from shapegan_tpu_torch import checkpoints
 
@@ -164,6 +229,8 @@ def main(argv=()) -> int:
         grid_variants(cs, device)
     if "rows" in argv or not argv:
         rows_variants(cs, device)
+    if "passes" in argv or not argv:
+        passes_variants(cs, device)
     if argv and "trunk" not in argv:
         return 0
     chair, code = fit_chair(device)

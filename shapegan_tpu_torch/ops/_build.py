@@ -28,7 +28,7 @@ SOURCES = (
     "sdf_rowwise_bwd.cu", "point_gen.cu",
 )
 HEADERS = ("sdf_trunk.cuh", "sdf_trunk_sm90.cuh", "sdf_rows_sm90.cuh", "sdf_bwd_passes.cuh",
-           "sdf_grid_bwd_sm90.cuh")
+           "sdf_grid_bwd_sm90.cuh", "sdf_bwd_passes_sm90.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -134,6 +134,10 @@ def load() -> ctypes.CDLL:
     lib.sdf_grid_backward_offsets.restype = None
     lib.sdf_grid_backward_rows.argtypes = [ptr] * 10 + [i32, i32, i32, ptr]
     lib.sdf_grid_backward_rows.restype = i32
+    lib.sdf_grid_backward_passes.argtypes = [ptr] * 13 + [i32, i32, i32, i32, ptr]
+    lib.sdf_grid_backward_passes.restype = i32
+    lib.sdf_grid_backward_passes_scratch_bytes.argtypes = [i32, i32]
+    lib.sdf_grid_backward_passes_scratch_bytes.restype = ctypes.c_longlong
     lib.sdf_trace_steps.argtypes = [ptr] * 14 + [i32, i32, i32] + [ctypes.c_float] * 5 + [i32, ptr]
     lib.sdf_trace_steps.restype = i32
     lib.sdf_rowwise_forward.argtypes = [ptr] * 9 + [i32, i32, ptr]

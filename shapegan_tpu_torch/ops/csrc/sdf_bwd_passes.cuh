@@ -2,15 +2,17 @@
 // recompute backward B2 and the stash backward B5b) and sdf_rowwise_bwd.cu
 // (B6b, points with per-row latents). Both sources split the backward into
 // passes over device-memory scratch:
-//   1. a rows pass per 128-row tile (each source has its own): the forward
-//      rebuilt on the sdf_trunk.cuh main loop, then the six products
-//      dh = dz @ W^T on the same weight ring, fed the [in, out] stack; it
-//      writes h1..h7 and every bf16 dz to scratch (here: RowsSmem,
-//      load_bwd_chunk, bwd_mma_chunk);
-//   2. the weight pass: d_w[l] = h_l^T dz_l per SLAB-row slab into float32
-//      partials (bwd_weight_kernel);
-//   3. column sums per slab into partials (bwd_colsum_kernel);
-//   4. a fixed-order sum of the partials (bwd_finish_kernel).
+//   1. a rows pass per 128-row tile (each source has its own; B2's is the
+//      Hopper kernel of sdf_grid_bwd_sm90.cuh): the forward rebuilt on the
+//      sdf_trunk.cuh main loop, then the six products dh = dz @ W^T on the
+//      same weight ring, fed the [in, out] stack; it writes h1..h7 and every
+//      bf16 dz to scratch (here: RowsSmem, load_bwd_chunk, bwd_mma_chunk);
+//   2-4. the grid backward's passes after it are the Hopper kernels of
+//      sdf_bwd_passes_sm90.cuh. B6b's are still these: the weight pass
+//      d_w[l] = h_l^T dz_l per SLAB-row slab into float32 partials
+//      (bwd_weight_kernel); column sums per slab into partials
+//      (bwd_colsum_kernel); a fixed-order sum of the partials
+//      (bwd_finish_kernel, which the grid backward's finish shares).
 // No atomics: every sum runs in one order, so a result is the same from run
 // to run. Everything here sits in an unnamed namespace: each backward
 // source has its own copy.
@@ -256,89 +258,6 @@ __global__ void bwd_finish_kernel(const float* __restrict__ part, int groups, in
   }
 }
 
-// dst[i] += sum over shapes, in order, of src[s * n + i].
-template <class T>
-__global__ void bwd_shape_sum_kernel(const T* __restrict__ src, int shapes, long long n,
-                                     float* __restrict__ dst) {
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < n;
-       i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    float sum = dst[i];
-    for (int s = 0; s < shapes; ++s) sum += load_f(src + s * n + i);
-    dst[i] = sum;
-  }
-}
-
 int grid_for(long long n) { return static_cast<int>(std::min(ceil_div(n, THREADS), 132LL * 16)); }
-
-// The float32 outputs of a grid backward (B2, B5b), in the JAX package's
-// layout; they accumulate over chunks.
-struct GridGrads {
-  float *pp1, *pp5, *zz1, *zz5, *w, *b, *w8, *b8;
-};
-
-// Passes 2-4 of one chunk of a grid backward (B2, B5b), after its rows pass:
-// the chunk holds `shapes` whole shapes from shape s0 on, `points` rows each.
-// The partials' scratch (w_part, col_part) is sized by the caller.
-inline cudaError_t grid_bwd_passes(const HPlanes& h, const __nv_bfloat16* dz, const float* dx1,
-                                   const float* gz, float* w_part, float* col_part, int shapes,
-                                   int points, int s0, const GridGrads& out, cudaStream_t stream) {
-  using bf = __nv_bfloat16;
-  const long long rows = static_cast<long long>(shapes) * points;
-  const int slabs = static_cast<int>(ceil_div(rows, SLAB));
-  const int seg_slabs = static_cast<int>(ceil_div(points, SLAB));
-  const size_t plane = static_cast<size_t>(rows) * WIDTH;
-  const size_t pw = static_cast<size_t>(points) * WIDTH;
-  cudaError_t err;
-
-  bwd_weight_kernel<<<dim3(4, slabs, LAYERS), THREADS, 0, stream>>>(h, dz, w_part, rows, slabs);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  bwd_finish_kernel<<<grid_for(LAYERS * WIDTH * WIDTH), THREADS, 0, stream>>>(
-      w_part, LAYERS, slabs, WIDTH * WIDTH, out.w);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-  // d_b rows 0-2 and 4-5 (row 3, the skip layer, stays 0: b5's gradient is sum d_zz5).
-  bwd_colsum_kernel<bf><<<dim3(slabs, LAYERS), THREADS, 0, stream>>>(dz, nullptr, rows, WIDTH,
-                                                                    slabs, col_part);
-  bwd_finish_kernel<<<grid_for(3 * WIDTH), THREADS, 0, stream>>>(col_part, 3, slabs, WIDTH, out.b);
-  bwd_finish_kernel<<<grid_for(2 * WIDTH), THREADS, 0, stream>>>(
-      col_part + static_cast<size_t>(4) * slabs * WIDTH, 2, slabs, WIDTH, out.b + 4 * WIDTH);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  // d_w8 = sum h7 gz, d_b8 = sum gz.
-  bwd_colsum_kernel<bf><<<dim3(slabs, 1), THREADS, 0, stream>>>(h.p[LAYERS], gz, rows, WIDTH, slabs,
-                                                               col_part);
-  bwd_finish_kernel<<<grid_for(WIDTH), THREADS, 0, stream>>>(col_part, 1, slabs, WIDTH, out.w8);
-  bwd_colsum_kernel<float><<<dim3(slabs, 1), THREADS, 0, stream>>>(gz, nullptr, rows, 1, slabs,
-                                                                  col_part);
-  bwd_finish_kernel<<<1, THREADS, 0, stream>>>(col_part, 1, slabs, 1, out.b8);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  // d_zz5 / d_zz1: per-shape sums over points; d_pp5 / d_pp1: sums over shapes.
-  bwd_colsum_kernel<bf><<<dim3(seg_slabs, shapes), THREADS, 0, stream>>>(
-      dz + SKIP_LAYER * plane, nullptr, points, WIDTH, seg_slabs, col_part);
-  bwd_finish_kernel<<<grid_for(shapes * WIDTH), THREADS, 0, stream>>>(
-      col_part, shapes, seg_slabs, WIDTH, out.zz5 + static_cast<size_t>(s0) * WIDTH);
-  bwd_colsum_kernel<float><<<dim3(seg_slabs, shapes), THREADS, 0, stream>>>(
-      dx1, nullptr, points, WIDTH, seg_slabs, col_part);
-  bwd_finish_kernel<<<grid_for(shapes * WIDTH), THREADS, 0, stream>>>(
-      col_part, shapes, seg_slabs, WIDTH, out.zz1 + static_cast<size_t>(s0) * WIDTH);
-  bwd_shape_sum_kernel<bf><<<grid_for(pw), THREADS, 0, stream>>>(dz + SKIP_LAYER * plane, shapes, pw,
-                                                                 out.pp5);
-  bwd_shape_sum_kernel<float><<<grid_for(pw), THREADS, 0, stream>>>(dx1, shapes, pw, out.pp1);
-  return cudaGetLastError();
-}
-
-// Zero a grid backward's outputs before its chunks accumulate into them.
-inline cudaError_t zero_grid_grads(const GridGrads& out, int batch, int points, cudaStream_t stream) {
-  const size_t pw = static_cast<size_t>(points) * WIDTH;
-  const std::pair<float*, size_t> outputs[] = {
-      {out.pp1, pw * 4}, {out.pp5, pw * 4}, {out.zz1, static_cast<size_t>(batch) * WIDTH * 4},
-      {out.zz5, static_cast<size_t>(batch) * WIDTH * 4},
-      {out.w, static_cast<size_t>(LAYERS) * WIDTH * WIDTH * 4}, {out.b, 8 * WIDTH * 4},
-      {out.w8, WIDTH * 4}, {out.b8, 4}};
-  for (const auto& o : outputs) {
-    const cudaError_t err = cudaMemsetAsync(o.first, 0, o.second, stream);
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
-}
 
 }  // namespace

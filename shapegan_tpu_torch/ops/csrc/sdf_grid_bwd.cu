@@ -44,18 +44,16 @@
 //      position is never written to scratch: the masks of the backward
 //      sweep, the weight pass and the d_w8 column sum read it from the stash
 //      plane at the chunk's offset (HPlanes: one pointer a plane).
-//   2. weight pass: d_w[l] = h_l^T dz_l as K = rows products, per 4096-row
-//      slab into float32 partials (ldmatrix.trans feeds the row-major
-//      scratch to mma.sync as column operands).
-//   3. column sums (d_b, d_w8, d_b8, d_zz1, d_zz5) per slab into partials,
-//      and sums over shapes for d_pp1 / d_pp5.
-//   4. a fixed-order sum of the partials into the outputs.
+//   2-4. the Hopper passes of sdf_bwd_passes_sm90.cuh (grid_bwd_passes),
+//      for B2 and B5b alike: a persistent wgmma weight kernel, d_w[l] =
+//      h_l^T dz_l over TMA tiles of the planes, with d_b's column sums taken
+//      from the dz tiles in shared memory; one fan-in kernel that reads dz5,
+//      dx1, h7 and gz once for d_pp1 / d_pp5 (summed over shapes), d_zz1 /
+//      d_zz5, d_w8 and d_b8; fixed-order finishes of their partials.
 // No atomics: every sum runs in one order, so the result is the same from
-// run to run. Passes 2-4 and the rows pass's main loop are shared with the
-// rowwise backward (sdf_bwd_passes.cuh). The scratch traffic (~7.7 KB
-// written per row for B2) costs device memory bandwidth the TPU kernel did
-// not spend; keeping dz tiles on chip for the weight products is the next
-// step for speed.
+// run to run. B5b's rows kernel's main loop is shared with the rowwise
+// backward (sdf_bwd_passes.cuh). The scratch traffic (~7.7 KB written per
+// row for B2) costs device memory bandwidth the TPU kernel did not spend.
 //
 // Rounding points follow `_bwd_kernel` and `_stash_bwd_kernel`, not B1: h1
 // is rebuilt as a float32 sum rounded once to bf16; a stashed position is
@@ -68,6 +66,7 @@
 #include <utility>
 
 #include "sdf_bwd_passes.cuh"
+#include "sdf_bwd_passes_sm90.cuh"
 #include "sdf_grid_bwd_sm90.cuh"
 
 namespace {
@@ -95,8 +94,8 @@ struct Scratch {
   __nv_bfloat16* dz;    // [6][R][256]
   float* dx1;           // [R][256]
   float* gz;            // [R]
-  float* w_part;        // [6][slabs][256][256]
-  float* col_part;      // [max(6 x slabs, shapes x slabs per shape) x 256]
+  float* w_part;        // the passes' partials: sdf90_passes::weight_part_floats()
+  float* col_part;      // and col_part_floats()
 };
 
 // Weight slice `c` of the rows pass: the Plan's forward layers ([out, in]),
@@ -300,17 +299,14 @@ struct Layout {
 Layout layout(int points, int shapes_per_chunk, int h_planes) {
   Layout l;
   const long long rows = static_cast<long long>(points) * shapes_per_chunk;
-  const long long slabs = ceil_div(rows, SLAB);
-  const long long col_groups = std::max(static_cast<long long>(LAYERS) * slabs,
-                                        shapes_per_chunk * ceil_div(points, SLAB));
   auto up = [](size_t b) { return (b + 255) / 256 * 256; };
   l.h = 0;
   l.dz = l.h + up(h_planes * rows * WIDTH * 2);
   l.dx1 = l.dz + up(LAYERS * rows * WIDTH * 2);
   l.gz = l.dx1 + up(rows * WIDTH * 4);
   l.w_part = l.gz + up(rows * 4);
-  l.col_part = l.w_part + up(LAYERS * slabs * WIDTH * WIDTH * 4);
-  l.total = l.col_part + up(col_groups * WIDTH * 4);
+  l.col_part = l.w_part + up(sdf90_passes::weight_part_floats() * 4);
+  l.total = l.col_part + up(sdf90_passes::col_part_floats(shapes_per_chunk, points) * 4);
   return l;
 }
 
@@ -437,6 +433,41 @@ extern "C" int sdf_grid_backward_rows(const void* pp1, const void* pp5, const vo
   return rows_sm90(pp1, pp5, zz1, zz5, w, wt, bias, w8, g, static_cast<unsigned char*>(scratch),
                    layout(points, shapes, HIDDEN), 0, shapes, points, device,
                    static_cast<cudaStream_t>(stream_ptr));
+}
+
+// The scratch of sdf_grid_backward_passes for a chunk of `shapes` shapes.
+extern "C" long long sdf_grid_backward_passes_scratch_bytes(int points, int shapes) {
+  const Layout l = layout(points, shapes, HIDDEN);
+  return static_cast<long long>(l.total - l.w_part);
+}
+
+// Passes 2-4 alone over one chunk's planes (as the rows pass writes them):
+// `shapes` shapes from shape s0 on, `points` rows each; h [7, R, 256] and dz
+// [6, R, 256] bf16, dx1 [R, 256] and gz [R] float32, R = shapes x points.
+// The outputs are zeroed first (d_zz1 and d_zz5 have s0 + shapes rows; the
+// chunk's are rows s0 on). `scratch`: sdf_grid_backward_passes_scratch_bytes.
+extern "C" int sdf_grid_backward_passes(const void* h, const void* dz, const void* dx1, const void* gz,
+                                        void* d_pp1, void* d_pp5, void* d_zz1, void* d_zz5, void* d_w,
+                                        void* d_b, void* d_w8, void* d_b8, void* scratch, int shapes,
+                                        int points, int s0, int device, void* stream_ptr) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (shapes <= 0 || points <= 0 || s0 < 0) return cudaErrorInvalidValue;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const GridGrads out{static_cast<float*>(d_pp1), static_cast<float*>(d_pp5),
+                      static_cast<float*>(d_zz1), static_cast<float*>(d_zz5),
+                      static_cast<float*>(d_w),   static_cast<float*>(d_b),
+                      static_cast<float*>(d_w8),  static_cast<float*>(d_b8)};
+  if ((err = zero_grid_grads(out, s0 + shapes, points, stream)) != cudaSuccess) return err;
+  using bf = __nv_bfloat16;
+  const Layout l = layout(points, shapes, HIDDEN);
+  unsigned char* part = static_cast<unsigned char*>(scratch);  // the partials of a chunk's layout
+  const size_t plane = static_cast<size_t>(shapes) * points * WIDTH;
+  return grid_bwd_passes(contiguous_planes(static_cast<bf*>(const_cast<void*>(h)), plane),
+                         static_cast<const bf*>(dz), static_cast<const float*>(dx1),
+                         static_cast<const float*>(gz), reinterpret_cast<float*>(part),
+                         reinterpret_cast<float*>(part + (l.col_part - l.w_part)), shapes, points, s0, out,
+                         stream);
 }
 
 // B2.

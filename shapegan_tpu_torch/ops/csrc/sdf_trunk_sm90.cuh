@@ -245,10 +245,9 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
                                   CUtensorMapFloatOOBfill);
 
-// The TMA map of w [6 * 256 rows, 256] bf16 in boxes of 256 rows x 64
-// columns, 128-byte swizzled. cuTensorMapEncodeTiled is fetched through the
-// runtime, so the library needs no -lcuda.
-inline cudaError_t weight_map(CUtensorMap* map, const void* w) {
+// cuTensorMapEncodeTiled, fetched through the runtime (so the library needs
+// no -lcuda) on the first call.
+inline cudaError_t tiled_encoder(EncodeTiledFn* out) {
   static EncodeTiledFn encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -263,6 +262,16 @@ inline cudaError_t weight_map(CUtensorMap* map, const void* w) {
     if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
     encode = reinterpret_cast<EncodeTiledFn>(fn);
   }
+  *out = encode;
+  return cudaSuccess;
+}
+
+// The TMA map of w [6 * 256 rows, 256] bf16 in boxes of 256 rows x 64
+// columns, 128-byte swizzled.
+inline cudaError_t weight_map(CUtensorMap* map, const void* w) {
+  EncodeTiledFn encode;
+  const cudaError_t err = tiled_encoder(&encode);
+  if (err != cudaSuccess) return err;
   const cuuint64_t dims[2] = {WIDTH, LAYERS * WIDTH};
   const cuuint64_t strides[1] = {WIDTH * sizeof(__nv_bfloat16)};
   const cuuint32_t box[2] = {K_CHUNK, WIDTH};

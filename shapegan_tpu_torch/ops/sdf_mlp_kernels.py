@@ -11,7 +11,10 @@ Six hand-written CUDA kernels (sources in ``ops/csrc/``):
   in the kernel → [1, N];
 * the **grid backward kernel** (``sdf_grid_bwd.cu``, replaces
   ``_bwd_kernel`` / ``_trainable_bwd``): the recompute backward of the grid
-  kernel, behind the autograd function :func:`apply_grid_trainable`;
+  kernel, behind the autograd function :func:`apply_grid_trainable`; its
+  rows pass (:func:`grid_backward_rows_cuda`) and its passes 2-4
+  (:func:`grid_backward_passes_cuda`, ``sdf_bwd_passes_sm90.cuh``) also run
+  alone, for checks and timing;
 * the **trace kernel** (``sdf_trace.cu``, replaces ``_make_trace_kernel`` /
   ``trace_steps_fused``): K masked sphere-trace iterations of the points
   kernel's forward per launch, the lane state kept on chip.
@@ -237,6 +240,29 @@ def grid_backward_rows_plain(pp1, pp5, zz1, zz5, w, b, w8, g):
     h, dz, dx1, gz = zip(*shapes)
     return (torch.stack([torch.cat(planes) for planes in zip(*h)]),
             torch.stack([torch.cat(planes) for planes in zip(*dz)]), torch.cat(dx1), torch.cat(gz))
+
+
+def grid_backward_passes_plain(h, dz, dx1, gz, shapes: int, points: int, s0: int = 0):
+    """Plain PyTorch version of the grid backward kernel's passes 2-4 over
+    one chunk of ``shapes`` shapes from shape ``s0`` on: the eight outputs
+    of :func:`grid_backward_plain` made from the rows pass's planes (as
+    :func:`grid_backward_rows_plain` returns them, R = shapes·points rows),
+    summed in float64 and returned in float32. d_zz1 and d_zz5 have
+    s0 + shapes rows, the chunk's from row s0 on; d_pp1 and d_pp5 are summed
+    over the chunk's shapes."""
+    h, dz, dx1, gz = (t.double() for t in (h, dz, dx1, gz))
+    by_shape = (shapes, points, WIDTH)
+    d_zz1 = torch.zeros((s0 + shapes, WIDTH), dtype=torch.float64, device=dx1.device)
+    d_zz5 = torch.zeros_like(d_zz1)
+    d_zz1[s0:] = dx1.reshape(by_shape).sum(1)
+    d_zz5[s0:] = dz[SKIP_LAYER].reshape(by_shape).sum(1)
+    d_b = torch.zeros((8, WIDTH), dtype=torch.float64, device=dx1.device)
+    biased = [layer for layer in range(len(TRUNK_KEYS)) if layer != SKIP_LAYER]
+    d_b[biased] = dz[biased].sum(1)
+    outs = (dx1.reshape(by_shape).sum(0), dz[SKIP_LAYER].reshape(by_shape).sum(0), d_zz1, d_zz5,
+            torch.einsum("lri,lro->lio", h[:len(TRUNK_KEYS)], dz), d_b, h[-1].t() @ gz,
+            gz.sum().reshape(1))
+    return tuple(t.float() for t in outs)
 
 
 def _grid_rows(pp1, pp5, zz1, zz5, wf, bf, w8f, g, planes, s):
@@ -502,10 +528,39 @@ def grid_backward_rows_cuda(pp1, pp5, zz1, zz5, w, b, w8, g):
 grid_backward_rows_cuda.launch_count = 0
 
 
-def _grid_grad_buffers(device, points: int, batch: int, g: torch.Tensor):
+def grid_backward_passes_cuda(h, dz, dx1, gz, shapes: int, points: int, s0: int = 0):
+    """Launch the grid backward kernel's passes 2-4 alone
+    (``csrc/sdf_bwd_passes_sm90.cuh``, the C entry point
+    ``sdf_grid_backward_passes``) over one chunk's planes; returns what
+    :func:`grid_backward_passes_plain` returns."""
+    device = _cuda_device(h)
+    rows = shapes * points
+    if shapes <= 0 or points <= 0 or s0 < 0:
+        raise ValueError(f"the passes take shapes > 0, points > 0, s0 >= 0, got {shapes}, {points}, {s0}")
+    _check("h", device, h, (HIDDEN, rows, WIDTH), BF16)
+    _check("dz", device, dz, (len(TRUNK_KEYS), rows, WIDTH), BF16)
+    _check("dx1", device, dx1, (rows, WIDTH), torch.float32)
+    _check("gz", device, gz, (rows,), torch.float32)
+    outs = _grid_grad_buffers(device, points, s0 + shapes)
+    lib = _build.load()
+    scratch = torch.empty(lib.sdf_grid_backward_passes_scratch_bytes(points, shapes), dtype=torch.uint8,
+                          device=device)
+    code = lib.sdf_grid_backward_passes(
+        h.data_ptr(), dz.data_ptr(), dx1.data_ptr(), gz.data_ptr(), *(t.data_ptr() for t in outs),
+        scratch.data_ptr(), shapes, points, s0, device.index, torch.cuda.current_stream(device).cuda_stream)
+    _build.check(lib, "sdf_grid_backward_passes", code)
+    grid_backward_passes_cuda.launch_count += 1
+    return outs
+
+
+grid_backward_passes_cuda.launch_count = 0
+
+
+def _grid_grad_buffers(device, points: int, batch: int, g: Optional[torch.Tensor] = None):
     """The grid backwards' eight float32 outputs (zeroed by the kernels),
-    after checking the cotangent g [B, P]."""
-    _check("g", device, g, (batch, points), torch.float32)
+    after checking the cotangent g [B, P] if given."""
+    if g is not None:
+        _check("g", device, g, (batch, points), torch.float32)
     if batch == 0 or points == 0:
         raise ValueError(f"grid backward needs B > 0 and P > 0, got B={batch} P={points}")
 

@@ -13,8 +13,9 @@ JSON line:
 
 * at 16 x 64^3 with the bundled weights: the grid backward B2 (CUDA events,
   median of 5) and its passes (``torch.profiler``, device time of one call by
-  kernel name: the rows pass, the weight pass, the column sums with their
-  fixed-order finish, the shape sums), and the grid forward B1;
+  kernel name: the rows pass, the weight pass, the fan-in, the column sums,
+  the fixed-order finishes, the shape sums: the parent's passes or this
+  tree's), and the grid forward B1;
 * the stash forward B5a and the stash backward B5b (stash set (1..6),
   random weights) at 16 x 64^3, B5b on the plain version's planes (so its
   inputs do not depend on the tree's B5a);
@@ -59,8 +60,8 @@ def _b2_passes(fn) -> dict:
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    groups = {"rows": ("rows",), "weight": ("weight",), "colsum": ("colsum", "finish"),
-              "shape_sum": ("shape_sum",)}
+    groups = {"rows": ("rows",), "weight": ("weight",), "fan_in": ("fan_in",), "colsum": ("colsum",),
+              "finish": ("finish",), "shape_sum": ("shape_sum",)}
     out = {name: 0.0 for name in list(groups) + ["other"]}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:

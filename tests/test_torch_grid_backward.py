@@ -136,10 +136,19 @@ ROWS_PLANE_SHARE = 1e-2
 # count would flip a few bf16 roundings; these bounds leave room for that.
 SPLIT_SHARE = 1e-3
 SPLIT_REL = 1e-5
-# The sums of the planes in float64 against grid_backward_plain's float32
-# sums over 3 x 3001 rows: relative L2 per output (float32 sums of a few
-# thousand terms: ~1e-7 each).
+# The passes' float64 sums of the planes against grid_backward_plain's
+# float32 sums over 3 x 3001 rows: relative L2 per output (float32 sums of a
+# few thousand terms: ~1e-7 each).
 SUMS_L2 = 1e-5
+
+
+BWD_OUTPUTS = ("d_pp1", "d_pp5", "d_zz1", "d_zz5", "d_w", "d_b", "d_w8", "d_b8")
+
+
+def shapes_of(ops, g, s, n=1):
+    """The grid operands and cotangent of shapes s ... s + n - 1."""
+    pp1, pp5, zz1, zz5, w, b, w8 = ops
+    return pp1, pp5, zz1[s:s + n], zz5[s:s + n], w, b, w8, g[s:s + n]
 
 
 def _rows_case():
@@ -175,22 +184,47 @@ def test_grid_backward_rows_plain_is_row_local(split):
 
 
 def test_grid_backward_rows_plain_sums_match_grid_backward_plain():
-    """The sums of the rows pass's planes (passes 2-4, here in float64)
-    reproduce grid_backward_plain's eight outputs."""
+    """The sums of the rows pass's planes (passes 2-4:
+    grid_backward_passes_plain, float64 sums) reproduce grid_backward_plain's
+    eight outputs."""
     ops, g = _rows_case()
-    h, dz, dx1, gz = (t.double() for t in sdf_mlp_kernels.grid_backward_rows_plain(*ops, g))
     batch, points = g.shape
-    skip = sdf_mlp_kernels.SKIP_LAYER
-    d_w = torch.einsum("lri,lro->lio", h[:6], dz)
-    d_b = torch.zeros((8, 256), dtype=torch.float64)
-    d_b[[0, 1, 2, 4, 5]] = dz[[0, 1, 2, 4, 5]].sum(1)
-    want = (dx1.reshape(batch, points, 256).sum(0), dz[skip].reshape(batch, points, 256).sum(0),
-            dx1.reshape(batch, points, 256).sum(1), dz[skip].reshape(batch, points, 256).sum(1),
-            d_w, d_b, h[6].t() @ gz, gz.sum().reshape(1))
     got = sdf_mlp_kernels.grid_backward_plain(*ops, g)
-    for name, a, b in zip(("d_pp1", "d_pp5", "d_zz1", "d_zz5", "d_w", "d_b", "d_w8", "d_b8"), got, want):
+    want = sdf_mlp_kernels.grid_backward_passes_plain(*sdf_mlp_kernels.grid_backward_rows_plain(*ops, g),
+                                                      batch, points)
+    for name, a, b in zip(BWD_OUTPUTS, got, want):
+        assert a.shape == b.shape and b.dtype == torch.float32, name
+        assert float((a.double() - b.double()).norm() / b.double().norm()) <= SUMS_L2, name
+
+
+@pytest.mark.parametrize("s0, shapes", [(1, 2), (2, 1), (0, 3)])
+def test_grid_backward_passes_plain_chunk_of_shapes(s0, shapes):
+    """A chunk of several shapes from s0 on: d_pp summed over the chunk's
+    shapes and d_zz written at rows s0 ... (the rows before stay 0) equal
+    grid_backward_plain over those shapes alone."""
+    ops, g = _rows_case()
+    points = g.shape[1]
+    part = shapes_of(ops, g, s0, shapes)
+    got = sdf_mlp_kernels.grid_backward_passes_plain(*sdf_mlp_kernels.grid_backward_rows_plain(*part),
+                                                     shapes, points, s0)
+    want = sdf_mlp_kernels.grid_backward_plain(*part)
+    for name, a, b in zip(BWD_OUTPUTS, got, want):
+        if name in ("d_zz1", "d_zz5"):
+            assert a.shape == (s0 + shapes, 256) and not a[:s0].any(), name
+            a = a[s0:]
         assert a.shape == b.shape, name
-        assert float((a.double() - b).norm() / b.norm()) <= SUMS_L2, name
+        assert float((a.double() - b.double()).norm() / b.double().norm()) <= SUMS_L2, name
+
+
+def test_grid_backward_passes_cuda_raises_on_cpu_tensors():
+    """The passes' wrapper launches or raises; it never falls back, and a
+    refused call does not count as a launch."""
+    ops, g = _rows_case()
+    planes = sdf_mlp_kernels.grid_backward_rows_plain(*shapes_of(ops, g, 0))
+    before = sdf_mlp_kernels.grid_backward_passes_cuda.launch_count
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        sdf_mlp_kernels.grid_backward_passes_cuda(*planes, 1, g.shape[1])
+    assert sdf_mlp_kernels.grid_backward_passes_cuda.launch_count == before
 
 
 def _rows_rounded_before_bias(pp1, pp5, zz1, zz5, w, b, w8, g):

@@ -256,6 +256,36 @@ def test_grid_backward_rows_matches_plain(cuda, n_points, n_latents):
         assert torch.isfinite(a).all() and rel <= bound, (name, rel)
 
 
+# B2's passes 2-4 alone against grid_backward_passes_plain (float64 sums) on
+# the same planes, by chip_smoke.py's bounds: only the order of float32 sums
+# differs (measured on the H100 <= 5.6e-5 relative).
+PASSES_L2 = 1e-3
+PASSES_MAX = 1e-3
+
+
+@pytest.mark.parametrize("n_points, n_latents, s0", [(3001, 3, 0), (3001, 2, 1), (16**3, 16, 5)])
+def test_grid_backward_passes_match_plain(cuda, n_points, n_latents, s0):
+    """One chunk of n_latents shapes from shape s0 on, on the rows pass's
+    planes; a second call gives the same bytes."""
+    params, pts, lats = _setup(cuda, n_points, n_latents, seed=11)
+    g = torch.tensor(np.random.default_rng(11).normal(size=(n_latents, n_points)).astype(np.float32),
+                     device=cuda)
+    planes = K.grid_backward_rows_cuda(*K.grid_operands(params, pts, lats), g)
+    before = K.grid_backward_passes_cuda.launch_count
+    got = K.grid_backward_passes_cuda(*planes, n_latents, n_points, s0)
+    assert K.grid_backward_passes_cuda.launch_count == before + 1
+    again = K.grid_backward_passes_cuda(*planes, n_latents, n_points, s0)
+    want = K.grid_backward_passes_plain(*planes, n_latents, n_points, s0)
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(BWD_NAMES, got, want, again):
+        assert a.shape == b.shape and torch.isfinite(a).all() and torch.equal(a, c), name
+        d = (a.double() - b.double()).abs()
+        l2 = float(d.norm() / b.double().norm().clamp_min(1e-30))
+        mx = float(d.max() / b.double().abs().max().clamp_min(1e-30))
+        print(f"  {name}: l2 {l2:.3e} max {mx:.3e}")
+        assert l2 <= PASSES_L2 and mx <= PASSES_MAX, (name, l2, mx)
+
+
 # B4 (trace) against its plain version: the share of lanes whose status
 # agrees, the largest |dp| over them and the share of them with |dp| > 1e-6
 # (the bounds of chip_smoke.py; a flipped bf16 rounding of a lane's point
