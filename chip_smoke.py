@@ -14,7 +14,10 @@ Phases, each fatal on failure (nothing is caught):
      primary rays at 1600^2, shadow rays with per-lane escape heights, and
      an odd N with pre-resolved lanes; the rowwise kernel and its backward
      at the autodecoder's batch (20,000 rows, codes gathered from a 64-row
-     table, the bundled weights) and at N=3001 with random weights; the
+     table, the bundled weights) and at N=3001 with random weights, the
+     backward B6b also at N = 1, 63, 65 and 129 (tails inside a 64-row tile
+     and one-row tails, fewer tiles than consumers) and twice at 20,000 rows,
+     the same bytes; the
      point-GAN generator kernel at the D step's 32 x 4096 points and at
      B=3, N=1000 (a tail tile, tiles spanning two items), fresh weights;
      the grid backward's rows pass alone (B2's Hopper rows kernel,
@@ -37,7 +40,9 @@ Phases, each fatal on failure (nothing is caught):
      (B2's rows pass and its passes 2-4 also alone, each beside its own
      bound and B2's total),
      and of 20 per-iteration points-kernel trace steps beside the trace
-     kernel's 20; the rowwise kernels at 20,000 and 65,536 rows; the
+     kernel's 20; the rowwise kernels at 20,000 and 65,536 rows, B6b also
+     by pass (``torch.profiler`` device time: its rows pass, the weight
+     kernel, the finishes, the d_w8 / d_b8 sums, the zeroing); the
      generator kernel at 32 x 4096 and 6 x 32768 beside the bf16 module (the
      fused switch's other side); B5a and B5b at 16 x 64^3 for both stash
      sets beside B1 and B2 (the kernels line takes the trainers' set,
@@ -490,23 +495,75 @@ def passes_checks(ops, g) -> float:
     return worst_abs
 
 
+# How often one call is recorded again when the profiler's trace lacks a
+# kernel it must hold, and the quiet host time around the recorded call.
+PROFILE_TRIES = 5
+PROFILE_PAD_S = 0.005
+
+
+def profiled_call(fn, needed=()):
+    """torch.profiler's key_averages() of one call of fn, in which some CUDA
+    kernel's name holds each part in ``needed``. The profiler can drop
+    kernels of the recorded call, even in the step after a warm-up step, and
+    drops them less with the card idle around the call
+    (``python -m shapegan_tpu_torch.profiler_probe`` counts both ways). So
+    the call is recorded in the step after a warm-up step with PROFILE_PAD_S
+    of idle card on either side, and anew, up to PROFILE_TRIES times, while
+    a part in ``needed`` is missing; then this fails."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    missing = list(needed)
+    for _ in range(PROFILE_TRIES):
+        events = []
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA],
+                                    schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
+                                    on_trace_ready=lambda prof: events.append(prof.key_averages())) as prof:
+            for step in range(2):
+                time.sleep(PROFILE_PAD_S * step)
+                fn()
+                torch.cuda.synchronize()
+                time.sleep(PROFILE_PAD_S * step)
+                prof.step()
+        keys = [e.key for e in events[0] if e.device_type == torch.autograd.DeviceType.CUDA]
+        missing = [part for part in needed if not any(part in key for key in keys)]
+        if not missing:
+            return events[0]
+        log(f"  (the profiler's trace of one call lacks {missing}; recording it again)")
+    raise AssertionError(f"the profiler saw no kernel named like {missing} in {PROFILE_TRIES} recordings of one call")
+
+
 def passes_device_ms(fn) -> float:
     """Device time (ms, torch.profiler) of the grid backward's passes 2-4 in
     one call of fn: the kernels of sdf_bwd_passes_sm90.cuh and the finishes
     (not the rows pass, nor the zeroing of the outputs)."""
     import torch
 
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and ("sdf90_passes" in e.key or "bwd_finish_kernel" in e.key))
-    if total <= 0:
-        raise AssertionError("the profiler saw no passes kernel in a grid backward call")
-    return total / 1e3
+    events = profiled_call(fn, needed=("bwd_rows_sm90_kernel", "sdf90_passes", "bwd_finish_kernel"))
+    return sum(e.self_device_time_total for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and ("sdf90_passes" in e.key or "bwd_finish_kernel" in e.key)) / 1e3
+
+
+# B6b's kernels by a part of their names in a torch.profiler trace: its rows
+# pass, the weight kernel, the fixed-order finishes, the tail (dzz5 and the
+# d_w8 / d_b8 sums) and the zeroing of the summed outputs.
+ROWWISE_BWD_PASSES = {"rows": "bwd_rows_sm90_kernel", "weight": "weight_kernel", "finishes": "finish_kernel",
+                      "tail": "tail_kernel", "zeroing": "Memset"}
+
+
+def rowwise_bwd_split(fn) -> dict:
+    """Device time (ms, torch.profiler) of one call of fn (B6b) by pass
+    (ROWWISE_BWD_PASSES; "other": the rest, wt's transpose)."""
+    import torch
+
+    out = {name: 0.0 for name in list(ROWWISE_BWD_PASSES) + ["other"]}
+    for e in profiled_call(fn, needed=tuple(ROWWISE_BWD_PASSES.values())):
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = next((k for k, key in ROWWISE_BWD_PASSES.items() if key in e.key), "other")
+            out[name] += e.self_device_time_total / 1e3
+    return out
 
 
 def path_latents(device) -> tuple:
@@ -1454,6 +1511,21 @@ def main() -> int:
         rowwise_bwd_err = max(rowwise_bwd_err, compare_backward(
             f"rowwise_bwd N={n}", K.rowwise_backward_cuda(*ops, g),
             K.rowwise_backward_plain(*ops, g), ROWWISE_BWD_NAMES, ROWWISE_PER_ROW))
+    # B6b's 64-row tiles with random weights: a tail inside one tile (1, 63),
+    # one-row tails (65, 129), fewer tiles than consumer warpgroups; and two
+    # calls at 20,000 rows, the same bytes (its sums run in one fixed order).
+    for n in (1, 63, 65, 129):
+        ops, g = rowwise_case(rand_params, n, 20 + n, device)
+        rowwise_bwd_err = max(rowwise_bwd_err, compare_backward(
+            f"rowwise_bwd N={n}", K.rowwise_backward_cuda(*ops, g),
+            K.rowwise_backward_plain(*ops, g), ROWWISE_BWD_NAMES, ROWWISE_PER_ROW))
+    ops, g = rowwise_cases[20000]
+    first, second = K.rowwise_backward_cuda(*ops, g), K.rowwise_backward_cuda(*ops, g)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError("rowwise_bwd N=20000: two calls differ")
+    log("  rowwise_bwd N=20000: two calls give the same bytes")
+    del first, second
     # B7 at the D step's shape (stage 3 of the curriculum) and at an odd
     # shape with a tail tile and tiles spanning two items; fresh weights.
     gen_cases = {(b, n): point_gen_case(b, n, seed, device)
@@ -1593,6 +1665,7 @@ def main() -> int:
     # B6a: 6 products a row; xyz, zz1, zz5 in, [N] out. B6b: 17 products a
     # row; xyz, zz1, zz5, g in, dzz1, dzz5 float32 and the trunk's gradients out.
     rowwise_cases[65536] = rowwise_case(rand_params, 65536, 8, device)
+    rowwise_split = {}
     for n in (20000, 65536):
         ops, g = rowwise_cases[n]
         fwd_bound = bound(n * trunk_flop, n * (12 + 1024 + 4) + weight_bytes)
@@ -1610,6 +1683,10 @@ def main() -> int:
         log(f"  rowwise_bwd N={n}: kernel {bwd[0]:.4f} ms "
             f"({n * 17 * 2 * 256 * 256 / bwd[0] / 1e9:.1f} TFLOP/s over the 17 products) | "
             f"plain {bwd[1]:.4f} ms | bound {bwd_bound[0]:.4f} ms ({bwd_bound[1]})")
+        split = rowwise_split[n] = rowwise_bwd_split(lambda: K.rowwise_backward_cuda(*ops, g))
+        log(f"  rowwise_bwd N={n} by pass (torch.profiler device time of one call, ms): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+            + f"; {sum(split.values()):.4f} in all, of the call's {bwd[0]:.4f} by CUDA events")
     # B7 at the D step's two ends of the curriculum's middle: 32 x 4096
     # (stage 3; the kernels line's figures) and 6 x 32768 (stage 6), beside
     # the bf16 module (SDFGenerator with the fused switch off). Six 256 x 256
@@ -1771,7 +1848,9 @@ def main() -> int:
         kernel_entry("sdf_rowwise", "rowwise", "sdf_rowwise.cu", "sdf_mlp_pallas.py:1132",
                      rowwise_err),
         kernel_entry("sdf_rowwise_bwd", "rowwise_bwd", "sdf_rowwise_bwd.cu", "sdf_mlp_pallas.py:1141",
-                     rowwise_bwd_err),
+                     rowwise_bwd_err, rows_source="shapegan_tpu_torch/ops/csrc/sdf_grid_bwd_sm90.cuh",
+                     passes_source="shapegan_tpu_torch/ops/csrc/sdf_bwd_passes_sm90.cuh",
+                     passes_ms=rowwise_split[20000], passes_ms_65536=rowwise_split[65536]),
         kernel_entry("point_gen", "point_gen", "point_gen.cu", "point_gen_pallas.py:62", gen_err),
         kernel_entry("sdf_grid_stash", "grid_stash", "sdf_grid.cu", "sdf_mlp_pallas.py:748",
                      stash_err),

@@ -8,7 +8,8 @@ its passes 2-4 tell a wrong kernel from a sound one? On one GPU:
 
 It holds each sound kernel against its plain version at chip_smoke's cases
 (for B6b also the plain version with float64 sums, the noise floor of bf16
-rounding flips), then builds each wrong copy of ``ops/csrc/sdf_rowwise_bwd.cu``,
+rounding flips), then builds each wrong copy of ``ops/csrc/sdf_rowwise_bwd.cu``
+and of B6b's instance of the rows pass in ``ops/csrc/sdf_grid_bwd_sm90.cuh``,
 ``ops/csrc/point_gen.cu``, ``ops/csrc/sdf_grid.cu`` (B5a),
 ``ops/csrc/sdf_grid_bwd.cu`` (B5b), ``ops/csrc/sdf_trunk_sm90.cuh`` (the
 trunk of B3 and B4, held at B3's cases) and ``ops/csrc/sdf_trace.cu`` (B4)
@@ -43,18 +44,31 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BF16 = torch.bfloat16
 
 # (what is wrong, source file in ops/csrc/, source text, its replacement):
-# in sdf_rowwise_bwd.cu ...
+# in B6b, its rows pass (the RowInputs instance of sdf_grid_bwd_sm90.cuh) and
+# sdf_rowwise_bwd.cu ...
 ROWWISE_BWD = "sdf_rowwise_bwd.cu"
+ROWS_PASS = "sdf_grid_bwd_sm90.cuh"
+_ROUNDED = " for (float2& v : p.v) v = sdf90::unpack_bf16(sdf90::pack_bf16(v.x, v.y));"
 ROWWISE_BWD_MUTANTS = (
-    ("the layer-1 projection rounded to bf16 before zz1 is added (B2's rounding)", ROWWISE_BWD,
-     "const float2 a = sdf::project_f32(in.pts[r], in.w1p, c);",
-     "const float2 a = sdf::project(in.pts[r], in.w1p, c);"),
-    ("the layer-5 projection rounded to bf16 before it is added", ROWWISE_BWD,
-     "const float2 p = sdf::project_f32(in.pts[row], in.w5p, col);",
-     "const float2 p = sdf::project(in.pts[row], in.w5p, col);"),
-    ("the rebuilt layers at the forward's rounding (product rounded before the bias)", ROWWISE_BWD,
-     "v0 = __fadd_rn(v0, __bfloat162float(s.bias[layer * WIDTH + col]));",
-     "v0 = __fadd_rn(sdf::round_bf16(v0), __bfloat162float(s.bias[layer * WIDTH + col]));"),
+    ("the layer-1 projection rounded to bf16 before zz1 is added (B2's rounding)", ROWS_PASS,
+     "const RowPairs p = in1.point(i, col, a);", "RowPairs p = in1.point(i, col, a);" + _ROUNDED),
+    ("the layer-5 projection rounded to bf16 before it is added", ROWS_PASS,
+     "p = in5.point(i, col, a);", "p = in5.point(i, col, a);" + _ROUNDED),
+    ("the rebuilt layers at the forward's rounding (product rounded before the bias)", ROWS_PASS,
+     "float v0 = d[4 * i + 2 * hh], v1 = d[4 * i + 2 * hh + 1];",
+     "float v0 = sdf90::round_bf16(d[4 * i + 2 * hh]), v1 = sdf90::round_bf16(d[4 * i + 2 * hh + 1]);"),
+    ("zz1 read from the row 8 below", ROWS_PASS,
+     "sdf90::load_tile(a, zz1, r.row, r);", "Rows o = r; o.count -= 8; sdf90::load_tile(a, zz1, r.row + 8, o);"),
+    ("zz5 read from the row 8 below", ROWS_PASS,
+     "if (skip) sdf90::load_tile(a, zz5, r.row, r);",
+     "if (skip) { Rows o = r; o.count -= 8; sdf90::load_tile(a, zz5, r.row + 8, o); }"),
+    ("dz5, and with it dzz5, taken before its mask", ROWS_PASS,
+     "load_bits(s, L, bits);", "load_bits(s, L, bits); if (L == 4) for (uint32_t& b : bits) b = ~0u;"),
+    ("dzz5 widened from the dz plane one layer early (dz6's)", ROWWISE_BWD,
+     "tail_kernel<<<blocks, WIDTH, 0, stream>>>(dz + SKIP_LAYER * plane,",
+     "tail_kernel<<<blocks, WIDTH, 0, stream>>>(dz + (SKIP_LAYER + 1) * plane,"),
+    ("d_w8 and d_b8 summed over one row fewer a block", ROWWISE_BWD,
+     "for (int k = 0; k < count; ++k) {", "for (int k = 0; k < count - 1; ++k) {"),
 )
 # ... in point_gen.cu ...
 POINT_GEN = "point_gen.cu"
@@ -127,7 +141,6 @@ TRACE_MUTANTS = (
 )
 
 # ... and in sdf_grid_bwd_sm90.cuh (B2's rows pass), held by its planes.
-ROWS_PASS = "sdf_grid_bwd_sm90.cuh"
 ROWS_MUTANTS = (
     ("the rebuilt layers at B3's rounding (the product rounded before the bias)", ROWS_PASS,
      "float v0 = d[4 * i + 2 * hh], v1 = d[4 * i + 2 * hh + 1];",

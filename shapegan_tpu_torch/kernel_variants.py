@@ -2,10 +2,11 @@
 """The design choices of the wgmma trunk (``ops/csrc/sdf_trunk_sm90.cuh``),
 of the grid forward B1 and its stash instance B5a (``ops/csrc/sdf_grid.cu``)
 of the grid backward's Hopper rows pass (``ops/csrc/sdf_grid_bwd_sm90.cuh``)
-and of its passes 2-4 (``ops/csrc/sdf_bwd_passes_sm90.cuh``), timed against
-the shipped kernels. On one GPU:
+and of its passes 2-4 (``ops/csrc/sdf_bwd_passes_sm90.cuh``), and of the
+rowwise backward B6b on them (``ops/csrc/sdf_rowwise_bwd.cu``), timed
+against the shipped kernels. On one GPU:
 
-    python -m shapegan_tpu_torch.kernel_variants [trunk | rows | grid | passes]
+    python -m shapegan_tpu_torch.kernel_variants [trunk | rows | grid | passes | rowwise]
 
 Each variant is the shipped source with one choice undone, built in a
 temporary directory (never in the checkout) as ``kernel_mutants`` builds
@@ -19,20 +20,23 @@ rows pass at 16 x 64^3 (bundled weights, sixteen one-shape calls of
 variants by B1 and B5a (stash set (1..6)) at 16 x 64^3 (bundled weights);
 the passes variants by B2 at 16 x 64^3 and the passes alone over sixteen
 one-shape chunks (one shape's planes), beside ``torch.bmm`` of the weight
-products as a yardstick.
+products as a yardstick; the rowwise variants by B6b at 20,000 rows (one
+call, and ten back to back), after B6b's passes (``torch.profiler`` device
+time) at one, about one and a fifth, and two rounds of 64-row tiles.
 With an argument only that group runs.
 """
 
 from __future__ import annotations
 
 import os
+import re
 import sys
 
 import torch
 
 from shapegan_tpu_torch.examples import fit_chair
 from shapegan_tpu_torch.kernel_mutants import _chip_smoke, built_with
-from shapegan_tpu_torch.ops import sdf_mlp
+from shapegan_tpu_torch.ops import _build, sdf_mlp
 from shapegan_tpu_torch.ops import sdf_mlp_kernels as K
 from shapegan_tpu_torch.ops.coords import voxel_coordinates
 
@@ -98,6 +102,63 @@ ROWS_VARIANTS = (
       sdf90::bar_expect(&s.full[pos.stage], 0);
     }""")]),
 )
+
+
+# (name, edits): where B6b's rows pass (the RowInputs instance) spends its time.
+ROWWISE_VARIANTS = (
+    ("no projections (the point terms zero: no w1p / w5p loads, no FMAs)",
+     [(ROWS, "return {{sdf90::project_f32(p[0], w0, w1, w2), sdf90::project_f32(p[1], w0, w1, w2)}};",
+       "return {};")]),
+    ("no stores of h, dz and dzz1 (the staging kept)",
+     [(STAGED, "@p st.global.v4.b32 [%0], {%1, %2, %3, %4};", ""), _NO_DX1]),
+    ROWS_VARIANTS[-1],
+)
+
+
+def rows_spills() -> dict:
+    """The rows pass's instances in the current build's ptxas output (-v):
+    {instance: (bytes of spill stores a thread, registers)}."""
+    lines = _build.build_log().splitlines()
+    out = {}
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '(\S*bwd_rows_sm90_kernel\S*)'", line)
+        if m:
+            text = " ".join(lines[i + 1:i + 4])
+            spill, regs = re.search(r"(\d+) bytes spill stores", text), re.search(r"Used (\d+) registers", text)
+            out["RowInputs" if "RowInputs" in m.group(1) else "GridInputs"] = (
+                int(spill.group(1)) if spill else None, int(regs.group(1)) if regs else None)
+    return out
+
+
+def rowwise_variants(cs, device) -> None:
+    gen_params = sdf_mlp.init(torch.Generator().manual_seed(1), device=device)
+    cases = {n: cs.rowwise_case(gen_params, n, 6, device) for n in (264 * 64, 20000, 2 * 264 * 64)}
+
+    def b6b(n):
+        ops, g = cases[n]
+        return lambda: K.rowwise_backward_cuda(*ops, g)
+
+    for n in cases:
+        split = cs.rowwise_bwd_split(b6b(n))
+        print(f"== B6b at {n} rows ({-(-n // 64)} tiles for 264 consumers): {cs.time_ms(b6b(n), iters=20):.4f} "
+              f"ms; device time by pass " + ", ".join(f"{k} {v:.4f}" for k, v in split.items()), flush=True)
+    def times():
+        # One call (CUDA events; its host work before the first launch
+        # included), a call's share of ten back to back (the device's), and
+        # the rows pass's device time and spills.
+        one = cs.time_ms(b6b(20000), iters=20)
+        queued = cs.time_ms(lambda: [b6b(20000)() for _ in range(10)], iters=10) / 10
+        return one, queued, cs.rowwise_bwd_split(b6b(20000))["rows"], rows_spills()
+
+    for name, edits in ROWWISE_VARIANTS:
+        print(f"== B6b: {name}", flush=True)
+        readings = [("shipped", *times())]
+        with built_with(edits):
+            readings += [("variant", *times()) for _ in range(2)]
+        readings.append(("shipped", *times()))
+        for turn, one, queued, rows, spills in readings:
+            print(f"  {turn}: B6b 20,000 rows {one:.4f} ms a call, {queued:.4f} ms a call of ten back to back; "
+                  f"rows pass {rows:.4f} ms; spill stores, registers {spills}", flush=True)
 
 
 def rows_variants(cs, device) -> None:
@@ -231,6 +292,8 @@ def main(argv=()) -> int:
         rows_variants(cs, device)
     if "passes" in argv or not argv:
         passes_variants(cs, device)
+    if "rowwise" in argv or not argv:
+        rowwise_variants(cs, device)
     if argv and "trunk" not in argv:
         return 0
     chair, code = fit_chair(device)

@@ -7,7 +7,10 @@
 //   dz_l; row 3, the skip layer, stays 0), d_w8 = h7^T gz, d_b8 = sum gz,
 //   d_zz1 / d_zz5 [B, 256] (dx1 / dz5 summed over points), d_pp1 / d_pp5
 //   [P, 256] (summed over shapes),
-// all float32, accumulated over the chunks of a call.
+// all float32, accumulated over the chunks of a call. The rowwise backward
+// (B6b, sdf_rowwise_bwd.cu) runs the weight kernel and its finishes
+// (weight_passes) on its own rows pass's planes, and sums d_w8 and d_b8
+// itself: it has no d_pp and no sums over shapes.
 //
 // What bounds them on the H100: the bytes. Per row they read h1..h7 and
 // dz1..dz6 (13 x 512 B), dx1 (1,024 B) and gz (4 B): 7,684 B, 32.2 GB at
@@ -58,9 +61,12 @@
 // (parent_ab.py, kernel_variants.py passes; PERF.md, section 6).
 #pragma once
 
+#include <array>
+
 #include "sdf_bwd_passes.cuh"
 #include "sdf_trunk_sm90.cuh"
 
+namespace {  // each source that includes this has its own copy of the kernels
 namespace sdf90_passes {
 
 using bf16 = __nv_bfloat16;
@@ -439,17 +445,68 @@ inline cudaError_t plane_map(CUtensorMap* map, const bf16* plane, long long rows
 
 inline int fan_blocks(int points) { return (points + FAN_POINTS - 1) / FAN_POINTS; }
 
-// Floats of the weight kernel's partials (d_w's), and of the others (d_b's,
-// then the fan-in's) for a chunk of `shapes` shapes.
+// Floats of the weight kernel's partials: d_w's, d_b's; and of a grid
+// chunk's column partials (d_b's, then the fan-in's) for `shapes` shapes.
 inline size_t weight_part_floats() { return static_cast<size_t>(LAYERS) * SLABS * WIDTH * WIDTH; }
+
+inline size_t b_part_floats() { return static_cast<size_t>(LAYERS) * SLABS * CONSUMERS * WIDTH; }
 
 inline size_t col_part_floats(int shapes, int points) {
   const size_t blocks = fan_blocks(points);
-  return static_cast<size_t>(LAYERS) * SLABS * CONSUMERS * WIDTH + (2 * static_cast<size_t>(shapes) + 1) * blocks * WIDTH +
-         blocks;
+  return b_part_floats() + (2 * static_cast<size_t>(shapes) + 1) * blocks * WIDTH + blocks;
+}
+
+// The weight kernel over `rows` rows of the planes h1..h6 (h) and dz1..dz6
+// (dz, one after another), then the fixed-order finishes of d_w and of d_b's
+// rows 0-2 and 4-5 (row 3, the skip layer, stays 0: b5's gradient is the sum
+// of zz5's), added into d_w and d_b. The partials' scratch (w_part:
+// weight_part_floats(), b_part: b_part_floats()) is the caller's.
+inline cudaError_t weight_passes(const HPlanes& h, const bf16* dz, long long rows, float* w_part, float* b_part,
+                                 float* d_w, float* d_b, cudaStream_t stream) {
+  const size_t plane = static_cast<size_t>(rows) * WIDTH;
+  // The maps' key: the planes' addresses and the rows.
+  static sdf90::LastOf<std::array<uintptr_t, LAYERS + 2>, Maps> plane_maps;
+  static sdf90::OncePerDevice smem_limit;
+  std::array<uintptr_t, LAYERS + 2> key;
+  for (int l = 0; l < LAYERS; ++l) key[l] = reinterpret_cast<uintptr_t>(h.p[l]);
+  key[LAYERS] = reinterpret_cast<uintptr_t>(dz);
+  key[LAYERS + 1] = static_cast<uintptr_t>(rows);
+  Maps maps;
+  cudaError_t err = plane_maps.get(key, &maps, [&](Maps* m) {
+    for (int l = 0; l < LAYERS; ++l) {
+      cudaError_t e;
+      if ((e = plane_map(&m->h[l], h.p[l], rows)) != cudaSuccess) return e;
+      if ((e = plane_map(&m->dz[l], dz + l * plane, rows)) != cudaSuccess) return e;
+    }
+    return cudaSuccess;
+  });
+  if (err != cudaSuccess) return err;
+  WeightArgs args;
+  args.w_part = w_part;
+  args.b_part = b_part;
+  args.tiles = static_cast<int>(ceil_div(rows, KT));
+  args.slab_tiles = static_cast<int>(ceil_div(args.tiles, SLABS));
+  int device = 0, sms = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return err;
+  const int smem = static_cast<int>(sizeof(Smem)) + 1024;
+  err = smem_limit(device, [&] {
+    return cudaFuncSetAttribute(weight_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  });
+  if (err != cudaSuccess) return err;
+  weight_kernel<<<std::min(ITEMS, sms), THREADS, smem, stream>>>(maps, args);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  bwd_finish_kernel<<<grid_for(LAYERS * WIDTH * WIDTH), sdf::THREADS, 0, stream>>>(
+      w_part, LAYERS, SLABS, WIDTH * WIDTH, d_w);
+  const int b_parts = SLABS * CONSUMERS;
+  bwd_finish_kernel<<<grid_for(3 * WIDTH), sdf::THREADS, 0, stream>>>(b_part, 3, b_parts, WIDTH, d_b);
+  bwd_finish_kernel<<<grid_for(2 * WIDTH), sdf::THREADS, 0, stream>>>(
+      b_part + static_cast<size_t>(4) * b_parts * WIDTH, 2, b_parts, WIDTH, d_b + 4 * WIDTH);
+  return cudaGetLastError();
 }
 
 }  // namespace sdf90_passes
+}  // namespace
 
 namespace {
 
@@ -485,33 +542,8 @@ inline cudaError_t grid_bwd_passes(const HPlanes& h, const __nv_bfloat16* dz, co
   namespace P = sdf90_passes;
   const long long rows = static_cast<long long>(shapes) * points;
   const size_t plane = static_cast<size_t>(rows) * WIDTH;
-  P::Maps maps;
-  cudaError_t err;
-  for (int l = 0; l < LAYERS; ++l) {
-    if ((err = P::plane_map(&maps.h[l], h.p[l], rows)) != cudaSuccess) return err;
-    if ((err = P::plane_map(&maps.dz[l], dz + l * plane, rows)) != cudaSuccess) return err;
-  }
-  P::WeightArgs args;
-  args.w_part = w_part;
-  args.b_part = col_part;
-  args.tiles = static_cast<int>(ceil_div(rows, P::KT));
-  args.slab_tiles = static_cast<int>(ceil_div(args.tiles, P::SLABS));
-  int device = 0, sms = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return err;
-  const int smem = static_cast<int>(sizeof(P::Smem)) + 1024;
-  err = cudaFuncSetAttribute(P::weight_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = P::weight_passes(h, dz, rows, w_part, col_part, out.w, out.b, stream);
   if (err != cudaSuccess) return err;
-  P::weight_kernel<<<std::min(P::ITEMS, sms), P::THREADS, smem, stream>>>(maps, args);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  bwd_finish_kernel<<<grid_for(LAYERS * WIDTH * WIDTH), THREADS, 0, stream>>>(
-      w_part, LAYERS, P::SLABS, WIDTH * WIDTH, out.w);
-  // d_b rows 0-2 and 4-5 (row 3, the skip layer, stays 0: b5's gradient is sum d_zz5).
-  const int b_parts = P::SLABS * P::CONSUMERS;
-  bwd_finish_kernel<<<grid_for(3 * WIDTH), THREADS, 0, stream>>>(col_part, 3, b_parts, WIDTH, out.b);
-  bwd_finish_kernel<<<grid_for(2 * WIDTH), THREADS, 0, stream>>>(
-      col_part + static_cast<size_t>(4) * b_parts * WIDTH, 2, b_parts, WIDTH, out.b + 4 * WIDTH);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   P::FanArgs fan;
   fan.dz5 = dz + SKIP_LAYER * plane;
@@ -520,7 +552,7 @@ inline cudaError_t grid_bwd_passes(const HPlanes& h, const __nv_bfloat16* dz, co
   fan.gz = gz;
   fan.pp1 = out.pp1;
   fan.pp5 = out.pp5;
-  fan.part = col_part + static_cast<size_t>(LAYERS) * b_parts * WIDTH;
+  fan.part = col_part + P::b_part_floats();
   fan.shapes = shapes;
   fan.points = points;
   fan.blocks = P::fan_blocks(points);

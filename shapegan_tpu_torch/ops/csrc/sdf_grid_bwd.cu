@@ -51,8 +51,9 @@
 //      dx1, h7 and gz once for d_pp1 / d_pp5 (summed over shapes), d_zz1 /
 //      d_zz5, d_w8 and d_b8; fixed-order finishes of their partials.
 // No atomics: every sum runs in one order, so the result is the same from
-// run to run. B5b's rows kernel's main loop is shared with the rowwise
-// backward (sdf_bwd_passes.cuh). The scratch traffic (~7.7 KB written per
+// run to run. B5b's rows kernel's main loop is in sdf_bwd_passes.cuh; B2's
+// rows pass and the weight kernel are shared with the rowwise backward
+// (sdf_rowwise_bwd.cu). The scratch traffic (~7.7 KB written per
 // row for B2) costs device memory bandwidth the TPU kernel did not spend.
 //
 // Rounding points follow `_bwd_kernel` and `_stash_bwd_kernel`, not B1: h1
@@ -318,11 +319,11 @@ cudaError_t rows_sm90(const void* pp1, const void* pp5, const void* zz1, const v
                       const void* wt, const void* bias, const void* w8, const void* g, unsigned char* base,
                       const Layout& l, int s0, int shapes, int points, int device, cudaStream_t stream) {
   using bf = __nv_bfloat16;
-  sdf90_bwd::Args args{};
-  args.pp1 = static_cast<const bf*>(pp1);
-  args.pp5 = static_cast<const bf*>(pp5);
-  args.zz1 = static_cast<const bf*>(zz1) + static_cast<size_t>(s0) * WIDTH;
-  args.zz5 = static_cast<const bf*>(zz5) + static_cast<size_t>(s0) * WIDTH;
+  sdf90_bwd::Args<sdf90_bwd::GridInputs> args{};
+  args.in.pp1 = static_cast<const bf*>(pp1);
+  args.in.pp5 = static_cast<const bf*>(pp5);
+  args.in.zz1 = static_cast<const bf*>(zz1) + static_cast<size_t>(s0) * WIDTH;
+  args.in.zz5 = static_cast<const bf*>(zz5) + static_cast<size_t>(s0) * WIDTH;
   args.bias = static_cast<const bf*>(bias);
   args.w8 = static_cast<const bf*>(w8);
   args.g = static_cast<const float*>(g) + static_cast<size_t>(s0) * points;

@@ -1,9 +1,15 @@
-// The rows pass of the recompute grid backward (B2) on the Hopper trunk of
-// sdf_trunk_sm90.cuh: for a chunk of whole shapes over the point grid it
-// writes the scratch that the passes after it read (sdf_grid_bwd.cu's
-// Layout): the h planes h1..h7 and the dz planes (bf16), dx1 (float32) and
-// gz (float32), one row each per (shape, point). The stash backward (B5b)
-// keeps the mma.sync rows kernel of sdf_grid_bwd.cu.
+// The rows pass of the recompute backwards on the Hopper trunk of
+// sdf_trunk_sm90.cuh, a template over where its inputs come from (In, the
+// first member of its Args):
+// * B2, the grid backward (GridInputs): for a chunk of whole shapes over the
+//   point grid it writes the scratch that the passes after it read
+//   (sdf_grid_bwd.cu's Layout): the h planes h1..h7 and the dz planes
+//   (bf16), dx1 (float32) and gz (float32), one row each per (shape, point).
+// * B6b, the rowwise backward (RowInputs, sdf_rowwise_bwd.cu): one "shape"
+//   of N rows, each with its own point and latent terms; the same planes
+//   and gz, dx1 written straight to the output dzz1.
+// The stash backward (B5b) keeps the mma.sync rows kernel of
+// sdf_grid_bwd.cu. The figures below are B2's.
 //
 // What bounds it on the H100: per row it writes 3,584 bytes of h, 3,072 of
 // dz, 1,024 of dx1 and 4 of gz and reads 1,028 (pp1, pp5, g): 8,712 bytes,
@@ -30,8 +36,11 @@
 // * Persistent, warp-specialized blocks. One block per SM; two consumer
 //   warpgroups in ping-pong (named-barrier turns, as in the header) take
 //   64-row tiles in sdf_rows_sm90.cuh's order (tile t: shape t % shapes,
-//   points 64 (t / shapes) on, as B1's), one producer warp feeds the ring. zz1 and zz5 are
-//   read per tile (the shape changes); pp1, pp5 and g per row. A consumer
+//   points 64 (t / shapes) on, as B1's; B6b's one shape gives plain 64-row
+//   tiles), one producer warp feeds the ring. B2 reads zz1 and zz5 per tile
+//   (the shape changes), pp1, pp5 and g per row; B6b reads xyz, zz1, zz5
+//   and g per row and projects xyz by w1p and w5p (read through L1) in the
+//   epilogues. A consumer
 //   whose tile runs past the chunk computes on zero rows and stores none
 //   (predicated loads and stores, no branch among the products).
 // * The stores through shared memory, off the products' path
@@ -49,7 +58,9 @@
 //   the epilogue 29.5-29.7 (kernel_variants.py; PERF.md, section 6).
 //
 // Rounding points: `_bwd_kernel`'s (shapegan_tpu/ops/sdf_mlp_pallas.py), not
-// B3's: h1 = relu(pp1 + zz1) summed in float32 and rounded once; a rebuilt
+// B3's; for B6b `_rowwise_bwd_kernel`'s, the same with the float32
+// projections xyz @ w1p and xyz @ w5p, not rounded, in place of pp1 and
+// pp5: h1 = relu(pp1 + zz1) summed in float32 and rounded once; a rebuilt
 // layer adds its bias to the float32 product and rounds once (layer 5:
 // ((acc + pp5) + zz5), rounded once); the head is tanh(h7 . w8 + b8) in
 // float32 (each thread sums its 64 columns in ascending order, then the
@@ -59,6 +70,7 @@
 
 #include "sdf_rows_sm90.cuh"
 
+namespace {  // each source that includes this has its own copy of the kernels
 namespace sdf90_bwd {
 
 using sdf90::CHUNKS;
@@ -103,18 +115,112 @@ struct __align__(1024) Smem {
 };
 static_assert(sizeof(Smem) + 1024 <= 232448, "the block's shared memory");
 
-// The chunk's operands and scratch (a __grid_constant__ parameter).
-struct Args {
+// ------------------------------------------------------------ the inputs
+
+// A column pair of a consumer thread's two rows: v[0] of row r0, v[1] of
+// row r0 + 8.
+struct RowPairs {
+  float2 v[2];
+};
+
+// An epilogue's inputs for a tile: through a view (Terms) that gives, per
+// column pair (i: its index in the accumulator layout, col: its first
+// column), the point term and the latent term of both rows; the sums are
+// (product + point) + latent at the skip layer and point + latent at layer
+// 1, in float32. The per-row operand goes into the free A registers before
+// the epilogue's loop (a tile's 64 loads a thread in flight together).
+
+// A column pair of the per-row tile in the A registers a, both rows.
+__device__ __forceinline__ RowPairs tile_pairs(const uint32_t (&a)[16][4], int i) {
+  return {{sdf90::unpack_bf16(a[i / 2][2 * (i % 2)]), sdf90::unpack_bf16(a[i / 2][2 * (i % 2) + 1])}};
+}
+
+// B2's: pp1 and pp5 [P, 256] by point, zz1 and zz5 [shapes, 256] by shape.
+// The point term is the pp tile; the latent term the shape's row.
+struct GridInputs {
   const bf16* pp1;  // [P, 256]
   const bf16* pp5;
   const bf16* zz1;  // [shapes, 256]: the chunk's shapes
   const bf16* zz5;
+
+  struct Terms {
+    const bf16* zrow;  // the shape's row of zz1 or zz5
+    __device__ __forceinline__ RowPairs point(int i, int, const uint32_t (&a)[16][4]) const {
+      return tile_pairs(a, i);
+    }
+    __device__ __forceinline__ RowPairs latent(int, int col, const uint32_t (&)[16][4]) const {
+      const float2 z = sdf90::unpack_bf16(shape_pair(zrow, col));
+      return {{z, z}};
+    }
+  };
+  __device__ __forceinline__ Terms layer1(const Rows& r, uint32_t (&a)[16][4]) const {
+    sdf90::load_tile(a, pp1, r.point, r);
+    return {zz1 + static_cast<size_t>(r.shape) * WIDTH};
+  }
+  // The skip layer's view; `skip`: this is the skip layer's epilogue (its
+  // pp5 tile goes into the free A registers), else the view goes unused.
+  __device__ __forceinline__ Terms layer5(const Rows& r, uint32_t (&a)[16][4], bool skip) const {
+    if (skip) sdf90::load_tile(a, pp5, r.point, r);
+    return {zz5 + static_cast<size_t>(r.shape) * WIDTH};
+  }
+};
+
+// B6b's: one "shape" of N rows. The point term is the row's xyz, rounded to
+// bf16, projected by w1p or w5p (read through L1) in float32 and not
+// rounded (the FMA order of sdf::project_f32); the latent term the zz1 or
+// zz5 tile, by row.
+struct RowInputs {
+  const float* pts;  // [N, 3]
+  const bf16* w1p;   // [3, 256]
+  const bf16* w5p;
+  const bf16* zz1;   // [N, 256]
+  const bf16* zz5;
+
+  struct Terms {
+    float3 p[2];     // the rows' points
+    const bf16* wp;  // w1p or w5p
+    __device__ __forceinline__ RowPairs point(int, int col, const uint32_t (&)[16][4]) const {
+      const float2 w0 = sdf90::unpack_bf16(shape_pair(wp, col));
+      const float2 w1 = sdf90::unpack_bf16(shape_pair(wp + WIDTH, col));
+      const float2 w2 = sdf90::unpack_bf16(shape_pair(wp + 2 * WIDTH, col));
+      return {{sdf90::project_f32(p[0], w0, w1, w2), sdf90::project_f32(p[1], w0, w1, w2)}};
+    }
+    __device__ __forceinline__ RowPairs latent(int i, int, const uint32_t (&a)[16][4]) const {
+      return tile_pairs(a, i);
+    }
+  };
+  __device__ __forceinline__ Terms terms(const Rows& r, const bf16* wp) const {
+    Terms t;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float* q = pts + (r.row + 8 * hh) * 3;
+      t.p[hh] = make_float3(sdf90::round_bf16(sdf90::load_f32(q, r.ok(hh))),
+                            sdf90::round_bf16(sdf90::load_f32(q + 1, r.ok(hh))),
+                            sdf90::round_bf16(sdf90::load_f32(q + 2, r.ok(hh))));
+    }
+    t.wp = wp;
+    return t;
+  }
+  __device__ __forceinline__ Terms layer1(const Rows& r, uint32_t (&a)[16][4]) const {
+    sdf90::load_tile(a, zz1, r.row, r);
+    return terms(r, w1p);
+  }
+  __device__ __forceinline__ Terms layer5(const Rows& r, uint32_t (&a)[16][4], bool skip) const {
+    if (skip) sdf90::load_tile(a, zz5, r.row, r);
+    return terms(r, w5p);
+  }
+};
+
+// The chunk's operands and scratch (a __grid_constant__ parameter).
+template <class In>
+struct Args {
+  In in;             // GridInputs (B2) or RowInputs (B6b)
   const bf16* bias;  // [8, 256]
   const bf16* w8;    // [256]
   const float* g;    // [shapes, P]
   bf16* h;           // 7 planes [R, 256], R = shapes x P
   bf16* dz;          // 6 planes [R, 256]; plane l: the gradient at layer l's output
-  float* dx1;        // [R, 256]
+  float* dx1;        // [R, 256] (B6b: the output dzz1)
   float* gz;         // [R]
   long long plane;   // R x 256
   long long tiles;   // 64-row tiles: ceil(P / 64) x shapes
@@ -167,22 +273,25 @@ __device__ __forceinline__ void load_bits(const Smem& s, int plane, uint32_t (&b
   for (int w = 0; w < MASK_WORDS; ++w) bits[w] = s.mask[plane][w][threadIdx.x];
 }
 
-// Layer 1: h1 = relu(pp1 + zz1) in float32, rounded once; packed as the A
-// operand of layer 2, staged to h plane 0, its mask kept.
-__device__ __forceinline__ Pending layer1(Smem& s, const Args& g, const Consumer& c, const Rows& r,
+// Layer 1: h1 = relu(pp1 + zz1) (B6b: relu(xyz @ w1p + zz1)) in float32,
+// rounded once; packed as the A operand of layer 2, staged to h plane 0, its
+// mask kept.
+template <class In>
+__device__ __forceinline__ Pending layer1(Smem& s, const Args<In>& g, const Consumer& c, const Rows& r,
                                        uint32_t (&a)[16][4]) {
-  const bf16* zrow = g.zz1 + static_cast<size_t>(r.shape) * WIDTH;
   const int q2 = 2 * (threadIdx.x & 3);
-  sdf90::load_tile(a, g.pp1, r.point, r);
+  const auto in1 = g.in.layer1(r, a);
   uint32_t bits[MASK_WORDS] = {0u, 0u, 0u, 0u};
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
-    const float2 z = sdf90::unpack_bf16(shape_pair(zrow, 8 * i + q2));
+    const int col = 8 * i + q2;
+    const RowPairs p = in1.point(i, col, a);
+    const RowPairs z = in1.latent(i, col, a);
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       uint32_t& x = a[i / 2][2 * (i % 2) + hh];
-      const float2 p = sdf90::unpack_bf16(x);
-      x = sdf90::pack_bf16(fmaxf(__fadd_rn(p.x, z.x), 0.f), fmaxf(__fadd_rn(p.y, z.y), 0.f));
+      const float2 pv = p.v[hh], zv = z.v[hh];
+      x = sdf90::pack_bf16(fmaxf(__fadd_rn(pv.x, zv.x), 0.f), fmaxf(__fadd_rn(pv.y, zv.y), 0.f));
       bits[i / 8] |= positive_bits(x) << ((4 * i + 2 * hh) % 32);
     }
   }
@@ -191,29 +300,36 @@ __device__ __forceinline__ Pending layer1(Smem& s, const Args& g, const Consumer
 }
 
 // A rebuilt layer L (0..4: w2..w6) over its product d: relu(d + bias) (layer
-// 5: relu((d + pp5) + zz5)) in float32, rounded once; packed as the next A
-// operand, staged to h plane L + 1, its mask kept.
-template <int L>
-__device__ __forceinline__ Pending rebuild(Smem& s, const Args& g, const Consumer& c, const Rows& r,
+// 5: relu((d + pp5) + zz5); B6b: relu((d + xyz @ w5p) + zz5)) in float32,
+// rounded once; packed as the next A operand, staged to h plane L + 1, its
+// mask kept.
+template <int L, class In>
+__device__ __forceinline__ Pending rebuild(Smem& s, const Args<In>& g, const Consumer& c, const Rows& r,
                                         const float (&d)[128], uint32_t (&a)[16][4]) {
   const int q2 = 2 * (threadIdx.x & 3);
-  const bf16* zrow = g.zz5 + static_cast<size_t>(r.shape) * WIDTH;
-  if (L == SKIP_LAYER) sdf90::load_tile(a, g.pp5, r.point, r);  // pp5 into the free A registers first
+  const auto in5 = g.in.layer5(r, a, L == SKIP_LAYER);
   uint32_t bits[MASK_WORDS] = {0u, 0u, 0u, 0u};
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
     const int col = 8 * i + q2;
-    const float2 b = L == SKIP_LAYER ? sdf90::unpack_bf16(shape_pair(zrow, col)) : sdf90::pair(s.bias[L], col);
+    const float2 b = sdf90::pair(s.bias[L], col);
+    RowPairs p{}, z{};
+    if (L == SKIP_LAYER) {
+      p = in5.point(i, col, a);
+      z = in5.latent(i, col, a);
+    }
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       uint32_t& x = a[i / 2][2 * (i % 2) + hh];
       float v0 = d[4 * i + 2 * hh], v1 = d[4 * i + 2 * hh + 1];
       if (L == SKIP_LAYER) {
-        const float2 p = sdf90::unpack_bf16(x);
-        v0 = __fadd_rn(v0, p.x);
-        v1 = __fadd_rn(v1, p.y);
+        v0 = __fadd_rn(__fadd_rn(v0, p.v[hh].x), z.v[hh].x);
+        v1 = __fadd_rn(__fadd_rn(v1, p.v[hh].y), z.v[hh].y);
+      } else {
+        v0 = __fadd_rn(v0, b.x);
+        v1 = __fadd_rn(v1, b.y);
       }
-      x = sdf90::pack_bf16(fmaxf(__fadd_rn(v0, b.x), 0.f), fmaxf(__fadd_rn(v1, b.y), 0.f));
+      x = sdf90::pack_bf16(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
       bits[i / 8] |= positive_bits(x) << ((4 * i + 2 * hh) % 32);
     }
   }
@@ -225,7 +341,8 @@ __device__ __forceinline__ Pending rebuild(Smem& s, const Args& g, const Consume
 // 6; out = tanh(h7 . w8 + b8); gz = g (1 - out^2) stored; dz7 = bf16(gz w8
 // [h7 > 0]) packed as the A operand of the first backward product and
 // staged to dz plane 5. gv: g of the thread's two rows.
-__device__ __forceinline__ Pending head(Smem& s, const Args& g, const Consumer& c, const Rows& r,
+template <class In>
+__device__ __forceinline__ Pending head(Smem& s, const Args<In>& g, const Consumer& c, const Rows& r,
                                      const float (&d)[128], uint32_t (&a)[16][4], const float (&gv)[2]) {
   const int q = threadIdx.x & 3, q2 = 2 * q;
   float acc[2] = {0.f, 0.f};
@@ -270,8 +387,8 @@ __device__ __forceinline__ Pending head(Smem& s, const Args& g, const Consumer& 
 // masked by [h_L > 0] (the bits layer L's input epilogue kept). L > 0: dz of
 // layer L - 1, rounded to bf16, packed as the next A operand and staged to
 // dz plane L - 1; L = 0: dx1, float32, stored from the registers.
-template <int L>
-__device__ __forceinline__ Pending backward(Smem& s, const Args& g, const Consumer& c, const Rows& r,
+template <int L, class In>
+__device__ __forceinline__ Pending backward(Smem& s, const Args<In>& g, const Consumer& c, const Rows& r,
                                          const float (&d)[128], uint32_t (&a)[16][4]) {
   uint32_t bits[MASK_WORDS];
   load_bits(s, L, bits);
@@ -292,7 +409,8 @@ __device__ __forceinline__ Pending backward(Smem& s, const Args& g, const Consum
   return L > 0 ? stage(c, r, a, g.dz + (L - 1) * g.plane) : Pending{nullptr, 0};
 }
 
-__device__ __forceinline__ void tile(Smem& s, const Args& g, const Consumer& c, RingPos& pos, long long t) {
+template <class In>
+__device__ __forceinline__ void tile(Smem& s, const Args<In>& g, const Consumer& c, RingPos& pos, long long t) {
   const Rows r = sdf90::rows_of(t, g.shapes, g.points, g.tiles);
   const float* grow = g.g + r.row;
   const float gv[2] = {sdf90::load_f32(grow, r.ok(0)), sdf90::load_f32(grow + 8, r.ok(1))};
@@ -327,9 +445,10 @@ __device__ __forceinline__ void tile(Smem& s, const Args& g, const Consumer& c, 
   backward<0>(s, g, c, r, d, a);
 }
 
+template <class In>
 __global__ void __launch_bounds__(sdf90::THREADS, 1)
 bwd_rows_sm90_kernel(const __grid_constant__ CUtensorMap wmap, const __grid_constant__ CUtensorMap wtmap,
-                     const __grid_constant__ Args args) {
+                     const __grid_constant__ Args<In> args) {
   extern __shared__ unsigned char smem_raw[];
   Smem& s = sdf90::aligned_smem<Smem>(smem_raw);
   sdf90::to_float(s.bias[0], args.bias, (LAYERS + 1) * WIDTH);
@@ -358,21 +477,32 @@ bwd_rows_sm90_kernel(const __grid_constant__ CUtensorMap wmap, const __grid_cons
 
 // The rows pass of one chunk: `w` [6, out, in] and `wt` [6, in, out] bf16
 // stacks; args.tiles is set here.
-inline cudaError_t rows_pass(const void* w, const void* wt, Args args, int device, cudaStream_t stream) {
-  CUtensorMap wmap, wtmap;
-  cudaError_t err = sdf90::weight_map(&wmap, w);
+template <class In>
+inline cudaError_t rows_pass(const void* w, const void* wt, Args<In> args, int device, cudaStream_t stream) {
+  struct WeightMaps {
+    CUtensorMap w, wt;
+  };
+  static sdf90::LastOf<std::pair<const void*, const void*>, WeightMaps> weight_maps;
+  static sdf90::OncePerDevice smem_limit;
+  WeightMaps maps;
+  cudaError_t err = weight_maps.get({w, wt}, &maps, [&](WeightMaps* m) {
+    const cudaError_t e = sdf90::weight_map(&m->w, w);
+    return e != cudaSuccess ? e : sdf90::weight_map(&m->wt, wt);
+  });
   if (err != cudaSuccess) return err;
-  if ((err = sdf90::weight_map(&wtmap, wt)) != cudaSuccess) return err;
   const int smem = static_cast<int>(sizeof(Smem)) + 1024;
-  err = cudaFuncSetAttribute(bwd_rows_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  err = smem_limit(device, [&] {
+    return cudaFuncSetAttribute(bwd_rows_sm90_kernel<In>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  });
   if (err != cudaSuccess) return err;
   int sms = 0;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return err;
   args.tiles = (static_cast<long long>(args.points) + ROWS - 1) / ROWS * args.shapes;
   const long long pairs = (args.tiles + CONSUMERS - 1) / CONSUMERS;
   const unsigned blocks = static_cast<unsigned>(pairs < sms ? pairs : sms);
-  bwd_rows_sm90_kernel<<<blocks, sdf90::THREADS, smem, stream>>>(wmap, wtmap, args);
+  bwd_rows_sm90_kernel<In><<<blocks, sdf90::THREADS, smem, stream>>>(maps.w, maps.wt, args);
   return cudaGetLastError();
 }
 
 }  // namespace sdf90_bwd
+}  // namespace

@@ -5,11 +5,11 @@
 // rows that stays in shared memory from the first layer to the output;
 // only the [rows] float32 result goes back to device memory. The point-GAN
 // generator (point_gen.cu, B7) runs the same products through run_layers
-// with an epilogue of its own (LayerNorm), and the rowwise and stash
-// backwards (sdf_rowwise_bwd.cu, sdf_grid_bwd.cu) its ring, fragments and
-// head. The grid forward and its stash instance (B1, B5a), the points
-// forward (B3) and the sphere trace (B4) run the wgmma trunk of
-// sdf_trunk_sm90.cuh instead.
+// with an epilogue of its own (LayerNorm), and the stash backward's rows
+// kernel (sdf_grid_bwd.cu, B5b) its ring, fragments and head. The grid
+// forward and its stash instance (B1, B5a), the points forward (B3), the
+// sphere trace (B4) and the rows pass of the recompute backwards (B2, B6b)
+// run the wgmma trunk of sdf_trunk_sm90.cuh instead.
 //
 // What bounds it on the H100: the six bf16 trunk products (6 x 2 x 256 x 256
 // flops per row) are tensor-core work; device-memory traffic per row is a
@@ -280,7 +280,7 @@ __device__ __forceinline__ float head(const TrunkSmem& s) {
 }
 
 // The raw-point input of the kernels that project in the kernel (rowwise
-// B6a and its backward B6b, and the generator B7):
+// B6a and the generator B7):
 // the tile's bf16-rounded xyz and both fan-in projection weights as floats.
 // Each projection is a float32 sum of bf16 x bf16 products, rounded to bf16
 // (the TPU kernel's K=8 matmul with a float32 result).
@@ -290,8 +290,8 @@ struct __align__(16) PointsInput {
   float w5p[3][WIDTH];
 };
 
-// Columns col and col + 1 of p @ wp in float32 (the rowwise backward adds
-// them unrounded) ...
+// Columns col and col + 1 of p @ wp in float32 (the generator adds them
+// unrounded) ...
 __device__ __forceinline__ float2 project_f32(const float* p, const float (*wp)[WIDTH], int col) {
   float a0 = p[0] * wp[0][col];
   float a1 = p[0] * wp[0][col + 1];

@@ -1,10 +1,10 @@
 // The Hopper trunk of the SDF kernels: the points forward (sdf_points.cu,
 // B3), the sphere trace (sdf_trace.cu, B4), the grid forward and its stash
-// instance (sdf_grid.cu, B1 and B5a) and B2's rows pass
-// (sdf_grid_bwd_sm90.cuh). The ring, the products and the epilogue below are
-// templates over the block's shared-memory layout and the ring's depth, so
-// each kernel sizes its own. The other forward kernels (B6a, B7) still run
-// the mma.sync trunk of sdf_trunk.cuh.
+// instance (sdf_grid.cu, B1 and B5a) and the rows pass of the recompute
+// backwards B2 and B6b (sdf_grid_bwd_sm90.cuh). The ring, the products and
+// the epilogue below are templates over the block's shared-memory layout and
+// the ring's depth, so each kernel sizes its own. The other forward kernels
+// (B6a, B7) still run the mma.sync trunk of sdf_trunk.cuh.
 //
 // What bounds it on the H100: per row, six bf16 256x256 products on the
 // tensor cores (6 x 2 x 256 x 256 flops); device-memory traffic is a few
@@ -37,7 +37,7 @@
 // On the H100 at 700 W this runs B3 at ~0.70 and B4 at ~0.61 of their
 // bounds' rates; ping-pong and the 6-stage ring were chosen by
 // kernel_variants.py (PERF.md). A kernel that stages tiles on their way to
-// device memory (B5a, B2's rows pass) cuts its ring to 4 stages.
+// device memory (B5a, the backwards' rows pass) cuts its ring to 4 stages.
 //
 // Rounding points (the Pallas kernels', shapegan_tpu/ops/sdf_mlp_pallas.py
 // _points_trunk): the float32 xyz rounded to bf16; the K=3 projections as
@@ -60,6 +60,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
+#include <mutex>
 
 namespace sdf90 {
 
@@ -282,6 +285,59 @@ inline cudaError_t weight_map(CUtensorMap* map, const void* w) {
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// Host steps of a call site that need not run on every call, so that a
+// kernel's launch waits on as little host work as it can.
+//
+// OncePerDevice: set() (a kernel's shared-memory limit, an attribute of the
+// function on a device) runs until it first succeeds on a device.
+class OncePerDevice {
+ public:
+  template <class F>
+  cudaError_t operator()(int device, F&& set) {
+    if (device < 0 || device >= 64) return set();
+    const unsigned long long bit = 1ull << device;
+    if (done_.load(std::memory_order_acquire) & bit) return cudaSuccess;
+    const cudaError_t err = set();
+    if (err == cudaSuccess) done_.fetch_or(bit, std::memory_order_release);
+    return err;
+  }
+
+ private:
+  std::atomic<unsigned long long> done_{0};
+};
+
+// LastOf: the value made for the last key. For values that are functions of
+// their key alone, as a tensor map is of its address and rows: a training
+// loop of equal batches gets the same blocks from PyTorch's caching
+// allocator call after call, and encodes its maps once.
+template <class Key, class Value>
+class LastOf {
+ public:
+  template <class F>
+  cudaError_t get(const Key& key, Value* out, F&& make) {
+    {
+      std::lock_guard<std::mutex> lock(mutex_);
+      if (valid_ && key == key_) {
+        *out = value_;
+        return cudaSuccess;
+      }
+    }
+    const cudaError_t err = make(out);
+    if (err != cudaSuccess) return err;
+    std::lock_guard<std::mutex> lock(mutex_);
+    key_ = key;
+    value_ = *out;
+    valid_ = true;
+    return cudaSuccess;
+  }
+
+ private:
+  std::mutex mutex_;
+  bool valid_ = false;
+  Key key_{};
+  Value value_{};
+};
+
 // The block's shared memory from the dynamic allocation (which the host
 // sizes as sizeof(T) + 1024), aligned to the swizzle atom.
 template <class T>
@@ -455,17 +511,25 @@ __device__ __forceinline__ float2 pair(const float* row, int col) {
   return *reinterpret_cast<const float2*>(row + col);
 }
 
-// Columns col and col + 1 of p @ wp: float32 sums of the bf16 products,
-// rounded to bf16.
-__device__ __forceinline__ float2 project(const float3 p, const float (*wp)[WIDTH], int col) {
-  const float2 w0 = pair(wp[0], col), w1 = pair(wp[1], col), w2 = pair(wp[2], col);
+// A column pair of p @ wp, given the pair of each of wp's three rows (w0,
+// w1, w2): float32 sums of the bf16 products in sdf::project_f32's order
+// (sdf_trunk.cuh), not rounded (the rowwise backward B6b adds them
+// unrounded) ...
+__device__ __forceinline__ float2 project_f32(const float3 p, const float2 w0, const float2 w1, const float2 w2) {
   float a0 = p.x * w0.x;
   float a1 = p.x * w0.y;
   a0 = fmaf(p.y, w1.x, a0);
   a1 = fmaf(p.y, w1.y, a1);
   a0 = fmaf(p.z, w2.x, a0);
   a1 = fmaf(p.z, w2.y, a1);
-  return unpack_bf16(pack_bf16(a0, a1));
+  return make_float2(a0, a1);
+}
+
+// ... and columns col and col + 1 of p @ wp rounded to bf16 (the forward
+// kernels).
+__device__ __forceinline__ float2 project(const float3 p, const float (*wp)[WIDTH], int col) {
+  const float2 a = project_f32(p, pair(wp[0], col), pair(wp[1], col), pair(wp[2], col));
+  return unpack_bf16(pack_bf16(a.x, a.y));
 }
 
 enum EpilogueKind { kBias, kSkip, kHead };

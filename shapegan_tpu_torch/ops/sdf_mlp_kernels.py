@@ -711,20 +711,23 @@ rowwise_forward_cuda.launch_count = 0
 
 
 def rowwise_backward_cuda(pts, w1p, w5p, zz1, zz5, w, b, w8, g):
-    """Launch the rowwise backward kernel (``csrc/sdf_rowwise_bwd.cu``);
-    returns what :func:`rowwise_backward_plain` returns. Its scratch (about
-    7 KB a row) comes from PyTorch's caching allocator, so a training loop
-    of equal batches reuses one block."""
+    """Launch the rowwise backward kernel (``csrc/sdf_rowwise_bwd.cu``: the
+    grid backward's Hopper rows pass and weight kernel, then the d_w8 / d_b8
+    sums); returns what :func:`rowwise_backward_plain` returns. Its scratch
+    (about 6.7 KB a row and 17 MB of partials) comes from PyTorch's caching
+    allocator, so a training loop of equal batches reuses one block."""
     device, n = _check_rowwise(pts, w1p, w5p, zz1, zz5, w, b, w8)
     _check("g", device, g, (n,), torch.float32)
     if n == 0:
         raise ValueError("rowwise backward needs N > 0")
 
-    def buffer(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=device)
-
-    outs = (buffer(n, WIDTH), buffer(n, WIDTH), buffer(len(TRUNK_KEYS), WIDTH, WIDTH),
-            buffer(8, WIDTH), buffer(WIDTH), buffer(1))  # written whole by the kernel
+    # Written whole by the kernel: the per-row pair in one allocation, the
+    # trunk's gradients in another (fewer allocator calls on the host).
+    layers = len(TRUNK_KEYS)
+    dzz1, dzz5 = torch.empty((2, n, WIDTH), dtype=torch.float32, device=device)
+    summed = torch.empty(layers * WIDTH * WIDTH + 9 * WIDTH + 1, dtype=torch.float32, device=device)
+    d_w, d_b, d_w8, d_b8 = summed.split([layers * WIDTH * WIDTH, 8 * WIDTH, WIDTH, 1])
+    outs = (dzz1, dzz5, d_w.view(layers, WIDTH, WIDTH), d_b.view(8, WIDTH), d_w8, d_b8)
     lib = _build.load()
     scratch = torch.empty(lib.sdf_rowwise_backward_scratch_bytes(n), dtype=torch.uint8,
                           device=device)

@@ -468,9 +468,11 @@ def _rowwise_ops(device, n, seed):
     return K.rowwise_operands(params, pts, zz1, zz5), g
 
 
-@pytest.mark.parametrize("n", [3001, 128, 20000])
+@pytest.mark.parametrize("n", [3001, 128, 20000, 1, 63, 65, 129])
 def test_rowwise_kernels_match_plain(cuda, n):
-    """B6a and B6b against their plain versions (3001: a padded tail)."""
+    """B6a and B6b against their plain versions (3001: a padded tail; B6b's
+    64-row tiles: 1 and 63 a tail inside one tile, 65 and 129 a one-row
+    tail, all fewer tiles than the consumer warpgroups)."""
     ops, g = _rowwise_ops(cuda, n, seed=n)
     _close(K.rowwise_forward_cuda(*ops), K.rowwise_forward_plain(*ops))
     got, want = K.rowwise_backward_cuda(*ops, g), K.rowwise_backward_plain(*ops, g)
@@ -483,6 +485,15 @@ def test_rowwise_kernels_match_plain(cuda, n):
         print(f"  {name}: l2 {l2:.3e} max {mx:.3e}")
         assert l2 <= BWD_L2, (name, l2)
         assert name not in ROWWISE_SUMMED or mx <= BWD_MAX, (name, mx)
+
+
+def test_rowwise_backward_launches_are_bitwise_equal(cuda):
+    """B6b's sums run in one fixed order (no atomics): two launches give the
+    same bytes."""
+    ops, g = _rowwise_ops(cuda, 20000, seed=5)
+    a, b = K.rowwise_backward_cuda(*ops, g), K.rowwise_backward_cuda(*ops, g)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def test_autodecoder_step_on_card_matches_cpu(cuda):

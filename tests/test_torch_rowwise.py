@@ -329,6 +329,8 @@ def test_rowwise_wrappers_launch_or_raise():
         sdf_mlp_kernels.rowwise_forward_cuda(*ops)
     with pytest.raises(ValueError, match="CUDA kernel"):
         sdf_mlp_kernels.rowwise_backward_cuda(*ops, g)
+    with pytest.raises(ValueError, match="CUDA kernel"):  # one row: a tail inside one tile
+        sdf_mlp_kernels.rowwise_backward_cuda(*(t[:1] if t.shape[0] == N else t for t in ops), g[:1])
     with pytest.raises(ValueError, match="CUDA kernel"):  # a non-CPU, non-CUDA device
         sdf_mlp_kernels.rowwise_backward(*(t.to("meta") for t in ops), g.to("meta"))
     assert (sdf_mlp_kernels.rowwise_forward_cuda.launch_count,
@@ -336,3 +338,39 @@ def test_rowwise_wrappers_launch_or_raise():
     outs = sdf_mlp_kernels.rowwise_backward(*ops, g)
     assert [tuple(t.shape) for t in outs] == [(N, 256), (N, 256), (6, 256, 256), (8, 256), (256,), (1,)]
     assert not outs[3][[3, 6, 7]].any()
+
+
+# The row-locality of B6b's plain version: its per-row outputs of rows
+# computed in two calls equal one call's bit for bit (the property the
+# kernel's 64-row tiles rely on); its summed outputs differ by the float32
+# order of the sums only (readings on the CPU: relative L2 <= 1e-7).
+SPLIT_N = 3200
+SPLIT_SUMS_L2 = 1e-5
+
+
+@functools.lru_cache(maxsize=1)
+def _split_case():
+    _, params = _params()
+    rng = np.random.default_rng(23)
+    pts = torch.tensor(rng.uniform(-1, 1, (SPLIT_N, 3)).astype(np.float32))
+    table = torch.tensor((rng.normal(size=(SHAPES, 128)) * 0.3).astype(np.float32))
+    rows = table[torch.tensor(rng.integers(0, SHAPES, SPLIT_N))]
+    g = torch.tensor(rng.normal(size=SPLIT_N).astype(np.float32))
+    ops = sdf_mlp_kernels.rowwise_operands(params, pts, *sdf_mlp_kernels.latent_terms(params, rows))
+    return ops, g, sdf_mlp_kernels.rowwise_backward_plain(*ops, g)
+
+
+@pytest.mark.parametrize("split", [63, 65, 3001])
+def test_rowwise_backward_plain_is_row_local(split):
+    """N = 3200 rows in two calls, split at an odd point: dzz1 and dzz5
+    equal one call's bit for bit, and the two calls' d_w, d_b, d_w8 and d_b8
+    add up to one call's within float32 sum order."""
+    (pts, w1p, w5p, zz1, zz5, w, b, w8), g, whole = _split_case()
+    parts = [sdf_mlp_kernels.rowwise_backward_plain(pts[sl], w1p, w5p, zz1[sl], zz5[sl], w, b, w8, g[sl])
+             for sl in (slice(0, split), slice(split, None))]
+    for name, one, a, c in zip(("dzz1", "dzz5"), whole, *parts):
+        assert torch.equal(torch.cat([a, c]), one), name
+    for name, one, a, c in zip(("d_w", "d_b", "d_w8", "d_b8"), whole[2:], parts[0][2:], parts[1][2:]):
+        l2 = float(((a + c).double() - one.double()).norm() / one.double().norm())
+        assert l2 <= SPLIT_SUMS_L2, (name, l2)
+
