@@ -17,9 +17,11 @@ Phases, each fatal on failure (nothing is caught):
      table, the bundled weights) and at N=3001 with random weights, the
      backward B6b also at N = 1, 63, 65 and 129 (tails inside a 64-row tile
      and one-row tails, fewer tiles than consumers) and twice at 20,000 rows,
-     the same bytes; the
-     point-GAN generator kernel at the D step's 32 x 4096 points and at
-     B=3, N=1000 (a tail tile, tiles spanning two items), fresh weights;
+     the same bytes; the rowwise forward B6a also at N = 1, 63, 65 and 129
+     and twice at 20,000 rows, the same bytes; the
+     point-GAN generator kernel at the D step's 32 x 4096 points (twice, the
+     same bytes), at B=3, N=1000 (a tail tile, tiles spanning two items) and
+     at B=2, N=100 (fewer tiles than consumer warpgroups), fresh weights;
      the grid backward's rows pass alone (B2's Hopper rows kernel,
      ``sdf_grid_backward_rows``: its h and dz planes, dx1 and gz against
      ``grid_backward_rows_plain``) at 16 x 64^3 with the bundled weights (one
@@ -42,9 +44,10 @@ Phases, each fatal on failure (nothing is caught):
      and of 20 per-iteration points-kernel trace steps beside the trace
      kernel's 20; the rowwise kernels at 20,000 and 65,536 rows, B6b also
      by pass (``torch.profiler`` device time: its rows pass, the weight
-     kernel, the finishes, the d_w8 / d_b8 sums, the zeroing); the
+     kernel, the finishes, the d_w8 / d_b8 sums, the zeroing), B6a also as
+     a call's share of ten back to back; the
      generator kernel at 32 x 4096 and 6 x 32768 beside the bf16 module (the
-     fused switch's other side); B5a and B5b at 16 x 64^3 for both stash
+     fused switch's other side), and as a call's share of ten back to back; B5a and B5b at 16 x 64^3 for both stash
      sets beside B1 and B2 (the kernels line takes the trainers' set,
      ``hybrid_gan._GRID_STASH``, or (1..6) when the trainers ship the
      recompute); each kernel's bound (the larger of its
@@ -198,11 +201,12 @@ HIT_SURFACE_SHARE = 0.95
 # The point-GAN generator kernel (B7) vs its plain version on the same
 # operands. Its LayerNorm sums run in another order than PyTorch's, so now
 # and then an activation lands on the other side of a bf16 rounding and the
-# flip spreads through the later layers: measured on the H100 max <= 5.4e-3,
-# mean <= 1.4e-5 at both shapes (output scale ~0.5). The max bound only
-# catches gross errors; three wrong kernels read mean >= 1.6e-3 (pre-norm sum
-# rounded to bf16, variance without the mean, every row on item 0's latent
-# rows; PERF.md, section 6), so the mean bound sits between.
+# flip spreads through the later layers: measured on the H100 max <= 4.4e-3,
+# mean <= 1.4e-5 at the three shapes (output scale ~0.5; the mma.sync kernel
+# read max <= 5.4e-3). The max bound only catches gross errors; four wrong
+# kernels read mean >= 1.6e-3 (pre-norm sum rounded to bf16, variance without
+# the mean, every row on item 0's latent rows, the row sums over half a
+# quad; PERF.md, section 6), so the mean bound sits between.
 GEN_MAX_ABS = 1e-2
 GEN_MEAN_ABS = 1e-4
 # One D step's fake cloud from the kernel against the bf16 module's (flax's
@@ -343,6 +347,18 @@ def compare(name: str, got, want, max_bound: float = KERNEL_MAX_ABS,
     if not (max_abs <= max_bound and mean_abs <= mean_bound):
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
     return max_abs
+
+
+def same_bytes(name: str, call) -> None:
+    """Phase 3: two calls of ``call`` (a kernel, its outputs as a sequence)
+    give the same bytes."""
+    import torch
+
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError(f"{name}: two calls differ")
+    log(f"  {name}: two calls give the same bytes")
 
 
 def point_gen_case(batch: int, n: int, seed: int, device):
@@ -1472,12 +1488,7 @@ def main() -> int:
     rows_checks(grid_ops, g16)
     rows_checks(odd_bwd_ops, g3)
     passes_err = max(passes_checks(grid_ops, g16), passes_checks(odd_bwd_ops, g3))
-    first, second = K.grid_backward_cuda(*grid_ops, g16), K.grid_backward_cuda(*grid_ops, g16)
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(first, second)):
-        raise AssertionError("grid_bwd B=16 P=64^3: two calls differ")
-    log("  grid_bwd B=16 P=64^3: two calls give the same bytes")
-    del first, second
+    same_bytes("grid_bwd B=16 P=64^3", lambda: K.grid_backward_cuda(*grid_ops, g16))
     # B5a and B5b with random weights and latents at the G step's shape and
     # at the odd shape (three chunks of B2's size, and one), the sets (2,4,6)
     # and (1..6); random cotangents.
@@ -1511,29 +1522,32 @@ def main() -> int:
         rowwise_bwd_err = max(rowwise_bwd_err, compare_backward(
             f"rowwise_bwd N={n}", K.rowwise_backward_cuda(*ops, g),
             K.rowwise_backward_plain(*ops, g), ROWWISE_BWD_NAMES, ROWWISE_PER_ROW))
-    # B6b's 64-row tiles with random weights: a tail inside one tile (1, 63),
-    # one-row tails (65, 129), fewer tiles than consumer warpgroups; and two
-    # calls at 20,000 rows, the same bytes (its sums run in one fixed order).
+    # B6a's and B6b's 64-row tiles with random weights: a tail inside one
+    # tile (1, 63), one-row tails (65, 129), fewer tiles than consumer
+    # warpgroups; and two calls at 20,000 rows, the same bytes (B6b's sums
+    # run in one fixed order).
     for n in (1, 63, 65, 129):
         ops, g = rowwise_case(rand_params, n, 20 + n, device)
+        rowwise_err = max(rowwise_err, compare(f"rowwise N={n}", K.rowwise_forward_cuda(*ops),
+                                               K.rowwise_forward_plain(*ops)))
         rowwise_bwd_err = max(rowwise_bwd_err, compare_backward(
             f"rowwise_bwd N={n}", K.rowwise_backward_cuda(*ops, g),
             K.rowwise_backward_plain(*ops, g), ROWWISE_BWD_NAMES, ROWWISE_PER_ROW))
     ops, g = rowwise_cases[20000]
-    first, second = K.rowwise_backward_cuda(*ops, g), K.rowwise_backward_cuda(*ops, g)
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(first, second)):
-        raise AssertionError("rowwise_bwd N=20000: two calls differ")
-    log("  rowwise_bwd N=20000: two calls give the same bytes")
-    del first, second
-    # B7 at the D step's shape (stage 3 of the curriculum) and at an odd
-    # shape with a tail tile and tiles spanning two items; fresh weights.
+    same_bytes("rowwise N=20000", lambda: [K.rowwise_forward_cuda(*ops)])
+    same_bytes("rowwise_bwd N=20000", lambda: K.rowwise_backward_cuda(*ops, g))
+    # B7 at the D step's shape (stage 3 of the curriculum), at an odd shape
+    # with a tail tile and tiles spanning two items, and at 200 rows (fewer
+    # tiles than consumer warpgroups, tiles spanning items); fresh weights;
+    # two calls at the D step's shape, the same bytes.
     gen_cases = {(b, n): point_gen_case(b, n, seed, device)
-                 for b, n, seed in ((32, 4096, 10), (3, 1000, 11))}
+                 for b, n, seed in ((32, 4096, 10), (3, 1000, 11), (2, 100, 13))}
     gen_err = 0.0
     for (b, n), (ops, *_rest) in gen_cases.items():
         gen_err = max(gen_err, compare(f"point_gen B={b} N={n}", PG.generate_cuda(*ops),
                                        PG.generate_plain(*ops), GEN_MAX_ABS, GEN_MEAN_ABS))
+    ops = gen_cases[(32, 4096)][0]
+    same_bytes("point_gen B=32 N=4096", lambda: [PG.generate_cuda(*ops)])
 
     log(f"== 4. times at the main path's shapes ({kind}; {smi})")
     trunk_flop = 2 * 6 * 256 * 256
@@ -1673,13 +1687,16 @@ def main() -> int:
                           + 6 * 256 * 256 * 4 + 8 * 256 * 4 + 256 * 4)
         fwd = (time_ms(lambda: K.rowwise_forward_cuda(*ops), iters=20),
                time_ms(lambda: K.rowwise_forward_plain(*ops), iters=10))
+        fwd_queued = time_ms(lambda: [K.rowwise_forward_cuda(*ops) for _ in range(10)], iters=10) / 10
         bwd = (time_ms(lambda: K.rowwise_backward_cuda(*ops, g), iters=20),
                time_ms(lambda: K.rowwise_backward_plain(*ops, g), iters=10))
         if n == 20000:  # the trainer's batch: the kernels line's figures
             times["rowwise"], times["rowwise_bwd"] = fwd, bwd
             bounds["rowwise"], bounds["rowwise_bwd"] = fwd_bound, bwd_bound
-        log(f"  rowwise N={n}: kernel {fwd[0]:.4f} ms ({n * trunk_flop / fwd[0] / 1e9:.1f} TFLOP/s) | "
-            f"plain {fwd[1]:.4f} ms | bound {fwd_bound[0]:.4f} ms ({fwd_bound[1]})")
+        log(f"  rowwise N={n}: kernel {fwd[0]:.4f} ms ({n * trunk_flop / fwd[0] / 1e9:.1f} TFLOP/s, "
+            f"{fwd_bound[0] / fwd[0]:.3f} of the bound's rate; a call of ten back to back {fwd_queued:.4f} ms, "
+            f"{fwd_bound[0] / fwd_queued:.3f}) | plain {fwd[1]:.4f} ms | bound {fwd_bound[0]:.4f} ms "
+            f"({fwd_bound[1]})")
         log(f"  rowwise_bwd N={n}: kernel {bwd[0]:.4f} ms "
             f"({n * 17 * 2 * 256 * 256 / bwd[0] / 1e9:.1f} TFLOP/s over the 17 products) | "
             f"plain {bwd[1]:.4f} ms | bound {bwd_bound[0]:.4f} ms ({bwd_bound[1]})")
@@ -1702,13 +1719,15 @@ def main() -> int:
         with torch.no_grad():
             gen_times = (time_ms(lambda: PG.generate_cuda(*ops), iters=20),
                          time_ms(lambda: PG.generate_plain(*ops), iters=5),
-                         time_ms(lambda: functional_call(generator, gen_params, (pos, z)), iters=10))
+                         time_ms(lambda: functional_call(generator, gen_params, (pos, z)), iters=10),
+                         time_ms(lambda: [PG.generate_cuda(*ops) for _ in range(10)], iters=10) / 10)
         if (b, n) == (32, 4096):
             times["point_gen"], bounds["point_gen"] = gen_times[:2], gen_bound
         log(f"  point_gen {b} x {n}: kernel {gen_times[0]:.4f} ms "
-            f"({2 * rows * 6 * 256 * 256 / gen_times[0] / 1e9:.1f} trunk TFLOP/s) | plain "
-            f"{gen_times[1]:.4f} ms | bf16 module (switch off) {gen_times[2]:.4f} ms | bound "
-            f"{gen_bound[0]:.4f} ms ({gen_bound[1]})")
+            f"({2 * rows * 6 * 256 * 256 / gen_times[0] / 1e9:.1f} trunk TFLOP/s, {gen_bound[0] / gen_times[0]:.3f} "
+            f"of the bound's rate; a call of ten back to back {gen_times[3]:.4f} ms, "
+            f"{gen_bound[0] / gen_times[3]:.3f}) | plain {gen_times[1]:.4f} ms | bf16 module (switch off) "
+            f"{gen_times[2]:.4f} ms | bound {gen_bound[0]:.4f} ms ({gen_bound[1]})")
     for name, (kernel_ms, _) in times.items():
         ms, by, flops = bounds[name]
         log(f"  {name}: {kernel_ms:.3f} ms, {flops / kernel_ms / 1e9:.1f} TFLOP/s of the operations "

@@ -1,26 +1,27 @@
 #!/usr/bin/env python3
 """Do ``chip_smoke.py``'s bounds for the rowwise backward kernel (B6b), the
-point-GAN generator kernel (B7), the stash kernels (B5a, B5b), the points
-kernel (B3), the trace kernel (B4), the grid backward's rows pass (B2) and
-its passes 2-4 tell a wrong kernel from a sound one? On one GPU:
+rowwise forward (B6a), the point-GAN generator kernel (B7), the stash
+kernels (B5a, B5b), the points kernel (B3), the trace kernel (B4), the grid
+backward's rows pass (B2) and its passes 2-4 tell a wrong kernel from a
+sound one? On one GPU:
 
-    python -m shapegan_tpu_torch.kernel_mutants
+    python -m shapegan_tpu_torch.kernel_mutants [GROUP ...]
 
 It holds each sound kernel against its plain version at chip_smoke's cases
 (for B6b also the plain version with float64 sums, the noise floor of bf16
 rounding flips), then builds each wrong copy of ``ops/csrc/sdf_rowwise_bwd.cu``
 and of B6b's instance of the rows pass in ``ops/csrc/sdf_grid_bwd_sm90.cuh``,
-``ops/csrc/point_gen.cu``, ``ops/csrc/sdf_grid.cu`` (B5a),
-``ops/csrc/sdf_grid_bwd.cu`` (B5b), ``ops/csrc/sdf_trunk_sm90.cuh`` (the
-trunk of B3 and B4, held at B3's cases) and ``ops/csrc/sdf_trace.cu`` (B4)
-and ``ops/csrc/sdf_grid_bwd_sm90.cuh`` (B2's rows pass, held by its planes
-at chip_smoke's two cases) and ``ops/csrc/sdf_bwd_passes_sm90.cuh`` (B2's
-passes 2-4, held by chip_smoke's passes check) in a temporary directory (never in the
-checkout) and reports whether it fails the bounds at every case (B4's mutants: at any of chip_smoke's three
-trace cases, since phase 3 runs them all and a wrong lane update shows only
-where lanes resolve in its way). A wrong kernel that passes is printed as
-``PASSES``.
-"""
+``ops/csrc/sdf_rowwise.cu`` (B6a), ``ops/csrc/point_gen.cu`` (B7),
+``ops/csrc/sdf_grid.cu`` (B1, B5a), ``ops/csrc/sdf_grid_bwd.cu`` (B5b),
+``ops/csrc/sdf_trunk_sm90.cuh`` (the trunk of B3 and B4, held at B3's
+cases), ``ops/csrc/sdf_trace.cu`` (B4), ``ops/csrc/sdf_grid_bwd_sm90.cuh``
+(B2's rows pass, held by its planes at chip_smoke's two cases) and
+``ops/csrc/sdf_bwd_passes_sm90.cuh`` (B2's passes 2-4, held by chip_smoke's
+passes check) in a temporary directory (never in the checkout) and reports
+whether it fails the bounds at every case (B4's mutants: at any of
+chip_smoke's three trace cases, since phase 3 runs them all and a wrong lane
+update shows only where lanes resolve in its way). A wrong kernel that
+passes is printed as ``PASSES``. Name groups (of GROUPS) to run fewer."""
 
 from __future__ import annotations
 
@@ -74,14 +75,27 @@ ROWWISE_BWD_MUTANTS = (
 POINT_GEN = "point_gen.cu"
 POINT_GEN_MUTANTS = (
     ("the pre-LayerNorm sum rounded to bf16 (flax's rounding point)", POINT_GEN,
-     "const float2 v = make_float2(v0, v1);",
-     "const float2 v = make_float2(sdf::round_bf16(v0), sdf::round_bf16(v1));"),
+     "      d[4 * j + 2 * h] = v0;\n",
+     "      v0 = sdf90::round_bf16(v0);\n      v1 = sdf90::round_bf16(v1);\n      d[4 * j + 2 * h] = v0;\n"),
     ("every row reading item 0's zz rows", POINT_GEN,
-     "min((p0 + row) / n, static_cast<long long>(batch - 1))",
-     "0LL"),
+     "static_cast<size_t>(min(r.row[h] / g.n, g.batch - 1LL))", "size_t{0}"),
     ("the variance taken without subtracting the mean", POINT_GEN,
-     "const float dev = __fsub_rn(acc[mi][ni][2 * h + e], mean[mi][h]);",
-     "const float dev = acc[mi][ni][2 * h + e];"),
+     "const float dev = d[4 * j + 2 * h + e] - mean[h];", "const float dev = d[4 * j + 2 * h + e];"),
+    ("the LayerNorm and head sums over two lanes of the quad (the second shuffle dropped)", POINT_GEN,
+     "  v += __shfl_xor_sync(0xffffffffu, v, 2);\n", ""),
+)
+# ... in sdf_rowwise.cu (B6a) ...
+ROWWISE = "sdf_rowwise.cu"
+ROWWISE_MUTANTS = (
+    ("zz1 read from the row 8 below", ROWWISE,
+     "sdf90::load_tile(a, g.zz1, r.row, r);", "Rows o = r; o.count -= 8; sdf90::load_tile(a, g.zz1, r.row + 8, o);"),
+    ("pp5 not rounded to bf16 before it is added", ROWWISE,
+     "return sdf90::project(h ? p1 : p0, s.w5p, c);",
+     "return sdf90::project_f32(h ? p1 : p0, sdf90::pair(s.w5p[0], c), sdf90::pair(s.w5p[1], c), "
+     "sdf90::pair(s.w5p[2], c));"),
+    ("zz5 added before pp5", ROWWISE,
+     "sdf90::trunk_epilogue<sdf90::kSkip>(d, a, sdf90::RegisterPair{a}, pp5,",
+     "sdf90::trunk_epilogue<sdf90::kSkip>(d, a, pp5, sdf90::RegisterPair{a},"),
 )
 
 # ... in the wgmma trunk (sdf_trunk_sm90.cuh: the products and the forward
@@ -179,7 +193,7 @@ PASSES_TAIL_MUTANTS = (
 # Every wrong kernel above (the CPU tests check that each one's source text
 # occurs exactly once in its file, so that none is a no-op).
 ALL_MUTANTS = tuple(dict.fromkeys(
-    ROWWISE_BWD_MUTANTS + POINT_GEN_MUTANTS + TRUNK_SM90_MUTANTS + GRID_MUTANTS + GRID_SHAPES_MUTANTS
+    ROWWISE_BWD_MUTANTS + POINT_GEN_MUTANTS + ROWWISE_MUTANTS + TRUNK_SM90_MUTANTS + GRID_MUTANTS + GRID_SHAPES_MUTANTS
     + STASH_BWD_MUTANTS + STASH_BWD_CHUNK_MUTANTS + TRACE_MUTANTS + ROWS_MUTANTS + PASSES_MUTANTS
     + PASSES_TAIL_MUTANTS))
 
@@ -234,6 +248,12 @@ def _rowwise_bwd_check(cs, cases, n, kernel=None):
     got = (kernel or K.rowwise_backward_cuda)(*ops, g)
     return lambda: cs.compare_backward(f"rowwise_bwd N={n}", got, want, cs.ROWWISE_BWD_NAMES,
                                        cs.ROWWISE_PER_ROW)
+
+
+def _rowwise_check(cs, cases, n):
+    ops = cases[n][0]
+    got, want = K.rowwise_forward_cuda(*ops), K.rowwise_forward_plain(*ops)
+    return lambda: cs.compare(f"rowwise N={n}", got, want)
 
 
 def _point_gen_check(cs, cases, shape):
@@ -323,7 +343,7 @@ def _wrong_kernels(mutants, checks, every=True) -> bool:
     return caught
 
 
-GROUPS = ("grid", "rows", "passes", "rowwise_bwd", "point_gen", "stash", "trunk", "trace")
+GROUPS = ("grid", "rows", "passes", "rowwise_bwd", "rowwise", "point_gen", "stash", "trunk", "trace")
 
 
 def main(argv=()) -> int:
@@ -377,9 +397,15 @@ def main(argv=()) -> int:
             _holds(_rowwise_bwd_check(cs, cases, n, kernel=rowwise_backward_float64))
         caught &= _wrong_kernels(ROWWISE_BWD_MUTANTS,
                                  {n: (lambda n=n: _rowwise_bwd_check(cs, cases, n)) for n in cases})
+    if "rowwise" in groups:
+        cases = {n: cs.rowwise_case(p, n, seed, device) for n, p, seed in ((20000, bundled, 6), (3001, random, 7))}
+        print("== B6a against its plain version", flush=True)
+        for n in cases:
+            sound &= _holds(_rowwise_check(cs, cases, n))
+        caught &= _wrong_kernels(ROWWISE_MUTANTS, {n: (lambda n=n: _rowwise_check(cs, cases, n)) for n in cases})
     if "point_gen" in groups:
         gen_cases = {(b, n): cs.point_gen_case(b, n, seed, device)
-                     for b, n, seed in ((32, 4096, 10), (3, 1000, 11))}
+                     for b, n, seed in ((32, 4096, 10), (3, 1000, 11), (2, 100, 13))}
         print("== B7 against its plain version", flush=True)
         for shape in gen_cases:
             sound &= _holds(_point_gen_check(cs, gen_cases, shape))

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """The design choices of the wgmma trunk (``ops/csrc/sdf_trunk_sm90.cuh``),
+of the point-GAN generator B7 on it (``ops/csrc/point_gen.cu``),
 of the grid forward B1 and its stash instance B5a (``ops/csrc/sdf_grid.cu``)
 of the grid backward's Hopper rows pass (``ops/csrc/sdf_grid_bwd_sm90.cuh``)
 and of its passes 2-4 (``ops/csrc/sdf_bwd_passes_sm90.cuh``), and of the
 rowwise backward B6b on them (``ops/csrc/sdf_rowwise_bwd.cu``), timed
 against the shipped kernels. On one GPU:
 
-    python -m shapegan_tpu_torch.kernel_variants [trunk | rows | grid | passes | rowwise]
+    python -m shapegan_tpu_torch.kernel_variants [trunk | rows | grid | passes | rowwise | point_gen]
 
 Each variant is the shipped source with one choice undone, built in a
 temporary directory (never in the checkout) as ``kernel_mutants`` builds
@@ -22,7 +23,10 @@ the passes variants by B2 at 16 x 64^3 and the passes alone over sixteen
 one-shape chunks (one shape's planes), beside ``torch.bmm`` of the weight
 products as a yardstick; the rowwise variants by B6b at 20,000 rows (one
 call, and ten back to back), after B6b's passes (``torch.profiler`` device
-time) at one, about one and a fifth, and two rounds of 64-row tiles.
+time) at one, about one and a fifth, and two rounds of 64-row tiles; the
+point_gen variants by B7 at 32 x 4096 and 6 x 32768 and B6a at 20,000 and
+65,536 rows (a call's share of ten back to back), after a tile's SM cycles
+and nanoseconds in B7 (clock64 and globaltimer in an instrumented build).
 With an argument only that group runs.
 """
 
@@ -113,6 +117,76 @@ ROWWISE_VARIANTS = (
      [(STAGED, "@p st.global.v4.b32 [%0], {%1, %2, %3, %4};", ""), _NO_DX1]),
     ROWS_VARIANTS[-1],
 )
+
+
+POINT_GEN = "point_gen.cu"
+ROWWISE_FWD = "sdf_rowwise.cu"
+# (name, edits): the design choices of B7 (and the producer of B6a), and two
+# diagnoses of its LayerNorm epilogue (results wrong).
+POINT_GEN_VARIANTS = (
+    ("generic loads of the epilogue's shared-memory operands (sdf90::pair), not ld.shared",
+     [(POINT_GEN, "smem_pair(s.", "sdf90::pair(s."), (POINT_GEN, "smem_pair(wp[", "sdf90::pair(wp[")]),
+    ("the producer stopped by the consumers' flag (sdf90::produce), not by its slice count (B7 and B6a)",
+     [(POINT_GEN, "sdf90::produce_slices<STAGES>(s, &wmap, sdf90::block_rounds(args.tiles) * sdf90::CHUNKS);",
+       "sdf90::produce<STAGES>(s, &wmap);"),
+      (ROWWISE_FWD, "sdf90::produce_slices(s, &wmap, sdf90::block_rounds(args.tiles) * sdf90::CHUNKS);",
+       "sdf90::produce(s, &wmap);")]),
+    ("no LayerNorm reductions (mean 0, variance 1: their cost; results wrong)",
+     [(POINT_GEN, "mean[h] = quad_sum(sum[h]) * INV_WIDTH;", "mean[h] = 0.f;"),
+      (POINT_GEN, "inv[h] = rsqrtf(quad_sum(sq[h]) * INV_WIDTH + LN_EPS);", "inv[h] = 1.f;")]),
+    ("no affine map in the normalization (y = x: its cost; results wrong)",
+     [(POINT_GEN, "const float y0 = fmaf((d[4 * j + 2 * h] - mean[h]) * inv[h], gm.x, bt.x);",
+       "const float y0 = d[4 * j + 2 * h] + 0.f * inv[h];"),
+      (POINT_GEN, "const float y1 = fmaf((d[4 * j + 2 * h + 1] - mean[h]) * inv[h], gm.y, bt.y);",
+       "const float y1 = d[4 * j + 2 * h + 1] + 0.f * inv[h];")]),
+)
+# A tile's SM cycles (clock64) and nanoseconds (globaltimer), from the start
+# of B7's tile to its last epilogue, stored in place of its two rows' outputs.
+_TILE_CLOCK = [
+    (POINT_GEN, "  const TileRows r = tile_rows(g, t);\n",
+     "  long long c0 = clock64(), n0;\n  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(n0));\n"
+     "  const TileRows r = tile_rows(g, t);\n"),
+    (POINT_GEN, "  const int q = threadIdx.x & 3;\n  sdf90::store_f32(g.out + r.row[0], v.x,",
+     "  long long c1 = clock64(), n1;\n  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(n1));\n"
+     "  const int q = threadIdx.x & 3;\n  sdf90::store_f32(g.out + r.row[0], static_cast<float>(c1 - c0) + 0.f * v.x,"),
+    (POINT_GEN, "sdf90::store_f32(g.out + r.row[1], v.y,",
+     "sdf90::store_f32(g.out + r.row[1], static_cast<float>(n1 - n0) + 0.f * v.y,"),
+]
+
+
+def point_gen_variants(cs, device) -> None:
+    from shapegan_tpu_torch import checkpoints
+    from shapegan_tpu_torch.ops import point_gen_kernels as PG
+
+    gen = {(b, n): cs.point_gen_case(b, n, seed, device)[0] for b, n, seed in ((32, 4096, 10), (6, 32768, 12))}
+    params = checkpoints.load("sdf_net", base=os.path.join(cs.REPO, "shapegan_tpu", "examples"), device=device)
+    rows = {n: cs.rowwise_case(params, n, 6, device)[0] for n in (20000, 65536)}
+
+    def ten(fn):  # a call's share of ten back to back: the device's time once the host runs ahead
+        return cs.time_ms(lambda: [fn() for _ in range(10)], iters=10) / 10
+
+    def times():
+        with torch.no_grad():
+            out = [ten(lambda ops=ops: PG.generate_cuda(*ops)) for ops in gen.values()]
+        return out + [ten(lambda ops=ops: K.rowwise_forward_cuda(*ops)) for ops in rows.values()]
+
+    with built_with(_TILE_CLOCK):
+        for (b, n), ops in gen.items():
+            out = PG.generate_cuda(*ops).reshape(-1).double()
+            torch.cuda.synchronize()
+            idx = torch.arange(out.numel(), device=device)
+            cycles, ns = out[(idx % 16) < 8], out[(idx % 16) >= 8]
+            print(f"== B7 {b} x {n}: a tile {float(cycles.median()):.0f} SM cycles in {float(ns.median()):.0f} ns "
+                  f"(median over tiles): {float(cycles.sum() / ns.sum()):.3f} GHz", flush=True)
+    for name, edits in POINT_GEN_VARIANTS:
+        print(f"== point_gen: {name}", flush=True)
+        readings = [("shipped", *times())]
+        with built_with(edits):
+            readings += [("variant", *times()) for _ in range(2)]
+        readings.append(("shipped", *times()))
+        for turn, b7, b7_big, b6a, b6a_big in readings:
+            print(f"  {turn}: a call of ten back to back: B7 32 x 4096 {b7:.4f} ms, 6 x 32768 {b7_big:.4f} ms; "
+                  f"B6a 20,000 rows {b6a:.4f} ms, 65,536 {b6a_big:.4f} ms", flush=True)
 
 
 def rows_spills() -> dict:
@@ -294,6 +368,8 @@ def main(argv=()) -> int:
         passes_variants(cs, device)
     if "rowwise" in argv or not argv:
         rowwise_variants(cs, device)
+    if "point_gen" in argv or not argv:
+        point_gen_variants(cs, device)
     if argv and "trunk" not in argv:
         return 0
     chair, code = fit_chair(device)

@@ -7,233 +7,285 @@
 // Replaces the Pallas TPU kernel `_kernel` in
 // shapegan_tpu/ops/point_gen_pallas.py, launched by `generate_fused`, at its
 // rounding points: each layer's product is a float32 sum of bf16 products;
-// bias, position and latent terms are added in float32; the LayerNorm is
-// two-pass float32 (mean, then the mean of squared deviations, eps 1e-6);
-// gamma and beta are bf16; the relu output is rounded to bf16. The head is a
-// float32 row dot with the bf16 w7 row, plus b7, with no tanh.
+// bias, position and latent terms are added to it in float32, unrounded
+// (((product + pos @ wp) + bias) + zz); the LayerNorm is two-pass float32
+// (mean, then the mean of squared deviations, eps 1e-6); gamma and beta are
+// bf16; only the relu output is rounded to bf16. The head is a float32 row
+// dot of h6 with the bf16 w7 row, plus b7, with no tanh.
 //
 // What bounds it on the H100: the six 256x256 bf16 products, 786 kFLOP a
 // row (1.03e11 at the trainer's 32 x 4096 points: 0.104 ms at the tensor
 // cores' 989 TFLOP/s); its bytes are 16 a row (xyz in, one float out) plus
-// ~0.4 MB of weights, ~1 us at 3.35 TB/s. So it is bound by operations, and
-// the design keeps every activation on chip: B1's trunk (sdf_trunk.cuh) runs
-// the products on a 128-row tile in shared memory, the six weight matrices
-// (the DeepSDF trunk's shapes) streamed through its cp.async ring, with this
-// kernel's own epilogue in place of the DeepSDF one. What is new is the
-// LayerNorm in that epilogue: a row's 256 columns lie with 4 warps and, in
-// each, with the 4 lanes of a quad, so each row sum takes two quad shuffles
-// and an exchange of the 4 warps' partial sums through a 128 x 4 float array
-// in shared memory, twice a layer (the mean, then the variance). Layer 0
-// has no product: the same epilogue runs on a zero accumulator, adding the
-// depth-3 product pos @ w0p on CUDA cores (float32 sums of bf16 products, as
-// layer 4's pos @ w4p).
+// ~0.4 MB of weights, ~1 us at 3.35 TB/s. So it is bound by operations. The
+// design is the persistent, warp-specialized wgmma trunk of
+// sdf_trunk_sm90.cuh, as B3's: one block per SM, two consumer warpgroups in
+// ping-pong on 64-row tiles of the flat B * N rows (tile t: rows 64 t on;
+// 2 block + warpgroup, then every 2 x grid), one producer thread cycling the
+// 24 K-slices of w (lin1, lin2, lin3, lin4's first 256 inputs, lin5, lin6:
+// the trunk's K-major layout) through the 6-stage TMA ring, never
+// restarting. The activations stay in registers as the wgmma A operand.
 //
-// Rows are flat over B * N; row r belongs to item r / N, whose latent rows
-// zz1/zz2 (bf16, [B, 256]) are read from device memory (they stay in L2), so
-// a tile may span two items and any B and N work; the tail tile is masked.
-#include "sdf_trunk.cuh"
+// Its own epilogue, not the trunk's (which rounds the product before the
+// bias): in the m64n256 accumulator layout a row's 256 columns lie in the 4
+// lanes of one quad, 64 a lane, so each LayerNorm row sum is a loop over the
+// thread's own values and two xor shuffles (lanes 1 apart, then 2 apart):
+// no shared memory and no barrier among the consumers. Layer 0 has no
+// product: its float32 terms (pos @ w0p, b0, zz1) are summed into the
+// zeroed accumulator and take the same epilogue. The latent rows zz1 / zz2
+// ([B, 256] bf16) of row r's item r / N come from device memory (they stay
+// in L2) into the free A registers before the layer's epilogue, so a tile
+// may span two items and any B and N work; rows past the end compute on
+// zero positions and store nothing (predicated loads and stores, no branch
+// among the products). gamma, beta, the biases, w0p / w4p and w7 sit in
+// shared memory as float32 beside the ring (226 KB in all). The producer
+// knows the block's slices (produce_slices).
+//
+// On the H100 at 700 W the epilogue, not the products, bounds it: its
+// CUDA-core work (the two reductions' passes and the affine map) takes longer
+// than the other consumer's products and is not hidden; without the
+// reductions the kernel takes ~60 % of its time (kernel_variants.py
+// point_gen; PERF.md, section 6).
+#include "sdf_trunk_sm90.cuh"
+#include "sdf_rows_sm90.cuh"
 
 namespace {
 
-using sdf::Acc;
-using sdf::BLOCK_M;
-using sdf::THREADS;
-using sdf::WIDTH;
-using sdf::X_STRIDE;
+using sdf90::bf16;
+using sdf90::CONSUMERS;
+using sdf90::ROWS;
+using sdf90::STAGES;
+using sdf90::WIDTH;
 
-constexpr int ROW_PARTS = WIDTH / sdf::WARP_COLS;  // warps sharing a row: 4
-constexpr int LAYERS = 8;
-constexpr int SKIP_LAYER = 4;  // lin4: + pos @ w4p + b4 + zz2
+constexpr int NORMS = 7;                 // LayerNorms, after model layers 0-6
+constexpr int HEAD_BIAS_ROW = NORMS;     // b's last row: b7 broadcast
 constexpr float LN_EPS = 1e-6f;
 constexpr float INV_WIDTH = 1.f / WIDTH;
 
-struct __align__(16) PointGenSmem {
-  sdf::TrunkSmem trunk;   // trunk.bias: rows b0..b6, b7 broadcast; trunk.w8: the w7 head row
-  sdf::PointsInput in;    // bf16-rounded xyz; in.w1p: w0p, in.w5p: w4p
-  __nv_bfloat16 gamma[LAYERS * WIDTH];
-  __nv_bfloat16 beta[LAYERS * WIDTH];
-  float part[2][BLOCK_M][ROW_PARTS];  // the row sums' partials: mean, variance
+struct __align__(1024) Smem {
+  bf16 ring[STAGES][WIDTH * sdf90::K_CHUNK];
+  float bias[NORMS + 1][WIDTH];  // b0 .. b6, b7 broadcast
+  float gamma[NORMS][WIDTH];
+  float beta[NORMS][WIDTH];
+  float w0p[3][WIDTH];           // lin0's position rows
+  float w4p[3][WIDTH];           // lin4's
+  float w7[WIDTH];               // the head row
+  uint64_t full[STAGES];
+  uint64_t empty[STAGES];
+  int done;
+};
+static_assert(sizeof(Smem) + 1024 <= 232448, "the block's shared memory");
+
+// The launch's operands (a __grid_constant__ parameter).
+struct Args {
+  const float* pos;  // [B * N, 3]
+  const bf16* zz1;   // [B, 256]
+  const bf16* zz2;
+  const bf16* w0p;   // [3, 256]
+  const bf16* w4p;
+  const bf16* bias;  // [8, 256]
+  const bf16* gamma;
+  const bf16* beta;
+  const bf16* w7;    // [256]
+  float* out;        // [B * N]
+  long long rows;    // B * N
+  long long tiles;   // ceil(rows / 64)
+  int batch, n;
 };
 
-__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-// The sum over a row's 256 columns of the per-thread partials `v[mi][h]`
-// (16 columns each): a quad's 4 lanes, then the 4 warps through s.part[k].
-// Every thread of the block must call it.
-__device__ __forceinline__ void row_sums(PointGenSmem& s, int k, float (&v)[4][2]) {
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      v[mi][h] += __shfl_xor_sync(0xffffffffu, v[mi][h], 1);
-      v[mi][h] += __shfl_xor_sync(0xffffffffu, v[mi][h], 2);
-      if ((threadIdx.x & 3) == 0) s.part[k][sdf::frag_row(mi, h)][(threadIdx.x >> 5) & 3] = v[mi][h];
-    }
-  __syncthreads();
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float* p = s.part[k][sdf::frag_row(mi, h)];
-      v[mi][h] = (p[0] + p[1]) + (p[2] + p[3]);
-    }
-}
-
-// Model layer `layer` (0-6) from its float32 product in acc (zero for layer
-// 0): + pos @ wp (layers 0 and 4), + bias, + the row's item's zz row
-// (layers 0 and 4), then LayerNorm, gamma/beta, relu, bf16 into s.x.
-struct LayerNormEpilogue {
-  PointGenSmem& s;
-  const __nv_bfloat16* zz1;  // [B, 256]
-  const __nv_bfloat16* zz2;
-  long long p0;              // the tile's first flat row
-  int n;                     // points per item
-  int batch;
-
-  __device__ __forceinline__ void apply(int layer, Acc& acc) const {
-    const bool latent = layer == 0 || layer == SKIP_LAYER;
-    const float(*wp)[WIDTH] = layer == 0 ? s.in.w1p : s.in.w5p;
-    const __nv_bfloat16* zz = layer == 0 ? zz1 : zz2;
-    const __nv_bfloat16* bias = s.trunk.bias + layer * WIDTH;
-    float sum[4][2];
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = sdf::frag_row(mi, h);
-        const __nv_bfloat16* zrow = nullptr;
-        if (latent) zrow = zz + min((p0 + row) / n, static_cast<long long>(batch - 1)) * WIDTH;
-        sum[mi][h] = 0.f;
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni) {
-          const int col = sdf::frag_col(ni);
-          float v0 = acc[mi][ni][2 * h], v1 = acc[mi][ni][2 * h + 1];
-          if (latent) {
-            const float2 p = sdf::project_f32(s.in.pts[row], wp, col);
-            v0 = __fadd_rn(v0, p.x);
-            v1 = __fadd_rn(v1, p.y);
-          }
-          v0 = __fadd_rn(v0, __bfloat162float(bias[col]));
-          v1 = __fadd_rn(v1, __bfloat162float(bias[col + 1]));
-          if (latent) {
-            const float2 z = load_pair(zrow + col);
-            v0 = __fadd_rn(v0, z.x);
-            v1 = __fadd_rn(v1, z.y);
-          }
-          const float2 v = make_float2(v0, v1);
-          acc[mi][ni][2 * h] = v.x;
-          acc[mi][ni][2 * h + 1] = v.y;
-          sum[mi][h] += v.x + v.y;
-        }
-      }
-    row_sums(s, 0, sum);
-    float mean[4][2], sq[4][2];
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        mean[mi][h] = sum[mi][h] * INV_WIDTH;
-        sq[mi][h] = 0.f;
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float dev = __fsub_rn(acc[mi][ni][2 * h + e], mean[mi][h]);
-            sq[mi][h] = __fadd_rn(sq[mi][h], __fmul_rn(dev, dev));
-          }
-      }
-    row_sums(s, 1, sq);
-    const __nv_bfloat16* gamma = s.gamma + layer * WIDTH;
-    const __nv_bfloat16* beta = s.beta + layer * WIDTH;
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float inv = rsqrtf(__fadd_rn(sq[mi][h] * INV_WIDTH, LN_EPS));
-        const int row = sdf::frag_row(mi, h);
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni) {
-          const int col = sdf::frag_col(ni);
-          float y[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float norm = __fmul_rn(__fsub_rn(acc[mi][ni][2 * h + e], mean[mi][h]), inv);
-            y[e] = __fadd_rn(__fmul_rn(norm, __bfloat162float(gamma[col + e])),
-                             __bfloat162float(beta[col + e]));
-          }
-          *reinterpret_cast<__nv_bfloat162*>(s.trunk.x + row * X_STRIDE + col) =
-              __floats2bfloat162_rn(fmaxf(y[0], 0.f), fmaxf(y[1], 0.f));
-        }
-      }
-  }
-
-  // run_layers' hook: trunk layer l is model layer l + 1.
-  __device__ __forceinline__ void operator()(int layer, Acc& acc) const { apply(layer + 1, acc); }
+// A consumer thread's two rows of its tile: r0 = 16 warp + lane / 4 and
+// r0 + 8.
+struct TileRows {
+  long long row[2];  // flat rows
+  bool ok[2];        // the row exists
+  float3 p[2];       // its bf16-rounded position (zero past the end)
+  size_t item[2];    // its item (the last past the end)
 };
 
-// h6 . w7 + b7 for tile row threadIdx.x / 2 (two threads per row, 128
-// columns each): products of bf16 values, exact in float32, summed in
-// float32. Returns the value in the even thread of each pair.
-__device__ __forceinline__ float raw_head(const sdf::TrunkSmem& s) {
-  const int row = threadIdx.x >> 1, half = threadIdx.x & 1;
-  const __nv_bfloat16* xr = s.x + row * X_STRIDE + half * (WIDTH / 2);
-  const __nv_bfloat16* wr = s.w8 + half * (WIDTH / 2);
-  float sum = 0.f;
-#pragma unroll 8
-  for (int c = 0; c < WIDTH / 2; c += 2) {
-    const float2 xv = load_pair(xr + c);
-    const float2 wv = load_pair(wr + c);
-    sum = fmaf(xv.x, wv.x, sum);
-    sum = fmaf(xv.y, wv.y, sum);
+__device__ __forceinline__ TileRows tile_rows(const Args& g, long long t) {
+  const int u = threadIdx.x & 127;
+  TileRows r;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    r.row[h] = t * ROWS + (u >> 5) * 16 + ((u & 31) >> 2) + 8 * h;
+    r.ok[h] = r.row[h] < g.rows;
+    const float* x = g.pos + r.row[h] * 3;
+    r.p[h] = make_float3(sdf90::round_bf16(sdf90::load_f32(x, r.ok[h])),
+                         sdf90::round_bf16(sdf90::load_f32(x + 1, r.ok[h])),
+                         sdf90::round_bf16(sdf90::load_f32(x + 2, r.ok[h])));
+    r.item[h] = static_cast<size_t>(min(r.row[h] / g.n, g.batch - 1LL));
   }
-  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-  return sum + __bfloat162float(s.bias[(LAYERS - 1) * WIDTH]);
+  return r;
 }
 
-__global__ void __launch_bounds__(THREADS, 1)
-point_gen_kernel(const float* __restrict__ pos, const __nv_bfloat16* __restrict__ zz1,
-                 const __nv_bfloat16* __restrict__ zz2, const __nv_bfloat16* __restrict__ w0p,
-                 const __nv_bfloat16* __restrict__ w4p, const __nv_bfloat16* __restrict__ w,
-                 const __nv_bfloat16* __restrict__ bias, const __nv_bfloat16* __restrict__ gamma,
-                 const __nv_bfloat16* __restrict__ beta, const __nv_bfloat16* __restrict__ w7,
-                 float* __restrict__ out, int batch, int n) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  PointGenSmem& s = *reinterpret_cast<PointGenSmem*>(smem_raw);
+// The latent rows of the thread's two rows' items into the A registers, in
+// the accumulator's column order: a[j / 2][2 (j % 2) + h] = zz[item h] at
+// columns 8 j + 2 (lane % 4), + 1 (all 64 loads in flight together).
+__device__ __forceinline__ void load_latent(uint32_t (&a)[16][4], const bf16* zz, const TileRows& r) {
+  const int q2 = 2 * (threadIdx.x & 3);
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) a[j / 2][2 * (j % 2) + h] = sdf90::shape_pair(zz + r.item[h] * WIDTH, 8 * j + q2);
+}
 
-  const long long p0 = static_cast<long long>(blockIdx.x) * BLOCK_M;
-  const int rows = static_cast<int>(min(static_cast<long long>(BLOCK_M),
-                                        static_cast<long long>(batch) * n - p0));
+// The sum over a row's quad (its 256 columns).
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v;
+}
 
-  sdf::start_weight_ring(s.trunk, w);
-  for (int i = threadIdx.x; i < LAYERS * WIDTH; i += THREADS) {
-    s.trunk.bias[i] = bias[i];
-    s.gamma[i] = gamma[i];
-    s.beta[i] = beta[i];
+// The pair at columns col, col + 1 of a float row in shared memory. The
+// block's shared memory is reached through a generic pointer (aligned_smem),
+// which the compiler turns into generic loads; ld.shared took 3-8 % off
+// the kernel on the H100 (kernel_variants.py point_gen; PERF.md).
+__device__ __forceinline__ float2 smem_pair(const float* row, int col) {
+  float2 v;
+  asm("ld.shared.v2.f32 {%0, %1}, [%2];" : "=f"(v.x), "=f"(v.y) : "r"(sdf90::smem_addr(row + col)));
+  return v;
+}
+
+enum Kind { kNorm, kLatent, kHead };
+
+// Model layer `layer` (0-6) over its float32 product d (zero for layer 0):
+// kLatent (layers 0 and 4) adds pos @ wp (float32 sums of bf16 products,
+// unrounded) and then, after the bias, the item's latent pair that
+// load_latent put in a; every kind adds the bias, then the LayerNorm,
+// gamma / beta and relu, rounded to bf16. kNorm and kLatent pack the result
+// into a, the next layer's A operand; kHead (layer 6) returns h6 . w7 + b7
+// of both rows (each thread sums its 64 columns in ascending order, then
+// the quad).
+//
+// Accumulator d[4 j + 2 h + e]: row r0 + 8 h, column 8 j + 2 (lane % 4) + e;
+// A-fragment register a[j / 2][2 (j % 2) + h] holds the same row's pair at
+// columns 8 j + 2 (lane % 4) + {0, 1}.
+template <int KIND>
+__device__ __forceinline__ float2 layer_norm(const Smem& s, int layer, float (&d)[128], uint32_t (&a)[16][4],
+                                             const TileRows& r) {
+  const int q2 = 2 * (threadIdx.x & 3);
+  const float(*wp)[WIDTH] = layer == 0 ? s.w0p : s.w4p;
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int c = 8 * j + q2;
+    const float2 b = smem_pair(s.bias[layer], c);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v0 = d[4 * j + 2 * h], v1 = d[4 * j + 2 * h + 1];
+      if constexpr (KIND == kLatent) {
+        const float2 pp =
+            sdf90::project_f32(r.p[h], smem_pair(wp[0], c), smem_pair(wp[1], c), smem_pair(wp[2], c));
+        v0 = __fadd_rn(v0, pp.x);
+        v1 = __fadd_rn(v1, pp.y);
+      }
+      v0 = __fadd_rn(v0, b.x);
+      v1 = __fadd_rn(v1, b.y);
+      if constexpr (KIND == kLatent) {
+        const float2 z = sdf90::unpack_bf16(a[j / 2][2 * (j % 2) + h]);
+        v0 = __fadd_rn(v0, z.x);
+        v1 = __fadd_rn(v1, z.y);
+      }
+      d[4 * j + 2 * h] = v0;
+      d[4 * j + 2 * h + 1] = v1;
+      sum[h] += v0 + v1;
+    }
   }
-  for (int i = threadIdx.x; i < WIDTH; i += THREADS) s.trunk.w8[i] = w7[i];
-  for (int i = threadIdx.x; i < BLOCK_M * 3; i += THREADS)
-    s.in.pts[i / 3][i % 3] = i / 3 < rows ? sdf::round_bf16(pos[p0 * 3 + i]) : 0.f;
-  sdf::load_projections(s.in, w0p, w4p);
+  float mean[2], sq[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) mean[h] = quad_sum(sum[h]) * INV_WIDTH;
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float dev = d[4 * j + 2 * h + e] - mean[h];
+        sq[h] = fmaf(dev, dev, sq[h]);
+      }
+  float inv[2], head[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) inv[h] = rsqrtf(quad_sum(sq[h]) * INV_WIDTH + LN_EPS);
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int c = 8 * j + q2;
+    const float2 gm = smem_pair(s.gamma[layer], c), bt = smem_pair(s.beta[layer], c);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float y0 = fmaf((d[4 * j + 2 * h] - mean[h]) * inv[h], gm.x, bt.x);
+      const float y1 = fmaf((d[4 * j + 2 * h + 1] - mean[h]) * inv[h], gm.y, bt.y);
+      const uint32_t x = sdf90::relu_bf16(sdf90::pack_bf16(y0, y1));
+      if constexpr (KIND == kHead) {
+        const float2 f = sdf90::unpack_bf16(x), w = smem_pair(s.w7, c);
+        head[h] = fmaf(f.x, w.x, head[h]);
+        head[h] = fmaf(f.y, w.y, head[h]);
+      } else {
+        a[j / 2][2 * (j % 2) + h] = x;
+      }
+    }
+  }
+  if constexpr (KIND == kHead) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) head[h] = quad_sum(head[h]) + s.bias[HEAD_BIAS_ROW][0];
+  }
+  return make_float2(head[0], head[1]);
+}
+
+template <int N>
+__device__ __forceinline__ void tile(Smem& s, const Args& g, int wg, sdf90::Ring<N>& pos, long long t) {
+  const TileRows r = tile_rows(g, t);
+  uint32_t a[16][4];
+  float d[128];
+  // Model layer 0: pos @ w0p + b0 + zz1, no product.
+  load_latent(a, g.zz1, r);
+#pragma unroll
+  for (int i = 0; i < 128; ++i) d[i] = 0.f;
+  layer_norm<kLatent>(s, 0, d, a, r);
+  // Layers 1-6 on the trunk's products (trunk layer 3 is lin4).
+  sdf90::layer_products(s, wg, pos, a, d);
+  layer_norm<kNorm>(s, 1, d, a, r);
+  sdf90::layer_products(s, wg, pos, a, d);
+  layer_norm<kNorm>(s, 2, d, a, r);
+  sdf90::layer_products(s, wg, pos, a, d);
+  layer_norm<kNorm>(s, 3, d, a, r);
+  sdf90::layer_products(s, wg, pos, a, d);
+  load_latent(a, g.zz2, r);
+  layer_norm<kLatent>(s, 4, d, a, r);
+  sdf90::layer_products(s, wg, pos, a, d);
+  layer_norm<kNorm>(s, 5, d, a, r);
+  sdf90::layer_products(s, wg, pos, a, d);
+  const float2 v = layer_norm<kHead>(s, 6, d, a, r);
+  const int q = threadIdx.x & 3;
+  sdf90::store_f32(g.out + r.row[0], v.x, r.ok[0] && q == 0);
+  sdf90::store_f32(g.out + r.row[1], v.y, r.ok[1] && q == 1);
+}
+
+__global__ void __launch_bounds__(sdf90::THREADS, 1)
+point_gen_kernel(const __grid_constant__ CUtensorMap wmap, const __grid_constant__ Args args) {
+  extern __shared__ unsigned char smem_raw[];
+  Smem& s = sdf90::aligned_smem<Smem>(smem_raw);
+  sdf90::to_float(s.bias[0], args.bias, (NORMS + 1) * WIDTH);
+  sdf90::to_float(s.gamma[0], args.gamma, NORMS * WIDTH);
+  sdf90::to_float(s.beta[0], args.beta, NORMS * WIDTH);
+  sdf90::to_float(s.w0p[0], args.w0p, 3 * WIDTH);
+  sdf90::to_float(s.w4p[0], args.w4p, 3 * WIDTH);
+  sdf90::to_float(s.w7, args.w7, WIDTH);
+  if (threadIdx.x == 0) sdf90::ring_init<STAGES>(s, &wmap);
   __syncthreads();
 
-  const LayerNormEpilogue epilogue{s, zz1, zz2, p0, n, batch};
-  {
-    Acc zero;
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) zero[mi][ni][e] = 0.f;
-    epilogue.apply(0, zero);
+  const int wg = threadIdx.x / 128;
+  if (wg == CONSUMERS) {
+    sdf90::producer_start();
+    if (threadIdx.x == sdf90::PRODUCER_THREAD)
+      sdf90::produce_slices<STAGES>(s, &wmap, sdf90::block_rounds(args.tiles) * sdf90::CHUNKS);
+  } else {
+    sdf90::consumer_start(wg);
+    sdf90::RingPos pos;
+    for (long long t = 2LL * blockIdx.x + wg;; t += 2LL * gridDim.x) {
+      if (!sdf90::consumers_any(t < args.tiles)) break;
+      tile(s, args, wg, pos, t);
+    }
+    sdf90::consumer_finish(s, wg);
   }
-  sdf::run_layers(s.trunk, w, epilogue);
-
-  const float v = raw_head(s.trunk);
-  const int row = threadIdx.x >> 1;
-  if ((threadIdx.x & 1) == 0 && row < rows) out[p0 + row] = v;
 }
 
 }  // namespace
@@ -242,18 +294,38 @@ extern "C" int point_gen_forward(const void* pos, const void* zz1, const void* z
                                  const void* w4p, const void* w, const void* bias, const void* gamma,
                                  const void* beta, const void* w7, void* out, int batch, int n,
                                  int device, void* stream) {
+  static sdf90::LastOf<const void*, CUtensorMap> weight_maps;
+  static sdf90::OncePerDevice smem_limit;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(point_gen_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(sizeof(PointGenSmem)));
+  if (batch <= 0 || n <= 0) return cudaErrorInvalidValue;
+  CUtensorMap wmap;
+  err = weight_maps.get(w, &wmap, [&](CUtensorMap* m) { return sdf90::weight_map(m, w); });
   if (err != cudaSuccess) return err;
-  const unsigned blocks =
-      static_cast<unsigned>((static_cast<long long>(batch) * n + BLOCK_M - 1) / BLOCK_M);
-  using bf = __nv_bfloat16;
-  point_gen_kernel<<<blocks, THREADS, sizeof(PointGenSmem), static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(pos), static_cast<const bf*>(zz1), static_cast<const bf*>(zz2),
-      static_cast<const bf*>(w0p), static_cast<const bf*>(w4p), static_cast<const bf*>(w),
-      static_cast<const bf*>(bias), static_cast<const bf*>(gamma), static_cast<const bf*>(beta),
-      static_cast<const bf*>(w7), static_cast<float*>(out), batch, n);
+  const int smem = static_cast<int>(sizeof(Smem)) + 1024;
+  err = smem_limit(device, [&] {
+    return cudaFuncSetAttribute(point_gen_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  });
+  if (err != cudaSuccess) return err;
+  int sms = 0;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return err;
+  Args args;
+  args.pos = static_cast<const float*>(pos);
+  args.zz1 = static_cast<const bf16*>(zz1);
+  args.zz2 = static_cast<const bf16*>(zz2);
+  args.w0p = static_cast<const bf16*>(w0p);
+  args.w4p = static_cast<const bf16*>(w4p);
+  args.bias = static_cast<const bf16*>(bias);
+  args.gamma = static_cast<const bf16*>(gamma);
+  args.beta = static_cast<const bf16*>(beta);
+  args.w7 = static_cast<const bf16*>(w7);
+  args.out = static_cast<float*>(out);
+  args.rows = static_cast<long long>(batch) * n;
+  args.tiles = (args.rows + ROWS - 1) / ROWS;
+  args.batch = batch;
+  args.n = n;
+  const long long pairs = (args.tiles + CONSUMERS - 1) / CONSUMERS;
+  const unsigned blocks = static_cast<unsigned>(pairs < sms ? pairs : sms);
+  point_gen_kernel<<<blocks, sdf90::THREADS, smem, static_cast<cudaStream_t>(stream)>>>(wmap, args);
   return cudaGetLastError();
 }

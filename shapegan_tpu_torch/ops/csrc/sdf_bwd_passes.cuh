@@ -4,9 +4,9 @@
 // passes over device-memory scratch: a rows pass, then the Hopper passes of
 // sdf_bwd_passes_sm90.cuh. B2's and B6b's rows pass is the Hopper kernel of
 // sdf_grid_bwd_sm90.cuh; B5b's rows kernel (sdf_grid_bwd.cu) runs a 128-row
-// tile on the sdf_trunk.cuh main loop, the forward rebuilt and then the six
-// products dh = dz @ W^T on the same weight ring, fed the [in, out] stack
-// (here: RowsSmem, load_weight_slice, bwd_mma_chunk). The passes' partials
+// tile on sdf_trunk.cuh's mma.sync pieces, the forward rebuilt and then the
+// six products dh = dz @ W^T on the same weight ring, fed the [in, out]
+// stack (here: RowsSmem, load_weight_slice, bwd_mma_chunk). The passes' partials
 // are summed in one fixed order (bwd_finish_kernel): no atomics, so a
 // result is the same from run to run. Everything here sits in an unnamed
 // namespace: each backward source has its own copy.

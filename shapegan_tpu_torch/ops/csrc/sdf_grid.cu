@@ -105,14 +105,7 @@ struct NoSkip {
   __device__ __forceinline__ float2 operator()(int, int, int) const { return make_float2(0.f, 0.f); }
 };
 
-// ... or the row's pp5 pair, loaded into the A register that the epilogue's
-// result replaces.
-struct RegisterSkip {
-  const uint32_t (&a)[16][4];
-  __device__ __forceinline__ float2 operator()(int j, int h, int) const {
-    return sdf90::unpack_bf16(a[j / 2][2 * (j % 2) + h]);
-  }
-};
+// ... or the row's pp5 pair from the A registers (sdf90::RegisterPair).
 
 // Trunk layer L (0..5: w2..w7) of a tile after its products d: the
 // epilogue into a (h_{L+2}), staged for stash position L + 1. Layer 5 is the
@@ -123,7 +116,7 @@ __device__ __forceinline__ Pending hidden(const S& s, const Args& g, const Consu
   if (L == SKIP_LAYER) {
     const bf16* z5 = g.zz5 + static_cast<size_t>(r.shape) * WIDTH;
     sdf90::load_tile(a, g.pp5, r.point, r);
-    sdf90::trunk_epilogue<sdf90::kSkip>(d, a, sdf90::ShapePair{z5}, RegisterSkip{a}, s.w8, &s.bias[LAYERS][0]);
+    sdf90::trunk_epilogue<sdf90::kSkip>(d, a, sdf90::ShapePair{z5}, sdf90::RegisterPair{a}, s.w8, &s.bias[LAYERS][0]);
   } else {
     sdf90::trunk_epilogue<sdf90::kBias>(d, a, sdf90::RowPair{s.bias[L]}, NoSkip{}, s.w8, &s.bias[LAYERS][0]);
   }

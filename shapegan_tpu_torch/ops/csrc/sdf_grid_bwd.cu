@@ -32,9 +32,9 @@
 //      sdf_grid_bwd_sm90.cuh (wgmma, TMA weight ring, persistent
 //      warp-specialized blocks; it writes the same scratch). B5b runs
 //      bwd_rows_kernel below, one block per 128-row tile of one shape: the
-//      forward layers that are rebuilt (the Plan's sequence) on the
-//      sdf_trunk.cuh main loop (same cp.async weight ring and mma.sync
-//      fragments, with this file's own epilogue), then the six backward
+//      forward layers that are rebuilt (the Plan's sequence) on
+//      sdf_trunk.cuh's cp.async weight ring and mma.sync fragments, with
+//      this file's own epilogue, then the six backward
 //      products dh = dz @ W^T on the same ring, fed the [in, out] weight
 //      stack. Before a rebuilt layer whose input position is stashed, and
 //      before the head when h7 is stashed, the tile's rows of that plane

@@ -1,7 +1,9 @@
 // The rows of a 64-row tile over the point grid, for the Hopper grid kernels
 // (sdf_grid.cu: B1 and its stash instance B5a; sdf_grid_bwd_sm90.cuh: B2's
-// rows pass): the tile order, predicated access to per-row operands, and the
-// staged stores of a bf16 tile to a [shapes x P, 256] plane.
+// rows pass) and the row kernels (sdf_rowwise.cu: B6a, one "shape" of N
+// rows; point_gen.cu: B7's predicated loads and stores): the tile order,
+// predicated access to per-row operands, and the staged stores of a bf16
+// tile to a [shapes x P, 256] plane.
 //
 // * Tile order. Tile t is shape t % shapes over points 64 (t / shapes) on,
 //   so the shapes' tiles of one point tile run back to back and their rows
@@ -63,6 +65,16 @@ __device__ __forceinline__ uint32_t shape_pair(const bf16* row, int col) {
 struct ShapePair {
   const bf16* row;
   __device__ __forceinline__ float2 operator()(int c) const { return unpack_bf16(shape_pair(row, c)); }
+};
+
+// A row's pair of a tile loaded into the A registers that the epilogue's
+// result replaces (load_tile below), as trunk_epilogue's per-row add or its
+// skip: B1's pp5, B6a's zz5.
+struct RegisterPair {
+  const uint32_t (&a)[16][4];
+  __device__ __forceinline__ float2 operator()(int j, int h, int) const {
+    return unpack_bf16(a[j / 2][2 * (j % 2) + h]);
+  }
 };
 
 // ------------------------------------------------------------ the tile

@@ -1,10 +1,13 @@
 // The Hopper trunk of the SDF kernels: the points forward (sdf_points.cu,
 // B3), the sphere trace (sdf_trace.cu, B4), the grid forward and its stash
-// instance (sdf_grid.cu, B1 and B5a) and the rows pass of the recompute
+// instance (sdf_grid.cu, B1 and B5a), the rowwise forward (sdf_rowwise.cu,
+// B6a), the point-GAN generator (point_gen.cu, B7: the ring and the products,
+// with a LayerNorm epilogue of its own) and the rows pass of the recompute
 // backwards B2 and B6b (sdf_grid_bwd_sm90.cuh). The ring, the products and
 // the epilogue below are templates over the block's shared-memory layout and
-// the ring's depth, so each kernel sizes its own. The other forward kernels
-// (B6a, B7) still run the mma.sync trunk of sdf_trunk.cuh.
+// the ring's depth, so each kernel sizes its own. Only the stash backward's
+// rows kernel (B5b, sdf_grid_bwd.cu) keeps the mma.sync code of
+// sdf_trunk.cuh.
 //
 // What bounds it on the H100: per row, six bf16 256x256 products on the
 // tensor cores (6 x 2 x 256 x 256 flops); device-memory traffic is a few
@@ -49,8 +52,7 @@
 // (fmaf), then the 4 lanes of its quad add theirs by two xor shuffles
 // (lanes 1 apart, then 2 apart), then b8 is added.
 //
-// Layout contract with the Python wrappers (ops/sdf_mlp_kernels.py), the
-// same as sdf_trunk.cuh's:
+// Layout contract with the Python wrappers (ops/sdf_mlp_kernels.py):
 //   w    [6, 256(out), 256(in)] bf16: w2, w3, w4, w5h, w6, w7, transposed
 //   b    [8, 256] bf16: rows b2, b3, b4, <unused>, b6, b7, b8 broadcast, <unused>
 //   w8   [256] bf16: the head weight as a row
@@ -63,6 +65,7 @@
 
 #include <atomic>
 #include <mutex>
+#include <type_traits>
 
 namespace sdf90 {
 
@@ -433,6 +436,36 @@ __device__ __forceinline__ void produce(S& s, const CUtensorMap* map) {
   drain(s, pos, issued);
 }
 
+// The producer's one thread when the block's work is known at launch: the
+// first `slices` slices in order through the N-stage ring, then it waits
+// for its last copies. It waits only on stages that a consumer will
+// release, so the block ends with its consumers. (`produce` stops on the
+// consumers' flag, which it reads between waits on a stage that no consumer
+// will release any more: mbarrier.try_wait may hold it there up to its
+// suspend time limit first.)
+template <int N = STAGES, class S>
+__device__ __forceinline__ void produce_slices(S& s, const CUtensorMap* map, long long slices) {
+  Ring<N> pos;
+  int chunk = 0;
+  for (long long i = 0; i < slices; ++i) {
+    if (i >= N) bar_wait(&s.empty[pos.stage], pos.phase ^ 1u);  // both consumers released its last fill
+    bar_expect(&s.full[pos.stage], SLICE_BYTES);
+    load_slice(s.ring[pos.stage], map, chunk, &s.full[pos.stage]);
+    chunk = chunk + 1 == CHUNKS ? 0 : chunk + 1;
+    pos.next();
+  }
+  drain(s, pos, static_cast<int>(slices < N ? slices : N));
+}
+
+// The evaluations of this block when its consumers take tiles 2 block +
+// warpgroup, then every 2 x grid, of `tiles` and vote per tile
+// (consumers_any): both run every round, one past the end on an empty tile.
+// Each evaluation takes CHUNKS slices.
+__device__ __forceinline__ long long block_rounds(long long tiles) {
+  const long long first = 2LL * blockIdx.x, step = 2LL * gridDim.x;
+  return first < tiles ? (tiles - first + step - 1) / step : 0;
+}
+
 // Consumer warpgroup frees a stage (one arrival a warpgroup).
 template <class S>
 __device__ __forceinline__ void release(S& s, int stage) {
@@ -512,8 +545,8 @@ __device__ __forceinline__ float2 pair(const float* row, int col) {
 }
 
 // A column pair of p @ wp, given the pair of each of wp's three rows (w0,
-// w1, w2): float32 sums of the bf16 products in sdf::project_f32's order
-// (sdf_trunk.cuh), not rounded (the rowwise backward B6b adds them
+// w1, w2): float32 sums of the bf16 products, x first, then y and z by FMA,
+// not rounded (the rowwise backward B6b and the generator B7 add them
 // unrounded) ...
 __device__ __forceinline__ float2 project_f32(const float3 p, const float2 w0, const float2 w1, const float2 w2) {
   float a0 = p.x * w0.x;
@@ -535,24 +568,29 @@ __device__ __forceinline__ float2 project(const float3 p, const float (*wp)[WIDT
 enum EpilogueKind { kBias, kSkip, kHead };
 
 // A layer's epilogue over the accumulator d: each product rounded to bf16,
-// (kSkip) plus the row's pp5 pair, rounded, plus the bf16 pair add(c),
+// (kSkip) plus the row's pp5 pair, rounded, plus the bf16 pair of `add`,
 // rounded, relu. kBias and kSkip pack the result into a, the next layer's A
 // operand (and kHead too when kPackHead: h7 for a stash plane); kHead
 // returns tanh(h7 . w8 + b8) of both rows (the order of the sum: see the top
-// of this file). add(c): the bias (or zz5) pair at columns c, c + 1;
-// skip(j, h, c): the pp5 pair of row r0 + 8 h at those columns, read before
-// a[j / 2][2 (j % 2) + h] is written.
+// of this file). add(c): the bias (or a shape's zz5) pair at columns c,
+// c + 1, the same for both rows; or add(j, h, c): row r0 + 8 h's own pair
+// (B6a's zz5); skip(j, h, c): the pp5 pair of row r0 + 8 h at those
+// columns. A per-row add and skip are read before a[j / 2][2 (j % 2) + h]
+// is written, so either may come from those registers.
 template <int KIND, bool kPackHead = false, class Add, class Skip>
 __device__ __forceinline__ float2 trunk_epilogue(const float (&d)[128], uint32_t (&a)[16][4], Add add,
                                                  Skip skip, const float* w8, const float* b8) {
+  constexpr bool kRowAdd = std::is_invocable_v<const Add&, int, int, int>;
   const int q = threadIdx.x & 3;
   float head[2] = {0.f, 0.f};
 #pragma unroll
   for (int j = 0; j < 32; ++j) {
     const int c = 8 * j + 2 * q;
-    const float2 b = add(c);
+    float2 b;
+    if constexpr (!kRowAdd) b = add(c);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
+      if constexpr (kRowAdd) b = add(j, h, c);
       float2 v = unpack_bf16(pack_bf16(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]));
       if (KIND == kSkip) {
         const float2 pp = skip(j, h, c);

@@ -4,10 +4,11 @@
 One hand-written CUDA kernel (``csrc/point_gen.cu``, replaces ``_kernel`` /
 ``generate_fused`` of the JAX package): the whole default
 :class:`~shapegan_tpu_torch.models.point_sdf_net.SDFGenerator` forward, pos
-[B, N, 3] float32 → raw SDF [B, N] float32, with every activation kept in
-shared memory. Laid out as :mod:`~shapegan_tpu_torch.ops.sdf_mlp_kernels`:
-a wrapper (:func:`generate_cuda`: checks, allocates, launches on the current
-stream, counts its launches in ``launch_count``), a plain PyTorch version
+[B, N, 3] float32 → raw SDF [B, N] float32, with every activation kept on
+chip (in registers, on the wgmma trunk of ``csrc/sdf_trunk_sm90.cuh``).
+Laid out as :mod:`~shapegan_tpu_torch.ops.sdf_mlp_kernels`: a wrapper
+(:func:`generate_cuda`: checks, allocates, launches on the current stream,
+counts its launches in ``launch_count``), a plain PyTorch version
 (:func:`generate_plain`) at the Pallas kernel's rounding points, and a
 dispatcher (:func:`generate`) that takes the plain version only for CPU
 tensors; a CUDA tensor goes to the kernel, which raises if it cannot run.
@@ -45,9 +46,10 @@ SKIP_LAYER = 4  # lin4: adds pos @ w4p and zz2
 
 # A/B switch of the D step's fake generation: the kernel (True) or the bf16
 # module through cuBLAS and element-wise LayerNorm (False). The JAX package
-# leaves its TPU kernel off. On the H100 (700 W) the kernel takes 0.60-0.61
-# ms at 32 x 4096 points against 8.1-8.6 ms for the module, and the D step
-# 11.4-15.0 ms against 18.4-19.0 (PERF.md, section 6), so it is on here.
+# leaves its TPU kernel off. On the H100 (700 W) the kernel takes 0.35 ms
+# at 32 x 4096 points against 8.3 ms for the module, and the D step 14.3 ms
+# against 18.7 (chip_smoke.py phases 4 and 10; PERF.md, section 6), so it
+# is on here.
 _FORCE_FUSED_GENERATE = True
 
 Params = Dict[str, torch.Tensor]

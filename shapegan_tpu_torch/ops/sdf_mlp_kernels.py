@@ -45,7 +45,7 @@ the plain version only for tensors
 on the CPU; a CUDA tensor goes to the kernel, which raises if it cannot
 run. There is no fallback.
 
-Operand layout (shared with the kernels, see ``csrc/sdf_trunk.cuh``):
+Operand layout (shared with the kernels, see ``csrc/sdf_trunk_sm90.cuh``):
 ``w`` [6, 256(out), 256(in)] bf16 — w2, w3, w4, w5h, w6, w7 transposed;
 ``b`` [8, 256] bf16 — rows b2, b3, b4, <unused>, b6, b7, b8 broadcast,
 <unused> (the JAX package's ``BIAS_STACK_ORDER``); ``w8`` [256] bf16.

@@ -31,7 +31,8 @@ JSON line of the named groups' readings (all four by default; see
   kernel name: the rows pass, the weight pass, the column sums, the
   finishes, the tail (dzz5 and the d_w8 / d_b8 sums), the zeroing);
 * the rowwise forward B6a at 20,000 rows and the point generator B7 at 32 x
-  4096 (CUDA events, median of 20);
+  4096 (CUDA events, median of 20), and ptxas's spill stores and registers
+  of both kernels in the turn's build;
 * one autodecoder step at 20,000 points (``profile_slice``'s slice E: the
   trainer's step through B6a and B6b, and the bf16 autograd yardstick in
   the same process): host clock after a synchronize, median of 20 after 3,
@@ -112,6 +113,26 @@ def _host_issue_us(fn, iters: int = 20) -> float:
         times.append((time.perf_counter() - t0) * 1e6)
     torch.cuda.synchronize()
     return statistics.median(times[2:])
+
+
+def _spills(kernels) -> dict:
+    """ptxas's report (-v) in this turn's build: {kernel: [bytes of spill
+    stores a thread, registers]} for each kernel whose mangled name holds
+    a name in ``kernels``."""
+    import re
+
+    from shapegan_tpu_torch.ops import _build
+
+    lines = _build.build_log().splitlines()
+    out = {}
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        name = next((k for k in kernels if m and k in m.group(1)), None)
+        if name:
+            text = " ".join(lines[i + 1:i + 4])
+            spill, regs = re.search(r"(\d+) bytes spill stores", text), re.search(r"Used (\d+) registers", text)
+            out[name] = [int(spill.group(1)) if spill else None, int(regs.group(1)) if regs else None]
+    return out
 
 
 def _autodecoder(out: dict, device) -> None:
@@ -198,6 +219,7 @@ def measure(groups=GROUPS) -> dict:
         with torch.no_grad():
             out["b7_ms"] = cs.time_ms(lambda: PG.generate_cuda(*gops), iters=20)
         del gops
+        out["b6a_b7_spills"] = _spills(("sdf_rowwise_kernel", "point_gen_kernel"))
         _autodecoder(out, device)
         torch.cuda.empty_cache()
 
@@ -263,6 +285,8 @@ def main(argv) -> int:
                 "ad_step_device_ms"):
         if key in results[0]:
             print(f"  {key}: " + " / ".join(f"{r[key]:.4f}" for r in results))
+    if "b6a_b7_spills" in results[0]:
+        print("  b6a_b7_spills (bytes, registers): " + " / ".join(json.dumps(r["b6a_b7_spills"]) for r in results))
     for passes in ("b2_passes_ms", "b6b_passes_ms"):
         for name in results[0].get(passes, ()):
             print(f"  {passes[:3]} {name}: " + " / ".join(f"{r[passes][name]:.4f}" for r in results))

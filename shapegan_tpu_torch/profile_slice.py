@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the generation slice's time goes, on one GPU.
 
-    python -m shapegan_tpu_torch.profile_slice [iters=N]
+    python -m shapegan_tpu_torch.profile_slice [iters=N] [slices=ABCDEFG]
 
 With the bundled network at full width (slices A-C; it is not a trained
 shape, so slice B's mesh is the sphere mask) and a chair fitted on the card
@@ -46,7 +46,8 @@ shape, so slice B's mesh is the sphere mask) and a chair fitted on the card
   (``apply_grid_trainable``), each the median of ``iters`` on CUDA events
   and with its peak device memory.
 
-It needs CUDA and builds the kernels if they are not built yet.
+It needs CUDA and builds the kernels if they are not built yet. ``slices=EF``
+(letters of ABCDEFG) runs only those slices.
 """
 
 from __future__ import annotations
@@ -139,16 +140,9 @@ def profile_device(fn: Callable[[], object], top: int = 6):
     return wall, total, [(e.key, e.self_device_time_total / 1e3) for e in events[:top]]
 
 
-def main(argv: Optional[List[str]] = None) -> int:
-    if not torch.cuda.is_available():
-        print("profile_slice: CUDA is not available", file=sys.stderr)
-        return 1
-    iters = int(parse_cli(argv).extras.get("iters", 5))
-    device = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    print(f"card: {smi.splitlines()[0]}")
-
+def profile_generation(device: torch.device, iters: int) -> None:
+    """Slices A and B: volume generation at 16 x 64^3 and one mesh frame at
+    128^3 / 256^2 on the bundled network."""
     net = SDFNet(checkpoints.load("sdf_net", base=EXAMPLES, device=device))
     codes = checkpoints.load_array(LATENT_CODES_FILENAME, base=EXAMPLES)
     latents = torch.tensor(catmull_rom(codes, 2)[:16].astype(np.float32), device=device)
@@ -172,11 +166,24 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"  {phase}: {statistics.median(f[phase] for f in frames):.3f}")
 
     report("one get_mesh at 128^3", *profile_device(lambda: net.get_mesh(code, 128)))
-    profile_train_steps(device, iters)
-    profile_raymarch(device, iters)
-    profile_autodecoder(device, iters)
-    profile_point_gan(device, iters)
-    profile_stash(device, iters)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    """The slices named in ``slices=`` (letters of ABCDEFG; all by default)."""
+    if not torch.cuda.is_available():
+        print("profile_slice: CUDA is not available", file=sys.stderr)
+        return 1
+    extras = parse_cli(argv).extras
+    iters = int(extras.get("iters", 5))
+    slices = str(extras.get("slices", "ABCDEFG")).upper()
+    device = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(f"card: {smi.splitlines()[0]}")
+    for letters, profile in (("AB", profile_generation), ("C", profile_train_steps), ("D", profile_raymarch),
+                             ("E", profile_autodecoder), ("F", profile_point_gan), ("G", profile_stash)):
+        if any(letter in slices for letter in letters):
+            profile(device, iters)
     return 0
 
 
