@@ -220,8 +220,10 @@ GEN_VS_MODULE_MAX_ABS = 2e-2
 # 0, largest difference 0. A kernel that writes each plane one layer late
 # differs on nearly every element (PERF.md, section 6). The stash backward
 # (B5b) is held to B2's BWD_L2 / BWD_MAX against its plain version on the
-# same planes: measured L2 <= 6.7e-4 on every output, max <= 9.3e-4 on the
-# summed ones; the mutants read L2 >= 8e-2.
+# same planes: measured on the H100, L2 <= 6.7e-4 on every output and max
+# <= 9.3e-4 on the summed ones at STASH_SETS; at STASH_CHECK_SETS, whose
+# runs of rebuilt layers carry B2's own noise, L2 <= 2.6e-3 and max <=
+# 8.1e-3; six wrong kernels (kernel_mutants.py) read L2 >= 8.3e-2.
 STASH_PLANE_SHARE = 1e-4
 STASH_PLANE_MAX = 0.1
 # B2's rows pass alone (sdf_grid_backward_rows) against
@@ -252,6 +254,12 @@ PASSES_L2 = 1e-3
 PASSES_MAX = 1e-3
 STASH_SETS = ((2, 4, 6), (1, 2, 3, 4, 5, 6))
 FULL_STASH = STASH_SETS[-1]
+# Stash sets held at phase 3 for correctness only, beside STASH_SETS: one
+# for each branch of B5b's plan that those two do not take. A stashed input
+# to the skip layer (3,), a stashed skip output (4,), h7 alone (6,), and a
+# stashed position 0 (ignored) with a rebuilt run between stashed ones
+# (0, 1, 5).
+STASH_CHECK_SETS = ((3,), (4,), (6,), (0, 1, 5))
 # The stash sets of the G-step A/B (the JAX package's bench_profile.py
 # stash_breakdown sets).
 AB_SETS = (None, (2, 4, 6), (1, 2, 4, 6), (1, 2, 3, 4, 5, 6))
@@ -550,16 +558,19 @@ def profiled_call(fn, needed=()):
     raise AssertionError(f"the profiler saw no kernel named like {missing} in {PROFILE_TRIES} recordings of one call")
 
 
-def passes_device_ms(fn) -> float:
-    """Device time (ms, torch.profiler) of the grid backward's passes 2-4 in
-    one call of fn: the kernels of sdf_bwd_passes_sm90.cuh and the finishes
-    (not the rows pass, nor the zeroing of the outputs)."""
+def grid_bwd_split(fn) -> tuple:
+    """Device time (ms, torch.profiler) of a grid backward's (B2's or B5b's)
+    rows pass and of its passes 2-4 in one call of fn: the rows kernel of
+    sdf_grid_bwd_sm90.cuh; the kernels of sdf_bwd_passes_sm90.cuh and the
+    finishes (not the zeroing of the outputs)."""
     import torch
 
-    events = profiled_call(fn, needed=("bwd_rows_sm90_kernel", "sdf90_passes", "bwd_finish_kernel"))
-    return sum(e.self_device_time_total for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and ("sdf90_passes" in e.key or "bwd_finish_kernel" in e.key)) / 1e3
+    events = [e for e in profiled_call(fn, needed=("bwd_rows_sm90_kernel", "sdf90_passes", "bwd_finish_kernel"))
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = sum(e.self_device_time_total for e in events if "bwd_rows_sm90_kernel" in e.key)
+    passes = sum(e.self_device_time_total for e in events
+                 if "sdf90_passes" in e.key or "bwd_finish_kernel" in e.key)
+    return rows / 1e3, passes / 1e3
 
 
 # B6b's kernels by a part of their names in a torch.profiler trace: its rows
@@ -641,7 +652,7 @@ def stash_case(params, points, batch: int, seed: int, device):
     return K.grid_operands(params, points, latents), g
 
 
-def stash_checks(cases: dict, sets=STASH_SETS) -> tuple:
+def stash_checks(cases: dict, sets=STASH_SETS + STASH_CHECK_SETS) -> tuple:
     """Phase 3: B5a and B5b at each case (name -> (grid operands, cotangent))
     and stash set; B5b runs on B5a's planes, and its plain version on the
     same planes. Returns the largest errors (B5a's output, B5b's outputs)."""
@@ -1490,8 +1501,8 @@ def main() -> int:
     passes_err = max(passes_checks(grid_ops, g16), passes_checks(odd_bwd_ops, g3))
     same_bytes("grid_bwd B=16 P=64^3", lambda: K.grid_backward_cuda(*grid_ops, g16))
     # B5a and B5b with random weights and latents at the G step's shape and
-    # at the odd shape (three chunks of B2's size, and one), the sets (2,4,6)
-    # and (1..6); random cotangents.
+    # at the odd shape (sixteen chunks of one shape, and one chunk), the sets
+    # of STASH_SETS and STASH_CHECK_SETS; random cotangents.
     stash_cases = {"B=16 P=64^3": stash_case(rand_params, grid64, 16, 13, device),
                    "B=3 P=3001": stash_case(rand_params, odd_pts, 3, 14, device)}
     fwd_err, stash_bwd_err = stash_checks(stash_cases)
@@ -1600,7 +1611,7 @@ def main() -> int:
     # outputs, 0.54 GB of d_pp, which B2 does once a call). They read h1..h7
     # and dz1..dz6 (bf16), dx1 and gz once, write d_pp1 / d_pp5 and the small
     # outputs once, and do the 6 weight products a row.
-    passes_ms = passes_device_ms(lambda: K.grid_backward_cuda(*grid_ops, g16))
+    in_call_rows_ms, passes_ms = grid_bwd_split(lambda: K.grid_backward_cuda(*grid_ops, g16))
     planes = K.grid_backward_rows_cuda(*shapes_of(grid_ops, g16, 0))
     alone_ms = time_ms(lambda: [K.grid_backward_passes_cuda(*planes, 1, 64**3, s) for s in range(16)],
                        iters=5)
@@ -1612,10 +1623,13 @@ def main() -> int:
         f"({n_points * trunk_flop / passes_ms / 1e9:.1f} TFLOP/s over the 6 weight products; alone, with "
         f"their zeroing, {alone_ms:.3f} ms) | bound {passes_bound[0]:.3f} ms ({passes_bound[1]}): "
         f"{passes_bound[0] / passes_ms:.3f} of the bound's rate | B2 {kernel_ms:.3f} ms, its rows pass "
-        f"{rows_ms:.3f} ms")
+        f"{rows_ms:.3f} ms ({in_call_rows_ms:.3f} ms of device time in the B2 call)")
     # B5a and B5b at the G step's shape, beside B1 and B2 (above): B5a does
     # B1's products and writes B*P*512 bytes a stashed position; B5b does
     # 18 - s products a row (s stashed among h2..h7) and reads the planes.
+    # B5b's rows pass (device time in one call, torch.profiler) does 12 - s
+    # of them and moves B2's rows pass's bytes: each stashed plane it reads
+    # is an h plane it does not write.
     from shapegan_tpu_torch.train.hybrid_gan import _GRID_STASH
 
     stash_ops, g_stash = stash_cases["B=16 P=64^3"]
@@ -1626,6 +1640,8 @@ def main() -> int:
         bwd = (time_ms(lambda: K.grid_backward_stash_cuda(*stash_ops, g_stash, planes, stash), iters=5),
                time_ms(lambda: K.grid_backward_stash_plain(*stash_ops, g_stash, planes, stash),
                        iters=3, warmup=1))
+        stash_rows_ms, stash_passes_ms = grid_bwd_split(
+            lambda: K.grid_backward_stash_cuda(*stash_ops, g_stash, planes, stash))
         del planes
         torch.cuda.empty_cache()
         plane_bytes = len(stash) * n_points * 512
@@ -1634,17 +1650,24 @@ def main() -> int:
         rows_stashed = len(set(stash) - {0})
         bwd_bound = bound(n_points * (18 - rows_stashed) * trunk_flop / 6, moved + 2 * weight_bytes
                           + plane_bytes)
+        stash_rows_bound = bound(n_points * (12 - rows_stashed) * trunk_flop / 6,
+                                 n_points * (7 * 512 + 6 * 512 + 1024 + 4 + 2 * 512 + 4) + 2 * weight_bytes)
         if stash == (_GRID_STASH or FULL_STASH):  # the kernels line's: the trainers' set, else (1..6)
             times["grid_stash"], times["grid_stash_bwd"] = fwd, bwd
             bounds["grid_stash"], bounds["grid_stash_bwd"] = fwd_bound, bwd_bound
+            stash_rows = {"rows_source": "shapegan_tpu_torch/ops/csrc/sdf_grid_bwd_sm90.cuh",
+                          "rows_ms": stash_rows_ms, "rows_bound_ms": stash_rows_bound[0],
+                          "rows_bound_by": stash_rows_bound[1], "passes_ms": stash_passes_ms}
         log(f"  grid_stash {stash}: kernel {fwd[0]:.3f} ms (B1 {times['grid'][0]:.3f}; "
             f"{n_points * trunk_flop / fwd[0] / 1e9:.1f} trunk TFLOP/s, {fwd_bound[0] / fwd[0]:.3f} of the "
             f"bound's rate) | plain {fwd[1]:.3f} ms | bound {fwd_bound[0]:.3f} ms ({fwd_bound[1]}); "
             f"grid_stash_bwd: kernel "
             f"{bwd[0]:.3f} ms (B2 {times['grid_bwd'][0]:.3f}; "
             f"{n_points * (18 - rows_stashed) * trunk_flop / 6 / bwd[0] / 1e9:.1f} TFLOP/s over its "
-            f"{18 - rows_stashed} products) | plain {bwd[1]:.3f} ms | bound {bwd_bound[0]:.3f} ms "
-            f"({bwd_bound[1]})")
+            f"{18 - rows_stashed} products, {bwd_bound[0] / bwd[0]:.3f} of the bound's rate) | plain "
+            f"{bwd[1]:.3f} ms | bound {bwd_bound[0]:.3f} ms ({bwd_bound[1]}); its rows pass {stash_rows_ms:.3f} ms "
+            f"of device time in one call ({stash_rows_bound[0] / stash_rows_ms:.3f} of its bound's rate, "
+            f"{stash_rows_bound[0]:.3f} ms, {stash_rows_bound[1]}), passes 2-4 {stash_passes_ms:.3f} ms")
     del stash_cases, stash_ops, g_stash
     # B4: 20 trace steps over the 1600^2 primary rays, beside 20 steps of
     # one points-kernel launch and the element-wise update each (the A/B of
@@ -1874,7 +1897,7 @@ def main() -> int:
         kernel_entry("sdf_grid_stash", "grid_stash", "sdf_grid.cu", "sdf_mlp_pallas.py:748",
                      stash_err),
         kernel_entry("sdf_grid_stash_bwd", "grid_stash_bwd", "sdf_grid_bwd.cu",
-                     "sdf_mlp_pallas.py:795", stash_bwd_err),
+                     "sdf_mlp_pallas.py:795", stash_bwd_err, **stash_rows),
     ]
     log(f"== wall time of the whole run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -12,7 +12,8 @@ It holds each sound kernel against its plain version at chip_smoke's cases
 rounding flips), then builds each wrong copy of ``ops/csrc/sdf_rowwise_bwd.cu``
 and of B6b's instance of the rows pass in ``ops/csrc/sdf_grid_bwd_sm90.cuh``,
 ``ops/csrc/sdf_rowwise.cu`` (B6a), ``ops/csrc/point_gen.cu`` (B7),
-``ops/csrc/sdf_grid.cu`` (B1, B5a), ``ops/csrc/sdf_grid_bwd.cu`` (B5b),
+``ops/csrc/sdf_grid.cu`` (B1, B5a), ``ops/csrc/sdf_grid_bwd.cu`` and B5b's
+instance of the rows pass in ``ops/csrc/sdf_grid_bwd_sm90.cuh`` (B5b),
 ``ops/csrc/sdf_trunk_sm90.cuh`` (the trunk of B3 and B4, held at B3's
 cases), ``ops/csrc/sdf_trace.cu`` (B4), ``ops/csrc/sdf_grid_bwd_sm90.cuh``
 (B2's rows pass, held by its planes at chip_smoke's two cases) and
@@ -128,12 +129,43 @@ GRID_SHAPES_MUTANTS = (
      "const bf16* z5 = g.zz5 + static_cast<size_t>(r.shape) * WIDTH;",
      "const bf16* z5 = g.zz5 + static_cast<size_t>((r.shape + 1) % g.shapes) * WIDTH;"),
 )
-# ... in sdf_grid_bwd.cu (the stash backward's part): checked at every case ...
+# ... in sdf_grid_bwd.cu (the stash backward's host part) and in B5b's
+# instances of the rows pass (StashInputs, sdf_grid_bwd_sm90.cuh): checked at
+# every case of STASH_SETS ...
 GRID_BWD = "sdf_grid_bwd.cu"
 STASH_BWD_MUTANTS = (
     ("the stashed positions rebuilt at B2's rounding points (nothing read from the stash)", GRID_BWD,
      "plan.stashed = mask & 0x7eu;", "plan.stashed = 0u;"),
+    ("h7 stashed but the head taken from the previous step's registers (its tile not read)", ROWS_PASS,
+     "    sdf90::load_tile(a, h_plane(g, LAYERS), r.row, r);\n", ""),
 )
+# ... at the cases of the sets in which the forward reads a stashed tile and
+# keeps its mask bits (a stashed position followed by a rebuilt one) ...
+STASH_BWD_KEPT_MUTANTS = (
+    ("a stashed tile's mask bits kept in the next plane's slot", ROWS_PASS,
+     "keep_bits(s, J, bits);", "keep_bits(s, (J + 1) % LAYERS, bits);"),
+    ("the stash tile read one point tile off (the next tile's rows)", ROWS_PASS,
+     "sdf90::load_tile(a, h_plane(g, J), r.row, r);",
+     "{ Rows o = r; if (r.row - r.r0 + 2 * ROWS > static_cast<long long>(g.shapes) * g.points) o.count = 0; "
+     "sdf90::load_tile(a, h_plane(g, J), r.row + ROWS, o); }"),
+)
+# ... at the cases of the sets in which a backward epilogue reads a mask
+# from its stash plane (two stashed positions in a row) ...
+STASH_BWD_PLANE_MUTANTS = (
+    ("a mask read from the next position's stash plane", ROWS_PASS,
+     "plane_bits(h_plane(g, L), r, bits);", "plane_bits(h_plane(g, L + 1), r, bits);"),
+)
+
+
+def keeps_tile_bits(stash) -> bool:
+    """Whether B5b's forward reads a stashed tile and keeps its bits."""
+    return any(j in stash and j + 1 not in stash for j in range(1, 6))
+
+
+def reads_plane_bits(stash) -> bool:
+    """Whether a B5b backward epilogue reads its mask from a stash plane."""
+    return any(j in stash and j + 1 in stash for j in range(1, 6))
+
 # ... and at the cases of more than one chunk (16 x 64^3: sixteen; the odd
 # case is one chunk, where this kernel is the sound one).
 STASH_BWD_CHUNK_MUTANTS = (
@@ -194,7 +226,7 @@ PASSES_TAIL_MUTANTS = (
 # occurs exactly once in its file, so that none is a no-op).
 ALL_MUTANTS = tuple(dict.fromkeys(
     ROWWISE_BWD_MUTANTS + POINT_GEN_MUTANTS + ROWWISE_MUTANTS + TRUNK_SM90_MUTANTS + GRID_MUTANTS + GRID_SHAPES_MUTANTS
-    + STASH_BWD_MUTANTS + STASH_BWD_CHUNK_MUTANTS + TRACE_MUTANTS + ROWS_MUTANTS + PASSES_MUTANTS
+    + STASH_BWD_MUTANTS + STASH_BWD_KEPT_MUTANTS + STASH_BWD_PLANE_MUTANTS + STASH_BWD_CHUNK_MUTANTS + TRACE_MUTANTS + ROWS_MUTANTS + PASSES_MUTANTS
     + PASSES_TAIL_MUTANTS))
 
 
@@ -414,7 +446,9 @@ def main(argv=()) -> int:
     if "stash" in groups:
         stash_cases = {"B=16 P=64^3": cs.stash_case(random, grid64, 16, 13, device),
                        "B=3 P=3001": cs.stash_case(random, odd, 3, 14, device)}
-        stash_keys = [(name, stash) for name in stash_cases for stash in cs.STASH_SETS]
+        # The sound kernels at every set phase 3 holds; the wrong ones at
+        # STASH_SETS, each of which takes every branch a mutant changes.
+        stash_keys = [(name, stash) for name in stash_cases for stash in cs.STASH_SETS + cs.STASH_CHECK_SETS]
         sound_stash = {}
         for name, stash in stash_keys:
             ops, g = stash_cases[name]
@@ -424,8 +458,13 @@ def main(argv=()) -> int:
         for key in stash_keys:
             sound &= _holds(_stash_fwd_check(cs, stash_cases, key))
             sound &= _holds(_stash_bwd_check(cs, stash_cases, key, sound_stash))
-        checks = {key: (lambda key=key: _stash_bwd_check(cs, stash_cases, key, sound_stash)) for key in stash_keys}
+        checks = {key: (lambda key=key: _stash_bwd_check(cs, stash_cases, key, sound_stash))
+                  for key in stash_keys if key[1] in cs.STASH_SETS}
         caught &= _wrong_kernels(STASH_BWD_MUTANTS, checks)
+        caught &= _wrong_kernels(STASH_BWD_KEPT_MUTANTS,
+                                 {key: check for key, check in checks.items() if keeps_tile_bits(key[1])})
+        caught &= _wrong_kernels(STASH_BWD_PLANE_MUTANTS,
+                                 {key: check for key, check in checks.items() if reads_plane_bits(key[1])})
         caught &= _wrong_kernels(STASH_BWD_CHUNK_MUTANTS,
                                  {key: check for key, check in checks.items() if key[0] == "B=16 P=64^3"})
     if "trunk" in groups:

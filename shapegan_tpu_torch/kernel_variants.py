@@ -2,12 +2,13 @@
 """The design choices of the wgmma trunk (``ops/csrc/sdf_trunk_sm90.cuh``),
 of the point-GAN generator B7 on it (``ops/csrc/point_gen.cu``),
 of the grid forward B1 and its stash instance B5a (``ops/csrc/sdf_grid.cu``)
-of the grid backward's Hopper rows pass (``ops/csrc/sdf_grid_bwd_sm90.cuh``)
+of the grid backward's Hopper rows pass (``ops/csrc/sdf_grid_bwd_sm90.cuh``,
+also B5b's placement of its stash loads)
 and of its passes 2-4 (``ops/csrc/sdf_bwd_passes_sm90.cuh``), and of the
 rowwise backward B6b on them (``ops/csrc/sdf_rowwise_bwd.cu``), timed
 against the shipped kernels. On one GPU:
 
-    python -m shapegan_tpu_torch.kernel_variants [trunk | rows | grid | passes | rowwise | point_gen]
+    python -m shapegan_tpu_torch.kernel_variants [trunk | rows | grid | passes | rowwise | point_gen | stash]
 
 Each variant is the shipped source with one choice undone, built in a
 temporary directory (never in the checkout) as ``kernel_mutants`` builds
@@ -26,7 +27,9 @@ call, and ten back to back), after B6b's passes (``torch.profiler`` device
 time) at one, about one and a fifth, and two rounds of 64-row tiles; the
 point_gen variants by B7 at 32 x 4096 and 6 x 32768 and B6a at 20,000 and
 65,536 rows (a call's share of ten back to back), after a tile's SM cycles
-and nanoseconds in B7 (clock64 and globaltimer in an instrumented build).
+and nanoseconds in B7 (clock64 and globaltimer in an instrumented build);
+the stash variants by the stash backward B5b at 16 x 64^3 at chip_smoke's
+STASH_SETS, one call and its rows pass's device time.
 With an argument only that group runs.
 """
 
@@ -107,6 +110,28 @@ ROWS_VARIANTS = (
     }""")]),
 )
 
+
+# (name, edits): where B5b's rows pass (the StashInputs instances) reads a
+# stashed position's mask. Shipped (mask_from_plane): from the tile the
+# forward reads as the next layer's operand, else, where the next position
+# is stashed too and the forward reads no tile, from its plane in the
+# backward epilogue that masks by it. The first two variants take one of
+# the two everywhere; the third makes the backward's choice when compiled;
+# the fourth runs the full plan on the instance that reads its plan at run
+# time.
+_MASK_RULE = "  return (stashed >> j) & (stashed >> (j + 1)) & 1u;\n"
+STASH_VARIANTS = (
+    ("every stashed tile read in the forward and its bits kept (no mask read from a plane)",
+     [(ROWS, _MASK_RULE, "  return false;\n")]),
+    ("every stashed mask read from its plane in the backward epilogue (a tile read in the forward only for "
+     "the next layer), as the mma.sync kernel did",
+     [(ROWS, _MASK_RULE, "  return (stashed >> j) & 1u;\n")]),
+    ("the backward's choice made when compiled in the full instance (the plan's constant bits)",
+     [(ROWS, "mask_from_plane(g.in.plan.stashed, L)", "mask_from_plane(In::full ? FULL_PLAN : g.in.plan.stashed, L)")]),
+    ("no instance for the full plan (every plan read at run time, the wgmmas serialized)",
+     [("sdf_grid_bwd.cu",
+       "  if (plan->stashed == sdf90_bwd::FULL_PLAN) return stash(sdf90_bwd::Args<StashInputs<true>>{{in}});\n", "")]),
+)
 
 # (name, edits): where B6b's rows pass (the RowInputs instance) spends its time.
 ROWWISE_VARIANTS = (
@@ -192,6 +217,8 @@ def point_gen_variants(cs, device) -> None:
 def rows_spills() -> dict:
     """The rows pass's instances in the current build's ptxas output (-v):
     {instance: (bytes of spill stores a thread, registers)}."""
+    instances = {"RowInputs": "RowInputs", "StashInputsILb1": "StashInputs<true>",
+                 "StashInputsILb0": "StashInputs<false>", "GridInputs": "GridInputs"}
     lines = _build.build_log().splitlines()
     out = {}
     for i, line in enumerate(lines):
@@ -199,7 +226,7 @@ def rows_spills() -> dict:
         if m:
             text = " ".join(lines[i + 1:i + 4])
             spill, regs = re.search(r"(\d+) bytes spill stores", text), re.search(r"Used (\d+) registers", text)
-            out["RowInputs" if "RowInputs" in m.group(1) else "GridInputs"] = (
+            out[next(name for key, name in instances.items() if key in m.group(1))] = (
                 int(spill.group(1)) if spill else None, int(regs.group(1)) if regs else None)
     return out
 
@@ -329,6 +356,35 @@ def passes_variants(cs, device) -> None:
                   flush=True)
 
 
+def stash_variants(cs, device) -> None:
+    """B5b at 16 x 64^3 (random weights, chip_smoke's stash case) at each
+    set of STASH_SETS, on the shipped B5a's planes: one call (CUDA events)
+    and its rows pass's device time (torch.profiler), with the rows pass's
+    spills, shipped / variant / variant / shipped."""
+    ops, g = cs.stash_case(sdf_mlp.init(torch.Generator().manual_seed(1), device=device),
+                           voxel_coordinates(64, device=device), 16, 13, device)
+
+    def times(stash):
+        planes = K.grid_forward_stash_cuda(*ops, stash)[1]
+        call = lambda: K.grid_backward_stash_cuda(*ops, g, planes, stash)  # noqa: E731
+        out = cs.time_ms(call, iters=5), cs.grid_bwd_split(call)[0]
+        del planes
+        torch.cuda.empty_cache()
+        return out
+
+    for name, edits in STASH_VARIANTS:
+        print(f"== B5b: {name}", flush=True)
+        readings = [("shipped", {stash: times(stash) for stash in cs.STASH_SETS}, rows_spills())]
+        with built_with(edits):
+            readings += [("variant", {stash: times(stash) for stash in cs.STASH_SETS}, rows_spills())
+                         for _ in range(2)]
+        readings.append(("shipped", {stash: times(stash) for stash in cs.STASH_SETS}, rows_spills()))
+        for turn, by_set, spills in readings:
+            print(f"  {turn}: " + "; ".join(f"B5b {stash} {ms:.3f} ms, rows pass {rows:.3f} ms"
+                                            for stash, (ms, rows) in by_set.items())
+                  + f"; spill stores, registers {spills}", flush=True)
+
+
 def grid_variants(cs, device) -> None:
     from shapegan_tpu_torch import checkpoints
 
@@ -370,6 +426,8 @@ def main(argv=()) -> int:
         rowwise_variants(cs, device)
     if "point_gen" in argv or not argv:
         point_gen_variants(cs, device)
+    if "stash" in argv or not argv:
+        stash_variants(cs, device)
     if argv and "trunk" not in argv:
         return 0
     chair, code = fit_chair(device)

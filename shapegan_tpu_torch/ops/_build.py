@@ -27,8 +27,8 @@ SOURCES = (
     "sdf_grid.cu", "sdf_points.cu", "sdf_grid_bwd.cu", "sdf_trace.cu", "sdf_rowwise.cu",
     "sdf_rowwise_bwd.cu", "point_gen.cu",
 )
-HEADERS = ("sdf_trunk.cuh", "sdf_trunk_sm90.cuh", "sdf_rows_sm90.cuh", "sdf_bwd_passes.cuh",
-           "sdf_grid_bwd_sm90.cuh", "sdf_bwd_passes_sm90.cuh")
+HEADERS = ("sdf_trunk_sm90.cuh", "sdf_rows_sm90.cuh", "sdf_bwd_passes.cuh", "sdf_grid_bwd_sm90.cuh",
+           "sdf_bwd_passes_sm90.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -496,11 +496,11 @@ inline cudaError_t weight_passes(const HPlanes& h, const bf16* dz, long long row
   if (err != cudaSuccess) return err;
   weight_kernel<<<std::min(ITEMS, sms), THREADS, smem, stream>>>(maps, args);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  bwd_finish_kernel<<<grid_for(LAYERS * WIDTH * WIDTH), sdf::THREADS, 0, stream>>>(
+  bwd_finish_kernel<<<grid_for(LAYERS * WIDTH * WIDTH), FINISH_THREADS, 0, stream>>>(
       w_part, LAYERS, SLABS, WIDTH * WIDTH, d_w);
   const int b_parts = SLABS * CONSUMERS;
-  bwd_finish_kernel<<<grid_for(3 * WIDTH), sdf::THREADS, 0, stream>>>(b_part, 3, b_parts, WIDTH, d_b);
-  bwd_finish_kernel<<<grid_for(2 * WIDTH), sdf::THREADS, 0, stream>>>(
+  bwd_finish_kernel<<<grid_for(3 * WIDTH), FINISH_THREADS, 0, stream>>>(b_part, 3, b_parts, WIDTH, d_b);
+  bwd_finish_kernel<<<grid_for(2 * WIDTH), FINISH_THREADS, 0, stream>>>(
       b_part + static_cast<size_t>(4) * b_parts * WIDTH, 2, b_parts, WIDTH, d_b + 4 * WIDTH);
   return cudaGetLastError();
 }

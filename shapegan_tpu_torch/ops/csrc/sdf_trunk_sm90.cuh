@@ -2,12 +2,10 @@
 // B3), the sphere trace (sdf_trace.cu, B4), the grid forward and its stash
 // instance (sdf_grid.cu, B1 and B5a), the rowwise forward (sdf_rowwise.cu,
 // B6a), the point-GAN generator (point_gen.cu, B7: the ring and the products,
-// with a LayerNorm epilogue of its own) and the rows pass of the recompute
-// backwards B2 and B6b (sdf_grid_bwd_sm90.cuh). The ring, the products and
-// the epilogue below are templates over the block's shared-memory layout and
-// the ring's depth, so each kernel sizes its own. Only the stash backward's
-// rows kernel (B5b, sdf_grid_bwd.cu) keeps the mma.sync code of
-// sdf_trunk.cuh.
+// with a LayerNorm epilogue of its own) and the rows pass of the backwards
+// B2, B5b and B6b (sdf_grid_bwd_sm90.cuh). The ring, the products and the
+// epilogue below are templates over the block's shared-memory layout and
+// the ring's depth, so each kernel sizes its own.
 //
 // What bounds it on the H100: per row, six bf16 256x256 products on the
 // tensor cores (6 x 2 x 256 x 256 flops); device-memory traffic is a few

@@ -19,7 +19,12 @@ JSON line of the named groups' readings (all four by default; see
   tree's), and the grid forward B1;
 * the stash forward B5a and the stash backward B5b (stash set (1..6),
   random weights) at 16 x 64^3, B5b on the plain version's planes (so its
-  inputs do not depend on the tree's B5a);
+  inputs do not depend on the tree's B5a), also at (2,4,6), and B5b's rows
+  pass's device time in one call (``torch.profiler``); ptxas's spill
+  stores and registers of the rows-pass kernels in the turn's build (the
+  instances of ``bwd_rows_sm90_kernel`` over GridInputs, StashInputs (the
+  full plan's, ``ILb1``, and the run-time plan's, ``ILb0``) and RowInputs, or
+  an older tree's mma.sync ``bwd_rows_kernel``);
 * the points kernel B3 at 128^3 and the trace kernel B4 at 1600^2 x k=20 on
   the chair fitted on the card;
 * ``render_image`` 800^2 x ssaa 2 with the fused trace on (host clock after
@@ -38,8 +43,9 @@ JSON line of the named groups' readings (all four by default; see
   the same process): host clock after a synchronize, median of 20 after 3,
   and the kernel step's device time (``torch.profiler``, all kernels);
 * a SHA-256 of B3's, B4's (chip_smoke's three trace cases), B2's rows
-  pass's (one 64^3 shape, its scratch planes), B5b's and B6b's (both sizes)
-  outputs on fixed inputs: equal digests mean bit-identical results.
+  pass's (one 64^3 shape, its scratch planes), B5b's (both sets) and B6b's
+  (both sizes) outputs on fixed inputs: equal digests mean bit-identical
+  results.
 """
 
 from __future__ import annotations
@@ -192,15 +198,21 @@ def measure(groups=GROUPS) -> dict:
         torch.cuda.empty_cache()
 
     if "stash" in groups:
-        stash = (1, 2, 3, 4, 5, 6)
         sops, g = cs.stash_case(sdf_mlp.init(torch.Generator().manual_seed(1), device=device),
                                 voxel_coordinates(64, device=device), 16, 13, device)
-        out["b5a_ms"] = cs.time_ms(lambda: K.grid_forward_stash_cuda(*sops, stash), iters=10)
+        out["b5a_ms"] = cs.time_ms(lambda: K.grid_forward_stash_cuda(*sops, (1, 2, 3, 4, 5, 6)), iters=10)
         torch.cuda.empty_cache()
-        planes = K.grid_forward_stash_plain(*sops, stash)[1]
-        out["b5b_digest"] = _digest(*K.grid_backward_stash_cuda(*sops, g, planes, stash))
-        out["b5b_ms"] = cs.time_ms(lambda: K.grid_backward_stash_cuda(*sops, g, planes, stash), iters=5)
-        del sops, planes
+        for stash, key in (((1, 2, 3, 4, 5, 6), "b5b"), ((2, 4, 6), "b5b_246")):
+            planes = K.grid_forward_stash_plain(*sops, stash)[1]
+            out[f"{key}_digest"] = _digest(*K.grid_backward_stash_cuda(*sops, g, planes, stash))
+            out[f"{key}_ms"] = cs.time_ms(lambda: K.grid_backward_stash_cuda(*sops, g, planes, stash), iters=5)
+            out[f"{key}_rows_ms"] = _passes(lambda: K.grid_backward_stash_cuda(*sops, g, planes, stash),
+                                            {"rows": ("bwd_rows",)})["rows"]
+            del planes
+            torch.cuda.empty_cache()
+        out["rows_spills"] = _spills(("GridInputs", "StashInputsILb1", "StashInputsILb0", "RowInputs",
+                                      "bwd_rows_kernel"))
+        del sops
         torch.cuda.empty_cache()
 
     if "rowwise" in groups:
@@ -280,17 +292,18 @@ def main(argv) -> int:
         result["turn"] = turn
         results.append(result)
         print(f"{turn}: {json.dumps(result)} ({time.perf_counter() - t0:.1f} s with its build)", flush=True)
-    for key in ("b2_ms", "b1_ms", "b5a_ms", "b5b_ms", "b3_ms", "b4_ms", "frame_ms", "b6b_20000_ms",
+    for key in ("b2_ms", "b1_ms", "b5a_ms", "b5b_ms", "b5b_rows_ms", "b5b_246_ms", "b5b_246_rows_ms", "b3_ms", "b4_ms", "frame_ms", "b6b_20000_ms",
                 "b6b_65536_ms", "b6b_20000_host_us", "b6a_ms", "b7_ms", "ad_step_ms", "ad_bf16_step_ms",
                 "ad_step_device_ms"):
         if key in results[0]:
             print(f"  {key}: " + " / ".join(f"{r[key]:.4f}" for r in results))
-    if "b6a_b7_spills" in results[0]:
-        print("  b6a_b7_spills (bytes, registers): " + " / ".join(json.dumps(r["b6a_b7_spills"]) for r in results))
+    for key in ("b6a_b7_spills", "rows_spills"):
+        if key in results[0]:
+            print(f"  {key} (bytes, registers): " + " / ".join(json.dumps(r[key]) for r in results))
     for passes in ("b2_passes_ms", "b6b_passes_ms"):
         for name in results[0].get(passes, ()):
             print(f"  {passes[:3]} {name}: " + " / ".join(f"{r[passes][name]:.4f}" for r in results))
-    for key in ("b3_digest", "b4_digest", "b2_rows_digest", "b5b_digest", "b6b_20000_digest",
+    for key in ("b3_digest", "b4_digest", "b2_rows_digest", "b5b_digest", "b5b_246_digest", "b6b_20000_digest",
                 "b6b_65536_digest"):
         if key in results[0]:
             same = len({r[key] for r in results}) == 1

@@ -595,8 +595,10 @@ def test_point_gen_best_launches_kernel_and_rejects_cpu_operands(cuda, monkeypat
 # an H100 at 16 x 64^3 and B=3, P=3001, share of differing elements 0 (bound
 # 1e-4, chip_smoke.py's; a plane written one layer late differs almost
 # everywhere). B5b is held to B2's bounds against its plain version on the
-# same planes.
-STASH_SETS = [(2, 4, 6), (1, 2, 3, 4, 5, 6)]
+# same planes: at the trainers' sets, and at one set for each other branch
+# of its plan (a stashed input to the skip layer, a stashed skip output, h7
+# alone, a stashed position 0 with a rebuilt run between stashed ones).
+STASH_SETS = [(2, 4, 6), (1, 2, 3, 4, 5, 6), (3,), (4,), (6,), (0, 1, 5)]
 STASH_PLANE_SHARE = 1e-4
 
 
@@ -639,7 +641,7 @@ def test_apply_grid_trainable_stash_launches_stash_kernels(cuda):
         grid = pts.detach().to(device).requires_grad_(True)
         latents = lats.detach().to(device).requires_grad_(True)
         counts = [c.launch_count for c in counters]
-        K.apply_grid_trainable_stash(leaves, grid, latents, STASH_SETS[-1]).backward(cot.to(device))
+        K.apply_grid_trainable_stash(leaves, grid, latents, STASH_SETS[1]).backward(cot.to(device))
         launched = [c.launch_count - n for c, n in zip(counters, counts)]
         assert launched == ([0, 0, 1, 1] if device.type == "cuda" else [0, 0, 0, 0])
         grads.append([leaves[k].grad for k in sdf_mlp.PARAM_KEYS] + [grid.grad, latents.grad])

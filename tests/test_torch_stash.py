@@ -95,13 +95,32 @@ def test_stash_forward_plain_matches_pallas_interpreted(case, stash):
         assert share <= PLANE_SHARE, (j, share)
 
 
-@pytest.mark.parametrize("stash", [(2, 4, 6), FULL])
-@pytest.mark.parametrize("case", ["8^3x2", "16^3x3", "P3001x3"])
-def test_stash_backward_plain_matches_pallas_interpreted(case, stash):
+# The trainers' sets at every case; at the smallest case also one set for
+# each other branch of the stash backward's plan: a stashed input to the
+# skip layer (3,), a stashed skip output (4,), h7 alone (6,), a stashed
+# position 0 (ignored) with a rebuilt run between stashed ones (0, 1, 5).
+# (6,) rebuilds h2..h6 on both sides as the grid backward does, so it
+# carries the grid backward's own noise and is held to its bounds at this
+# case (tests/test_torch_grid_backward.py: L2 1e-2, max 5e-2). Readings at
+# 8^3 x 2, worst tensor, sound / the recompute VJP: (3,) L2 6.6e-5 /
+# 7.1e-2; (4,) 2.0e-4 / 6.2e-2; (6,) 5.8e-3, max 3.4e-2 / 5.8e-2, max
+# 1.2e-1; (0, 1, 5) 2.2e-4 / 9.8e-2.
+B2_BOUNDS_8 = (1e-2, 5e-2)
+BRANCH_SETS = [((3,), (STASH_L2, STASH_MAX)), ((4,), (STASH_L2, STASH_MAX)), ((6,), B2_BOUNDS_8),
+               ((0, 1, 5), (STASH_L2, STASH_MAX))]
+BACKWARD_CASES = [pytest.param(case, stash, (STASH_L2, STASH_MAX), id=f"{case}-stash{i}")
+                  for case in ["8^3x2", "16^3x3", "P3001x3"] for i, stash in enumerate([(2, 4, 6), FULL])]
+BACKWARD_CASES += [pytest.param("8^3x2", stash, bounds, id=f"8^3x2-stash{i}")
+                   for i, (stash, bounds) in enumerate(BRANCH_SETS, 2)]
+
+
+@pytest.mark.parametrize("case, stash, bounds", BACKWARD_CASES)
+def test_stash_backward_plain_matches_pallas_interpreted(case, stash, bounds):
     """All 19 parameter gradients, d_grid and d_latents of the port's
-    apply_grid_trainable_stash against jax.vjp of the JAX package's; then
-    the mutant check: the recompute VJP's plain versions (B2's rounding
-    points for the stashed positions) fall outside the bounds."""
+    apply_grid_trainable_stash against jax.vjp of the JAX package's, by
+    ``bounds`` (L2, max); then the mutant check: the recompute VJP's plain
+    versions (B2's rounding points for the stashed positions) fall outside
+    the L2 bound."""
     np_params, params = _params()
     pts, lats, cot = _case(case)
     with pltpu.force_tpu_interpret_mode():
@@ -123,11 +142,11 @@ def test_stash_backward_plain_matches_pallas_interpreted(case, stash):
     for name, value, ref in zip(names, got, refs):
         assert tuple(value.shape) == np.shape(ref), name
         l2, mx = _rel_errors(value.numpy(), ref)
-        assert l2 <= STASH_L2 and mx <= STASH_MAX, (name, l2, mx)
+        assert l2 <= bounds[0] and mx <= bounds[1], (name, l2, mx)
 
     recompute = gradients(K.apply_grid_trainable)
     worst = max(_rel_errors(value.numpy(), ref)[0] for value, ref in zip(recompute, refs))
-    assert worst > STASH_L2, worst
+    assert worst > bounds[0], worst
 
 
 def test_stash_forward_value_is_the_grid_kernels():
