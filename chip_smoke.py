@@ -108,8 +108,17 @@ Phases, each fatal on failure (nothing is caught):
      against float32 truth by the bf16 rule; the A/B behind the switch's
      default: the progressive trainer's G step at 64^3, batch 16, with the
      recompute and the stash sets (2,4,6), (1,2,4,6), (1..6) in turns, with
-     each one's peak memory, and the hybrid GAN's G and D steps at 32^3.
-Each run of a path in phases 5-7 and 9-11 starts with every launch count set to 0
+     each one's peak memory, and the hybrid GAN's G and D steps at 32^3;
+ 12. the voxel family: the entry points of the voxel GAN and WGAN
+     (synthetic=128, batch 64), the classic AE and the VAE (synthetic=64,
+     batch 32) and the classifier (synthetic=32 a class, batch 32), each
+     epochs=1, then ``continue`` to epochs=2, in temporary directories; no
+     hand kernel may launch (cuDNN only); CSVs, checkpoints and snapshots
+     checked, networks on the card; the bundled generator, WGAN generator
+     and classic AE on the card against the CPU, float32 with TF32 off, in
+     eval and train mode; each step at the root bench.py's shapes (host
+     clock after a synchronize, median of 10) with its peak memory.
+Each run of a path in phases 5-7 and 9-12 starts with every launch count set to 0
 and reads the counts just after; launches made to compare a kernel with its
 plain version or to time it are never counted. The kernels line gives each
 kernel's launches summed over the runs made at the shipped switch
@@ -213,6 +222,12 @@ GEN_MEAN_ABS = 1e-4
 # rounding points) at the same latents: the JAX package's bound for its
 # kernel against the module (tests/test_pallas_kernels.py:401).
 GEN_VS_MODULE_MAX_ABS = 2e-2
+# Phase 12: the voxel family's bundled networks on the card against the same
+# modules on the CPU, both float32 with TF32 off (cuDNN's and the CPU's
+# convolutions sum in other orders), against the output's largest entry;
+# predicted ~1e-6, bounded where a wrong layout or BatchNorm rule (O(1))
+# cannot pass.
+VOXEL_VS_CPU_REL = 1e-4
 # The stash forward kernel (B5a) against B1 and its plain version: its output
 # must equal B1's bit for bit (the same arithmetic), and each stashed plane
 # the plain version's by the share of differing bf16 elements and their
@@ -1420,6 +1435,148 @@ def point_gan_step_times(device, kind: str) -> None:
         log(f"  switch {switch}: {1000 / step:.3f} steps/s (one D step and a fifth of a G step)")
 
 
+VOXEL_RUNS = (
+    # (trainer, arguments, CSV, its columns, files, steps in each run, CSV lines after each run)
+    ("gan", ["synthetic=128"], "gan_training.csv", 4, ("generator", "discriminator"), (2, 2),
+     (1, 2)),
+    ("wgan", ["synthetic=128"], "wgan_training.csv", 4, ("wgan-generator", "wgan-critic"), (2, 2),
+     (1, 2)),
+    ("autoencoder", ["classic", "synthetic=64"], "autoencoder_training.csv", 5, ("autoencoder-128",),
+     (2, 2), (1, 2)),
+    ("autoencoder", ["synthetic=64"], "variational_autoencoder_training.csv", 5,
+     ("variational-autoencoder-128",), (2, 2), (1, 2)),
+    # The classifier counts its epochs from 0 again on resume (the JAX
+    # trainer's rule): 4 x 32 volumes, 4 steps an epoch, epochs 0 and 1.
+    ("classifier", ["synthetic=32"], "classifier_training.csv", 4,
+     ("classifier", "classifier_optimizer"), (4, 8), (1, 3)),
+)
+
+
+def voxel_family_path() -> dict:
+    """Phase 12: the voxel family's entry points (``train.gan``,
+    ``train.wgan``, ``train.autoencoder`` classic and VAE,
+    ``train.classifier``) in temporary directories, epochs=1 and a
+    ``continue`` to epochs=2, at the trainers' batches; no hand kernel may
+    launch (cuDNN only); returns the launch counts per run."""
+    import csv
+    import importlib
+    import math
+
+    import torch
+    from shapegan_tpu_torch.core.config import parse_cli
+
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cwd = os.getcwd()
+        try:
+            for trainer, argv, csv_name, columns, names, steps, rows_after in VOXEL_RUNS:
+                module = importlib.import_module(f"shapegan_tpu_torch.train.{trainer}")
+                sub = os.path.join(tmp, "-".join([trainer, *argv]))
+                os.makedirs(sub)
+                os.chdir(sub)
+                for run, extra in enumerate((["epochs=1"], ["epochs=2", "continue"])):
+                    reset_counts()
+                    t0 = time.perf_counter()
+                    result = module.train(parse_cli([*argv, *extra]))
+                    torch.cuda.synchronize()
+                    seconds = time.perf_counter() - t0
+                    path = f"{trainer} {' '.join(argv + extra)}"
+                    counts = paths[path] = read_counts()
+                    with open(os.path.join("plots", csv_name)) as f:
+                        rows = [[float(v) for v in r] for r in csv.reader(f, delimiter=" ")]
+                    files = [checkpoints_path(n) for n in names]
+                    if trainer != "classifier":
+                        files += [checkpoints_path(n, 0) for n in names]
+                    missing = [f for f in files if not os.path.exists(f)]
+                    nets = [v for v in result.values() if isinstance(v, torch.nn.Module)]
+                    devices = {p.device.type for net in nets for p in net.parameters()}
+                    log(f"  {path}: {seconds:.2f} s (host clock, data made on the host included), "
+                        f"{result['steps']} steps; CSV {[[round(v, 6) for v in r] for r in rows]}")
+                    check_counts(path, counts, idle=list(counts))
+                    if (len(rows) != rows_after[run] or any(len(r) != columns for r in rows)
+                            or not all(math.isfinite(v) for r in rows for v in r)):
+                        raise AssertionError(f"{path}: CSV rows {rows}")
+                    if missing or result["steps"] != steps[run] or devices != {"cuda"}:
+                        raise AssertionError(f"{path}: files missing {missing}, {result['steps']} "
+                                             f"steps (expected {steps[run]}), networks on {devices}")
+                os.chdir(cwd)
+        finally:
+            os.chdir(cwd)
+    return paths
+
+
+def voxel_modules_vs_float32(device) -> None:
+    """Phase 12: the bundled ``generator``, ``wgan-generator`` and
+    ``autoencoder-128`` (classic) on the card against the same modules on
+    the CPU, float32 with TF32 off, in eval mode and in train mode (batch
+    statistics, the update dropped), batch 8."""
+    import torch
+    from shapegan_tpu_torch import checkpoints
+    from shapegan_tpu_torch.models import flax_layers
+    from shapegan_tpu_torch.models.autoencoder import Autoencoder
+    from shapegan_tpu_torch.models.gan import Generator
+
+    examples = os.path.join(REPO, "shapegan_tpu", "examples")
+    gen = torch.Generator().manual_seed(0)
+    z = torch.randn((8, 128), generator=gen)
+    x = torch.rand((8, 32, 32, 32), generator=gen) * 2 - 1
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        for name, make, inputs in (("generator", Generator, z), ("wgan-generator", Generator, z),
+                                   ("autoencoder-128", lambda: Autoencoder(False), x)):
+            cpu = make()
+            flax_layers.load_variables(cpu, checkpoints.load_tree(
+                flax_layers.variables_to_jax(cpu), name, base=examples, strict=True))
+            card = make()
+            card.load_state_dict(cpu.state_dict())
+            card.to(device)
+            for train in (False, True):
+                with torch.no_grad():
+                    want = cpu(inputs, train=train, update_stats=False)
+                    got = card(inputs.to(device), train=train, update_stats=False).cpu()
+                err = float((got - want).abs().max())
+                scale = float(want.abs().max())
+                mode = "train mode (batch statistics)" if train else "eval mode"
+                log(f"  {name} {mode}, batch 8: card vs CPU float32 max_abs={err:.3e} of "
+                    f"{scale:.3f} (<= {VOXEL_VS_CPU_REL} x {scale:.3f})")
+                if not (torch.isfinite(got).all() and err <= VOXEL_VS_CPU_REL * scale):
+                    raise AssertionError(f"{name} {mode}: the card disagrees with the CPU")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+
+def voxel_step_times(device, kind: str) -> None:
+    """Phase 12: each voxel step of ``profile_slice.voxel_steps`` (the root
+    bench.py's shapes), host clock after a synchronize, median of 10 after 3
+    warm-up steps, and its peak device memory above what was allocated
+    before its models were made (models, optimizer state and batch
+    included); PyTorch's default TF32 settings, as a user's run."""
+    import torch
+    from shapegan_tpu_torch.profile_slice import voxel_steps
+
+    for name, build in voxel_steps(device).items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn = build()
+        for _ in range(3):
+            fn()
+        times = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        ms = statistics.median(times)
+        log(f"  {name}: {ms:.3f} ms, {1000 / ms:.2f} steps/s (host clock after a synchronize, "
+            f"median of 10, range {min(times):.3f}-{max(times):.3f}), peak memory {peak:.3f} GB "
+            f"above the {base / 1e9:.3f} GB allocated before ({kind})")
+        del fn
+
+
 def main() -> int:
     import torch
     from torch.func import functional_call
@@ -1861,6 +2018,13 @@ def main() -> int:
     paths.update(hybrid_gan_path())
     hybrid_grads_vs_float32(device)
     stash_ab(f"{kind}; {smi}")
+    log(f"== 12. voxel family: the voxel GAN, WGAN, classic AE, VAE and classifier entry points, "
+        f"the bundled networks against the CPU, step times ({kind}; {smi})")
+    t0 = time.perf_counter()
+    paths.update(voxel_family_path())
+    voxel_modules_vs_float32(device)
+    voxel_step_times(device, f"{kind}; {smi}")
+    log(f"  phase 12: {time.perf_counter() - t0:.1f} s")
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         raise AssertionError("jax was imported")
 

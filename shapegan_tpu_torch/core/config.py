@@ -27,6 +27,7 @@ class TrainConfig:
     nogui: bool = True            # 'gui' asks for the viewer, which is not ported
     show_slice: bool = False
     verbose: bool = False
+    classic: bool = False         # the autoencoder trainer: the classic AE instead of the VAE
     iteration: int = 0            # progressive growth iteration
     epochs: Optional[int] = None
     category: str = "chairs"

@@ -1,8 +1,18 @@
-"""The network zoo (ported so far: :class:`~shapegan_tpu_torch.models.sdf_net.SDFNet`,
-:class:`~shapegan_tpu_torch.models.progressive_gan.ProgressiveDiscriminator`, the
-voxel GAN's :class:`~shapegan_tpu_torch.models.gan.Discriminator`, and
-the point-set GAN's :class:`~shapegan_tpu_torch.models.point_sdf_net.PointNet` and
-:class:`~shapegan_tpu_torch.models.point_sdf_net.SDFGenerator`)."""
+"""The network zoo, all seven families of the JAX package's:
+
+* :class:`~shapegan_tpu_torch.models.autoencoder.Autoencoder` — the 32^3
+  voxel AE / VAE;
+* :class:`~shapegan_tpu_torch.models.gan.Generator` and
+  :class:`~shapegan_tpu_torch.models.gan.Discriminator` — the voxel GAN;
+* :class:`~shapegan_tpu_torch.models.progressive_gan.ProgressiveDiscriminator`;
+* :class:`~shapegan_tpu_torch.models.classifier.Classifier`;
+* :class:`~shapegan_tpu_torch.models.point_sdf_net.PointNet` and
+  :class:`~shapegan_tpu_torch.models.point_sdf_net.SDFGenerator` — the
+  point-set GAN;
+* :class:`~shapegan_tpu_torch.models.sdf_net.SDFNet` — the DeepSDF network.
+
+The conv networks' BatchNorm follows flax's, and their layouts convert to
+and from flax's in :mod:`~shapegan_tpu_torch.models.flax_layers`."""
 
 from __future__ import annotations
 

@@ -40,6 +40,13 @@ class RMSprop:
             self.nu[key] = nu
             param.add_((torch.rsqrt(nu + EPS) * g) * -self.learning_rate)
 
+    def state(self) -> dict:
+        """``{"nu"}``: optax's ``ScaleByRmsState`` field."""
+        return {"nu": self.nu}
+
+    def load_state(self, state: dict) -> None:
+        self.nu = dict(state["nu"])
+
 
 B1 = 0.9
 B2 = 0.999
@@ -79,3 +86,17 @@ class Adam:
         self.count = state["count"].to(torch.int32)
         self.mu = dict(state["mu"])
         self.nu = dict(state["nu"])
+
+
+def optimizer_tree(opt, layout=lambda tensors: tensors) -> tuple:
+    """An optimizer's state under optax's paths, ``(ScaleByAdamState,
+    EmptyState)`` or ``(ScaleByRmsState, EmptyState)`` (the empty state has
+    no leaves): ``0/count``, ``0/mu/...``, ``0/nu/...``; its per-parameter
+    tensors passed through ``layout``."""
+    return ({k: layout(v) if isinstance(v, dict) else v for k, v in opt.state().items()},)
+
+
+def load_optimizer_tree(opt, tree: tuple, layout=lambda tensors: tensors) -> None:
+    """The inverse of :func:`optimizer_tree`: ``layout`` maps a stored
+    per-parameter tree back to tensors keyed like the optimizer's."""
+    opt.load_state({k: layout(v) if isinstance(v, dict) else v for k, v in tree[0].items()})

@@ -44,10 +44,18 @@ shape, so slice B's mesh is the sphere mask) and a chair fitted on the card
   kernel, and forward + backward (``apply_grid_trainable_stash``) for
   (2,4,6), (1,2,4,6) and (1..6) beside the recompute
   (``apply_grid_trainable``), each the median of ``iters`` on CUDA events
-  and with its peak device memory.
+  and with its peak device memory;
+* slice H, the voxel network family's steps at the root ``bench.py``'s
+  shapes (:func:`voxel_steps`: the voxel GAN step, the WGAN's critic and
+  generator steps at batch 64, the classic AE, VAE and classifier steps at
+  batch 32, 32^3, fresh full-width weights, random volumes in [-1, 1]):
+  medians of ``iters`` on the host clock, each step's peak device memory
+  (above what was allocated before its models were made),
+  and ``torch.profiler`` over one of each (cuDNN's convolutions; no hand
+  kernel).
 
 It needs CUDA and builds the kernels if they are not built yet. ``slices=EF``
-(letters of ABCDEFG) runs only those slices.
+(letters of ABCDEFGH) runs only those slices.
 """
 
 from __future__ import annotations
@@ -169,19 +177,20 @@ def profile_generation(device: torch.device, iters: int) -> None:
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    """The slices named in ``slices=`` (letters of ABCDEFG; all by default)."""
+    """The slices named in ``slices=`` (letters of ABCDEFGH; all by default)."""
     if not torch.cuda.is_available():
         print("profile_slice: CUDA is not available", file=sys.stderr)
         return 1
     extras = parse_cli(argv).extras
     iters = int(extras.get("iters", 5))
-    slices = str(extras.get("slices", "ABCDEFG")).upper()
+    slices = str(extras.get("slices", "ABCDEFGH")).upper()
     device = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(f"card: {smi.splitlines()[0]}")
     for letters, profile in (("AB", profile_generation), ("C", profile_train_steps), ("D", profile_raymarch),
-                             ("E", profile_autodecoder), ("F", profile_point_gan), ("G", profile_stash)):
+                             ("E", profile_autodecoder), ("F", profile_point_gan), ("G", profile_stash),
+                             ("H", profile_voxel)):
         if any(letter in slices for letter in letters):
             profile(device, iters)
     return 0
@@ -372,6 +381,83 @@ def profile_point_gan(device: torch.device, iters: int) -> None:
               f"(host clock, median of {iters})")
     for name, fn in steps.items():
         report(f"one point GAN {name}", *profile_device(fn, top=10))
+
+
+def voxel_steps(device: torch.device, seed: int = 0) -> Dict[str, Callable[[], Callable[[], object]]]:
+    """The voxel family's steps at the root ``bench.py``'s shapes, 32^3, as
+    builders: each makes its trainer's fresh full-width models, optimizers
+    and one batch of uniform volumes in [-1, 1] on ``device`` and returns
+    the step, which draws new noise each call. ``"GAN step"``: the voxel
+    GAN's G step and two D steps (``train.gan.make_steps``), batch 64;
+    ``"WGAN critic step"`` and ``"WGAN generator step"``, batch 64;
+    ``"classic AE step"`` and ``"VAE step"``, batch 32; ``"classifier
+    step"``, batch 32, 4 labels."""
+    from shapegan_tpu_torch.models.classifier import Classifier
+    from shapegan_tpu_torch.optim import Adam
+    from shapegan_tpu_torch.train import autoencoder as AE
+    from shapegan_tpu_torch.train import classifier as CL
+    from shapegan_tpu_torch.train import gan as G
+    from shapegan_tpu_torch.train import wgan as W
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def volumes(batch: int) -> torch.Tensor:
+        return torch.rand((batch, 32, 32, 32), generator=gen, device=device) * 2 - 1
+
+    def latents(batch: int) -> torch.Tensor:
+        return torch.randn((batch, 128), generator=gen, device=device)
+
+    def gan():
+        g_step, d_step = G.make_steps(*G.create_states(seed, device))
+        real = volumes(64)
+
+        def step():
+            g_step(latents(64))
+            return d_step(real, latents(64))
+        return step
+
+    def wgan(which: str):
+        def build():
+            critic_step, generator_step = W.make_steps(*W.create_states(seed, device))
+            real = volumes(64)
+            if which == "critic":
+                return lambda: critic_step(real, latents(64))
+            return lambda: generator_step(latents(64))
+        return build
+
+    def autoencoder(variational: bool):
+        def build():
+            step = AE.make_step(*AE.create_state(variational, seed, device))
+            real = volumes(32)
+            return lambda: step(real, latents(32))
+        return build
+
+    def classifier():
+        model = Classifier(4, torch.Generator().manual_seed(seed), device)
+        step = CL.make_step(model, Adam(dict(model.named_parameters()), CL.LEARNING_RATE))
+        real = volumes(32)
+        labels = torch.randint(0, 4, (32,), generator=gen, device=device, dtype=torch.int32)
+        return lambda: step(real, labels)
+
+    return {"GAN step": gan, "WGAN critic step": wgan("critic"),
+            "WGAN generator step": wgan("generator"), "classic AE step": autoencoder(False),
+            "VAE step": autoencoder(True), "classifier step": classifier}
+
+
+def profile_voxel(device: torch.device, iters: int) -> None:
+    """Slice H: the voxel family's steps (:func:`voxel_steps`), with
+    PyTorch's default TF32 settings."""
+    for name, build in voxel_steps(device).items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn = build()
+        times = [_host_ms(fn) for _ in range(iters + 2)][2:]
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        print(f"slice H, {name}: {statistics.median(times):.3f} ms (host clock, median of {iters}), "
+              f"peak memory {peak:.3f} GB")
+        report(f"one {name}", *profile_device(fn, top=8))
+        del fn
 
 
 def profile_stash(device: torch.device, iters: int, batch: int = 16, res: int = 64) -> None:

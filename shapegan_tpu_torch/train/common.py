@@ -141,6 +141,33 @@ def load_critic(module: torch.nn.Module, name: str, base: str) -> None:
             param.copy_(restored[key])
 
 
+def network_payload(module: torch.nn.Module, opt, epoch) -> dict:
+    """A network and its optimizer in one file, as the JAX package's voxel
+    trainers save them: flax's ``params`` (and ``batch_stats``), the
+    optimizer's ``opt_state`` under optax's paths, and ``epoch``."""
+    from shapegan_tpu_torch.models import flax_layers
+    from shapegan_tpu_torch.optim import optimizer_tree
+
+    return {**flax_layers.variables_to_jax(module),
+            "opt_state": optimizer_tree(opt, lambda tensors: flax_layers.to_jax(module, tensors)),
+            "epoch": epoch}
+
+
+def load_network(module: torch.nn.Module, opt, name: str, base: str) -> int:
+    """Restore ``module`` and ``opt`` in place from a file of
+    :func:`network_payload` (what it lacks keeps its value); returns the
+    file's epoch."""
+    from shapegan_tpu_torch import checkpoints
+    from shapegan_tpu_torch.models import flax_layers
+    from shapegan_tpu_torch.optim import load_optimizer_tree
+
+    template = network_payload(module, opt, torch.tensor(0))
+    restored = checkpoints.load_tree(template, name, base=base)
+    flax_layers.load_variables(module, restored)
+    load_optimizer_tree(opt, restored["opt_state"], lambda tree: flax_layers.from_jax(module, tree))
+    return int(restored["epoch"])
+
+
 def maybe_print_slice(volume: torch.Tensor, enabled: bool, scale: float = 1.0) -> None:
     """The reference's headless visual check (``show_slice``)."""
     if enabled:

@@ -50,7 +50,7 @@ from shapegan_tpu_torch.ops.sdf_mlp_kernels import (
     apply_grid_trainable,
     apply_grid_trainable_stash,
 )
-from shapegan_tpu_torch.optim import Adam
+from shapegan_tpu_torch.optim import Adam, load_optimizer_tree, optimizer_tree
 from shapegan_tpu_torch.train.common import (
     CSVLogger,
     EpochTimer,
@@ -183,24 +183,15 @@ def make_steps(net: SDFNet, discriminator: Discriminator, g_opt: Adam, d_opt: Ad
     return g_step, d_step
 
 
-def adam_tree(opt: Adam, layout=lambda tree: tree) -> tuple:
-    """An Adam's state under optax's ``(ScaleByAdamState, EmptyState)``
-    paths, its moments in ``layout``."""
-    return ({"count": opt.count, "mu": layout(opt.mu), "nu": layout(opt.nu)},)
-
-
 def _optimizer_tree(g_opt: Adam, d_opt: Adam) -> dict:
-    return {"g": adam_tree(g_opt), "d": adam_tree(d_opt, gan.params_to_jax)}
+    return {"g": optimizer_tree(g_opt), "d": optimizer_tree(d_opt, gan.params_to_jax)}
 
 
 def _load_optimizers(g_opt: Adam, d_opt: Adam, base: str) -> None:
     restored = checkpoints.load_tree(_optimizer_tree(g_opt, d_opt), OPT_NAME, base=base)
-    g_opt.load_state(restored["g"][0])
-    d_state = restored["d"][0]
+    load_optimizer_tree(g_opt, restored["g"])
     device = d_opt.count.device
-    d_opt.load_state({"count": d_state["count"],
-                      "mu": gan.params_from_jax(d_state["mu"], device=device),
-                      "nu": gan.params_from_jax(d_state["nu"], device=device)})
+    load_optimizer_tree(d_opt, restored["d"], lambda tree: gan.params_from_jax(tree, device=device))
 
 
 def save_networks(net: SDFNet, discriminator: Discriminator, g_name: str, d_name: str, base: str,

@@ -36,7 +36,7 @@ from shapegan_tpu_torch.models.gan import Discriminator, clip_parameters
 from shapegan_tpu_torch.models.sdf_net import SDFNet
 from shapegan_tpu_torch.ops import sdf_mlp
 from shapegan_tpu_torch.ops.coords import voxel_coordinates
-from shapegan_tpu_torch.optim import Adam, RMSprop
+from shapegan_tpu_torch.optim import Adam, RMSprop, load_optimizer_tree, optimizer_tree
 from shapegan_tpu_torch.train.common import (
     CSVLogger,
     EpochTimer,
@@ -52,7 +52,6 @@ from shapegan_tpu_torch.train.common import (
 from shapegan_tpu_torch.train.hybrid_gan import (
     SLICE_EVERY,
     VOXEL_RESOLUTION,
-    adam_tree,
     epoch_range,
     generate_volumes,
     generate_volumes_inference,
@@ -132,7 +131,7 @@ def make_steps(net: SDFNet, critic: Discriminator, g_opt: Adam, d_opt: RMSprop,
 
 
 def _optimizer_tree(g_opt: Adam, d_opt: RMSprop) -> dict:
-    return {"g": adam_tree(g_opt), "d": ({"nu": gan.params_to_jax(d_opt.nu)},)}
+    return {"g": optimizer_tree(g_opt), "d": optimizer_tree(d_opt, gan.params_to_jax)}
 
 
 def train(config: Optional[TrainConfig] = None) -> dict:
@@ -154,8 +153,8 @@ def train(config: Optional[TrainConfig] = None) -> dict:
     d_opt = RMSprop(dict(critic.named_parameters()), LEARN_RATE)
     if config.resume and checkpoints.exists(OPT_NAME, base=base):
         restored = checkpoints.load_tree(_optimizer_tree(g_opt, d_opt), OPT_NAME, base=base)
-        g_opt.load_state(restored["g"][0])
-        d_opt.nu = gan.params_from_jax(restored["d"][0]["nu"], device=device)
+        load_optimizer_tree(g_opt, restored["g"])
+        load_optimizer_tree(d_opt, restored["d"], lambda tree: gan.params_from_jax(tree, device=device))
 
     dataset = resolve_voxel_dataset(config, resolution=VOXEL_RESOLUTION, rescale_sdf=False)
     batch_size = effective_batch_size(config.batch_size or BATCH_SIZE, len(dataset))
