@@ -19,8 +19,9 @@ Phases, each fatal on failure (nothing is caught):
      and one-row tails, fewer tiles than consumers) and twice at 20,000 rows,
      the same bytes; the rowwise forward B6a also at N = 1, 63, 65 and 129
      and twice at 20,000 rows, the same bytes; the
-     point-GAN generator kernel at the D step's 32 x 4096 points (twice, the
-     same bytes), at B=3, N=1000 (a tail tile, tiles spanning two items) and
+     point-GAN generator kernel at the D step's 32 x 4096 points and the
+     refinement trainer's 16 x 8192 and 8 x 16384 (each twice, the same
+     bytes), at B=3, N=1000 (a tail tile, tiles spanning two items) and
      at B=2, N=100 (fewer tiles than consumer warpgroups), fresh weights;
      the grid backward's rows pass alone (B2's Hopper rows kernel,
      ``sdf_grid_backward_rows``: its h and dz planes, dx1 and gz against
@@ -46,8 +47,9 @@ Phases, each fatal on failure (nothing is caught):
      by pass (``torch.profiler`` device time: its rows pass, the weight
      kernel, the finishes, the d_w8 / d_b8 sums, the zeroing), B6a also as
      a call's share of ten back to back; the
-     generator kernel at 32 x 4096 and 6 x 32768 beside the bf16 module (the
-     fused switch's other side), and as a call's share of ten back to back; B5a and B5b at 16 x 64^3 for both stash
+     generator kernel at 32 x 4096, 6 x 32768, 16 x 8192 and 8 x 16384
+     beside the bf16 module (the fused switch's other side), and as a
+     call's share of ten back to back; B5a and B5b at 16 x 64^3 for both stash
      sets beside B1 and B2 (the kernels line takes the trainers' set,
      ``hybrid_gan._GRID_STASH``, or (1..6) when the trainers ship the
      recompute); each kernel's bound (the larger of its
@@ -117,8 +119,25 @@ Phases, each fatal on failure (nothing is caught):
      checked, networks on the card; the bundled generator, WGAN generator
      and classic AE on the card against the CPU, float32 with TF32 off, in
      eval and train mode; each step at the root bench.py's shapes (host
-     clock after a synchronize, median of 10) with its peak memory.
-Each run of a path in phases 5-7 and 9-12 starts with every launch count set to 0
+     clock after a synchronize, median of 10) with its peak memory;
+ 13. the refinement trainer, the metrics and the quality gate: the point
+     GAN's entry point (synthetic=64, epochs=1) in a temporary directory,
+     then the refinement trainer's (synthetic=64, epochs=1: 4 + 8 steps,
+     then ``continue`` to epochs=2: stage 2 twice, 16 steps) in the same
+     one; the warm start from the stage-1 files (the parameters equal), the
+     generator kernel once per D step and no other kernel, one D step's
+     second evaluation from the kernel against the bf16 module's, losses,
+     files and CSV checked; the refinement's D step (fused switch on and
+     off) and G step at 16 x 8192 with their peak memory; the GAN quality
+     gate's entry point at a micro budget (16 shapes, 4 samples, 2 voxel-GAN
+     epochs, one epoch an iteration of the chain 0 -> 3, 4 ground-truth
+     shapes): exit code 0 or 3 (bars failed), its GATE line, record and
+     sheet, the grid kernel and the grid backward kernel in every
+     progressive iteration, the points kernel once per mesh of the SDF
+     generator and no kernel elsewhere; the metrics CLI's ``sample`` mode on
+     the fitted chair (the points kernel once) and ``dataset`` mode on 4
+     synthetic shapes, with MMD-CD and COV-CD.
+Each run of a path in phases 5-7 and 9-13 starts with every launch count set to 0
 and reads the counts just after; launches made to compare a kernel with its
 plain version or to time it are never counted. The kernels line gives each
 kernel's launches summed over the runs made at the shipped switch
@@ -1577,6 +1596,274 @@ def voxel_step_times(device, kind: str) -> None:
         del fn
 
 
+def refinement_path(device) -> dict:
+    """Phase 13: the point GAN's entry point (stage 1, synthetic=64 epochs=1)
+    in a temporary directory, then the refinement trainer's entry point in
+    the same one (synthetic=64 epochs=1: 4 + 8 steps) and its ``continue``
+    to epochs=2 (stage 2 twice, 16 steps); the warm start, the counts (the
+    generator kernel once per D step, no other kernel), the files and CSV,
+    and one D step's second evaluation from the kernel against the bf16
+    module's at the same points; returns the launch counts per run."""
+    import csv
+    import math
+
+    import torch
+    from torch.func import functional_call
+    from shapegan_tpu_torch import checkpoints
+    from shapegan_tpu_torch.core.config import parse_cli
+    from shapegan_tpu_torch.models import point_sdf_net as P
+    from shapegan_tpu_torch.ops import point_gen_kernels as PG
+    from shapegan_tpu_torch.train import point_gan as T
+    from shapegan_tpu_torch.train import point_gan_ref as R
+
+    paths, readings = {}, {}
+    generate_best = R.generate_best
+
+    def probe(generator, params, pos, z):
+        """The D step's second evaluation, and once per run the bf16
+        module's at the same points and latents (no kernel launch) against
+        it."""
+        fake = generate_best(generator, params, pos, z)
+        if "s_dist vs module" not in readings:
+            module = functional_call(generator, params, (pos, z))
+            readings["s_dist vs module"] = float((fake - module).abs().max())
+            readings["probe shape"] = tuple(fake.shape)
+        return fake
+
+    # (path, arguments, CSV lines after, D steps, G steps, files loaded). 64
+    # shapes: 4 batches of 16 at 8192 points, 8 of 8 at 16384. The resume
+    # skips the two epochs the CSV has, in the new run's order: stage 1's
+    # two, so stage 2 runs twice (steps 9-24, G at 10, 15, 20).
+    runs = (("point GAN ref epochs=1", ["epochs=1"], 2, 12, 2,
+             [R.STAGE1_G_NAME, R.STAGE1_D_NAME]),
+            ("point GAN ref continue to epochs=2", ["epochs=2", "continue"], 4, 16, 3,
+             [R.STAGE1_G_NAME, R.STAGE1_D_NAME, R.G_NAME, R.D_NAME, R.OPT_NAME]))
+    R.generate_best = probe
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            cwd = os.getcwd()
+            os.chdir(tmp)
+            try:
+                reset_counts()
+                t0 = time.perf_counter()
+                stage1 = T.train(parse_cli(["synthetic=64", "epochs=1"]))
+                torch.cuda.synchronize()
+                counts = paths["point GAN stage 1 for the refinement"] = read_counts()
+                log(f"  point GAN stage 1 (synthetic=64 epochs=1): {time.perf_counter() - t0:.2f} s, "
+                    f"{stage1['steps']} D steps")
+                check_counts("point GAN stage 1", counts, launched=("point_gen",),
+                             idle=[k for k in counts if k != "point_gen"])
+                # The warm start: fresh models take the stage-1 files, as written.
+                generator, critic = T.create_models(5, device)
+                loaded = R.restore_models(generator, critic, "models", resume=False)
+                for module, name in ((generator, R.STAGE1_G_NAME), (critic, R.STAGE1_D_NAME)):
+                    want = P.params_from_jax(checkpoints.load_tree(
+                        P.params_to_jax(dict(module.named_parameters())), name, base="models",
+                        strict=True), device=device)
+                    if not all(torch.equal(v, want[k]) for k, v in module.named_parameters()):
+                        raise AssertionError(f"the warm start did not load {name}")
+                if loaded != [R.STAGE1_G_NAME, R.STAGE1_D_NAME]:
+                    raise AssertionError(f"warm start loaded {loaded}")
+                log(f"  warm start: {loaded} loaded, the parameters equal the files'")
+                for path, argv, csv_rows, d_steps, g_steps, want_loaded in runs:
+                    readings.clear()
+                    reset_counts()
+                    t0 = time.perf_counter()
+                    result = R.train(parse_cli(["synthetic=64", *argv]))
+                    torch.cuda.synchronize()
+                    seconds = time.perf_counter() - t0
+                    counts = paths[path] = read_counts()
+                    with open("plots/point_gan_ref_training.csv") as f:
+                        rows = [[float(v) for v in r] for r in csv.reader(f, delimiter=" ")]
+                    missing = [n for n in (R.G_NAME, R.D_NAME, R.OPT_NAME)
+                               if not os.path.exists(os.path.join("models", n + ".npz"))]
+                    log(f"  {path}: {seconds:.2f} s (first call, host clock, data made on the host "
+                        f"included), {result['steps']} D steps, {len(result['g_step_s'])} G steps, "
+                        f"loaded {result['loaded']}; CSV {[(int(r[0]), int(r[1]), round(r[3], 6)) for r in rows]}")
+                    check_counts(path, counts, launched=("point_gen",),
+                                 idle=[k for k in counts if k != "point_gen"])
+                    if counts["point_gen"] != result["steps"]:
+                        raise AssertionError(f"{path}: {result['steps']} D steps but launches {counts}")
+                    if (result["steps"], len(result["g_step_s"])) != (d_steps, g_steps):
+                        raise AssertionError(f"{path}: {result['steps']} D and {len(result['g_step_s'])} "
+                                             f"G steps, expected {d_steps} and {g_steps}")
+                    if result["loaded"] != want_loaded:
+                        raise AssertionError(f"{path}: loaded {result['loaded']}")
+                    if (len(rows) != csv_rows or any(len(r) != 4 for r in rows) or missing
+                            or not all(math.isfinite(v) for r in rows for v in r)):
+                        raise AssertionError(f"{path}: CSV rows {rows}, files missing {missing}")
+                    if result["generator"].lin0.weight.device != device:
+                        raise AssertionError(f"{path}: the generator is not on the card")
+                    err = readings["s_dist vs module"]
+                    log(f"  first D step's s_dist {readings['probe shape']}: kernel vs bf16 module "
+                        f"max_abs={err:.3e} (<= {GEN_VS_MODULE_MAX_ABS})")
+                    if not err <= GEN_VS_MODULE_MAX_ABS:
+                        raise AssertionError(f"{path}: the kernel's s_dist is not the module's")
+            finally:
+                os.chdir(cwd)
+    finally:
+        R.generate_best = generate_best
+    if not PG._FORCE_FUSED_GENERATE:
+        raise AssertionError("the fused generator switch is off")
+    return paths
+
+
+def refinement_step_times(device, kind: str) -> None:
+    """Phase 13: the refinement trainer's D step (fused generator switch on
+    and off) and G step at 16 x 8192 points, host clock after a synchronize,
+    median of 10 after 3 warm-up steps, each with its peak device memory
+    above what was allocated before its models were made."""
+    import torch
+    from shapegan_tpu_torch.profile_slice import refinement_steps
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for name, fn in refinement_steps(device).items():
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        log(f"  refinement {name} at 16 x 8192: {statistics.median(times):.3f} ms (host clock after a "
+            f"synchronize, median of 10, range {min(times):.3f}-{max(times):.3f}), peak memory "
+            f"{peak:.3f} GB above the {base / 1e9:.3f} GB allocated before (fresh weights; {kind})")
+
+
+def gate_path(kind: str) -> dict:
+    """Phase 13: the GAN quality gate's entry point at a micro budget in a
+    temporary directory (16 shapes, 4 samples, 2 voxel-GAN epochs, one epoch
+    an iteration of the progressive chain, 4 ground-truth shapes); its exit
+    code 0 or BARS_FAILED, its GATE line and record (finite metrics, the
+    card's name), its sheet, and the counts: the grid kernel and the grid
+    backward kernel in every progressive iteration, the points kernel once
+    per mesh of the SDF generator and nowhere else; returns the launch
+    counts per part."""
+    import contextlib
+    import io
+    import math
+
+    import torch
+    from shapegan_tpu_torch import gan_gate
+    from shapegan_tpu_torch.models.sdf_net import SDFNet
+    from shapegan_tpu_torch.render.png import read_png
+    from shapegan_tpu_torch.train import hybrid_gan as HG
+    from shapegan_tpu_torch.train import hybrid_progressive_gan as prog
+
+    paths, meshes = {}, []
+    train, get_mesh = prog.train, SDFNet.get_mesh
+
+    def counted_train(config):
+        before = read_counts()
+        result = train(config)
+        torch.cuda.synchronize()
+        after = read_counts()
+        paths[f"gan gate: progressive iteration {config.iteration}"] = {
+            k: after[k] - before[k] for k in after}
+        return result
+
+    def counted_get_mesh(self, *args, **kwargs):
+        meshes.append(1)
+        return get_mesh(self, *args, **kwargs)
+
+    samples = 4
+    out = io.StringIO()
+    prog.train, SDFNet.get_mesh = counted_train, counted_get_mesh
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                code = gan_gate.main([tmp, "shapes=16", f"samples={samples}", "gan_epochs=2",
+                                      "prog_epochs=1", "gt_count=4"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            total = read_counts()
+            with open(os.path.join(tmp, "gate_gan.json")) as f:
+                record = json.load(f)
+            sheet = read_png(record["sample_sheet"])
+    finally:
+        prog.train, SDFNet.get_mesh = train, get_mesh
+    for line in out.getvalue().splitlines():
+        log("  | " + line)
+    gate_lines = [l for l in out.getvalue().splitlines() if l.startswith("GATE ")]
+    log(f"  gate: exit code {code} in {seconds:.2f} s (host clock; {kind}); {len(meshes)} meshes of "
+        f"the SDF generator")
+    if code not in (0, gan_gate.BARS_FAILED):
+        raise AssertionError(f"the gate exited {code}")
+    if len(gate_lines) != 1 or json.loads(gate_lines[0][5:]) != record:
+        raise AssertionError("the gate printed no GATE line of its record")
+    scores = [record[f][k] for f in ("voxel_gan", "progressive") for k in ("mmd_cd", "cov_cd")]
+    if not all(math.isfinite(v) for v in scores) or record["device"] != kind:
+        raise AssertionError(f"gate record {record}")
+    if sheet.shape != (3 * 132 + 4, samples * 132 + 4, 3) or not (sheet != 255).any():
+        raise AssertionError(f"gate sheet {sheet.shape}")
+    iterations = {k: v for k, v in paths.items()}
+    rest = {k: total[k] - sum(p[k] for p in iterations.values()) for k in total}
+    paths["gan gate: voxel GAN, scores and sheet"] = rest
+    for path, counts in iterations.items():
+        want = ("grid", "grid_bwd") if HG._GRID_STASH is None else ("grid", "grid_stash", "grid_stash_bwd")
+        check_counts(path, counts, launched=want, idle=[k for k in counts if k not in want])
+    check_counts("gan gate: voxel GAN, scores and sheet", rest, launched=("points",),
+                 idle=[k for k in rest if k != "points"])
+    if len(iterations) != 4 or rest["points"] != len(meshes) or len(meshes) != 2 * samples:
+        raise AssertionError(f"gate: {len(iterations)} iterations, points kernel {rest['points']} "
+                             f"launches for {len(meshes)} meshes")
+    return paths
+
+
+def metrics_cli_path(chair, code) -> dict:
+    """Phase 13: the metrics CLI in a temporary directory: ``sample`` on the
+    chair fitted in phase 3 (saved with a one-row code table, as phase 6
+    does; one mesh at 32^3, the points kernel once), then ``dataset`` on 4
+    synthetic shapes, which prints MMD-CD and COV-CD of the two; returns the
+    launch counts per run."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from shapegan_tpu_torch import checkpoints, metrics
+    from shapegan_tpu_torch.models import LATENT_CODES_FILENAME
+
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            checkpoints.save(chair, "sdf_net", base="models")
+            checkpoints.save_array(code[None].cpu().numpy(), LATENT_CODES_FILENAME, base="models")
+            for mode, argv, launched in (("sample", [], ("points",)), ("dataset", ["synthetic=4"], ())):
+                out = io.StringIO()
+                reset_counts()
+                with contextlib.redirect_stdout(out):
+                    metrics.main([mode, *argv])
+                torch.cuda.synchronize()
+                counts = paths[f"metrics {mode}"] = read_counts()
+                log(f"  metrics {mode}: " + "; ".join(out.getvalue().splitlines()))
+                check_counts(f"metrics {mode}", counts, launched=launched,
+                             idle=[k for k in counts if k not in launched])
+            generated = np.load(os.path.join(metrics.OUT_DIR, "generated.npy"))
+            reference = np.load(os.path.join(metrics.OUT_DIR, "dataset.npy"))
+            scores = [l for l in out.getvalue().splitlines() if l.startswith(("MMD-CD", "COV-CD"))]
+        finally:
+            os.chdir(cwd)
+    radius = np.linalg.norm(generated, axis=-1).max(axis=1)
+    if (generated.shape != (1, metrics.POINT_COUNT, 3) or reference.shape != (4, metrics.POINT_COUNT, 3)
+            or not np.isfinite(generated).all() or not np.allclose(radius, 0.5, rtol=1e-5)
+            or paths["metrics sample"]["points"] != 1 or len(scores) != 2):
+        raise AssertionError(f"metrics: clouds {generated.shape} {reference.shape}, radius {radius}, "
+                             f"scores {scores}")
+    return paths
+
+
 def main() -> int:
     import torch
     from torch.func import functional_call
@@ -1705,17 +1992,21 @@ def main() -> int:
     same_bytes("rowwise N=20000", lambda: [K.rowwise_forward_cuda(*ops)])
     same_bytes("rowwise_bwd N=20000", lambda: K.rowwise_backward_cuda(*ops, g))
     # B7 at the D step's shape (stage 3 of the curriculum), at an odd shape
-    # with a tail tile and tiles spanning two items, and at 200 rows (fewer
-    # tiles than consumer warpgroups, tiles spanning items); fresh weights;
-    # two calls at the D step's shape, the same bytes.
+    # with a tail tile and tiles spanning two items, at 200 rows (fewer
+    # tiles than consumer warpgroups, tiles spanning items), and at the
+    # refinement trainer's two stages (8192 points an item, a tile count a
+    # whole multiple of the items'; half as many items at 16384); fresh
+    # weights; two calls at those three shapes, the same bytes.
     gen_cases = {(b, n): point_gen_case(b, n, seed, device)
-                 for b, n, seed in ((32, 4096, 10), (3, 1000, 11), (2, 100, 13))}
+                 for b, n, seed in ((32, 4096, 10), (3, 1000, 11), (2, 100, 13), (16, 8192, 14),
+                                    (8, 16384, 15))}
     gen_err = 0.0
     for (b, n), (ops, *_rest) in gen_cases.items():
         gen_err = max(gen_err, compare(f"point_gen B={b} N={n}", PG.generate_cuda(*ops),
                                        PG.generate_plain(*ops), GEN_MAX_ABS, GEN_MEAN_ABS))
-    ops = gen_cases[(32, 4096)][0]
-    same_bytes("point_gen B=32 N=4096", lambda: [PG.generate_cuda(*ops)])
+    for b, n in ((32, 4096), (16, 8192), (8, 16384)):
+        ops = gen_cases[(b, n)][0]
+        same_bytes(f"point_gen B={b} N={n}", lambda: [PG.generate_cuda(*ops)])
 
     log(f"== 4. times at the main path's shapes ({kind}; {smi})")
     trunk_flop = 2 * 6 * 256 * 256
@@ -1885,13 +2176,15 @@ def main() -> int:
             + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
             + f"; {sum(split.values()):.4f} in all, of the call's {bwd[0]:.4f} by CUDA events")
     # B7 at the D step's two ends of the curriculum's middle: 32 x 4096
-    # (stage 3; the kernels line's figures) and 6 x 32768 (stage 6), beside
-    # the bf16 module (SDFGenerator with the fused switch off). Six 256 x 256
+    # (stage 3; the kernels line's figures) and 6 x 32768 (stage 6), and at
+    # the refinement trainer's 16 x 8192 and 8 x 16384, beside the bf16
+    # module (SDFGenerator with the fused switch off). Six 256 x 256
     # products and the two depth-3 position products a row, and the head;
     # xyz in and one float out a row, the weights and zz rows once.
     gen_cases[(6, 32768)] = point_gen_case(6, 32768, 12, device)
     gen_weight_bytes = 6 * 256 * 256 * 2 + 2 * 3 * 256 * 2 + 3 * 8 * 256 * 2 + 256 * 2
-    for b, n in ((32, 4096), (6, 32768)):
+    gen_by_shape = {}
+    for b, n in ((32, 4096), (6, 32768), (16, 8192), (8, 16384)):
         ops, generator, gen_params, pos, z = gen_cases[(b, n)]
         rows = b * n
         gen_bound = bound(2 * rows * (6 * 256 * 256 + 2 * 3 * 256 + 256),
@@ -1903,6 +2196,10 @@ def main() -> int:
                          time_ms(lambda: [PG.generate_cuda(*ops) for _ in range(10)], iters=10) / 10)
         if (b, n) == (32, 4096):
             times["point_gen"], bounds["point_gen"] = gen_times[:2], gen_bound
+        else:
+            gen_by_shape[f"{b}x{n}"] = {"ms": gen_times[0], "plain_ms": gen_times[1],
+                                        "module_ms": gen_times[2], "bound_ms": gen_bound[0],
+                                        "bound_by": gen_bound[1]}
         log(f"  point_gen {b} x {n}: kernel {gen_times[0]:.4f} ms "
             f"({2 * rows * 6 * 256 * 256 / gen_times[0] / 1e9:.1f} trunk TFLOP/s, {gen_bound[0] / gen_times[0]:.3f} "
             f"of the bound's rate; a call of ten back to back {gen_times[3]:.4f} ms, "
@@ -1980,7 +2277,7 @@ def main() -> int:
 
     log(f"== 6. raymarch path ({kind}; {smi})")
     paths.update(raymarch_path(chair, chair_code, f"{kind}; {smi}")["paths"])
-    del chair, chair_folded, chair_weights
+    del chair_folded, chair_weights
     torch.cuda.empty_cache()
 
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32_defaults
@@ -2025,6 +2322,13 @@ def main() -> int:
     voxel_modules_vs_float32(device)
     voxel_step_times(device, f"{kind}; {smi}")
     log(f"  phase 12: {time.perf_counter() - t0:.1f} s")
+    log(f"== 13. the refinement trainer, the GAN quality gate and the metrics CLI ({kind}; {smi})")
+    t0 = time.perf_counter()
+    paths.update(refinement_path(device))
+    refinement_step_times(device, f"{kind}; {smi}")
+    paths.update(gate_path(kind))
+    paths.update(metrics_cli_path(chair, chair_code))
+    log(f"  phase 13: {time.perf_counter() - t0:.1f} s")
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         raise AssertionError("jax was imported")
 
@@ -2057,7 +2361,8 @@ def main() -> int:
                      rowwise_bwd_err, rows_source="shapegan_tpu_torch/ops/csrc/sdf_grid_bwd_sm90.cuh",
                      passes_source="shapegan_tpu_torch/ops/csrc/sdf_bwd_passes_sm90.cuh",
                      passes_ms=rowwise_split[20000], passes_ms_65536=rowwise_split[65536]),
-        kernel_entry("point_gen", "point_gen", "point_gen.cu", "point_gen_pallas.py:62", gen_err),
+        kernel_entry("point_gen", "point_gen", "point_gen.cu", "point_gen_pallas.py:62", gen_err,
+                     by_shape=gen_by_shape),
         kernel_entry("sdf_grid_stash", "grid_stash", "sdf_grid.cu", "sdf_mlp_pallas.py:748",
                      stash_err),
         kernel_entry("sdf_grid_stash_bwd", "grid_stash_bwd", "sdf_grid_bwd.cu",

@@ -49,7 +49,7 @@ _FIELDS = {f.name for f in dataclasses.fields(TrainConfig)} - {"extras"}
 _INT_KEYS = {"iteration", "epochs", "synthetic", "batch_size", "seed"}
 
 # bare token → (name, value)
-_BOOL_TOKENS = {
+BOOL_TOKENS = {
     "continue": ("resume", True),
     "nogui": ("nogui", True),
     "gui": ("nogui", False),
@@ -87,8 +87,8 @@ def parse_cli(argv: Optional[List[str]] = None, **defaults) -> TrainConfig:
         elif "=" in arg:
             key, value = arg.split("=", 1)
             _assign(cfg, key.replace("-", "_"), value)
-        elif arg in _BOOL_TOKENS:
-            key, value = _BOOL_TOKENS[arg]
+        elif arg in BOOL_TOKENS:
+            key, value = BOOL_TOKENS[arg]
             if key in _FIELDS:
                 setattr(cfg, key, value)
             else:

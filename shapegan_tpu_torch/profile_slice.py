@@ -37,7 +37,8 @@ shape, so slice B's mesh is the sphere mask) and a chair fitted on the card
   of its curriculum, fresh full-width weights, a random batch): the D step
   with the fused generator switch on (the generator kernel makes the fake
   cloud) and off (the bf16 module), and the G step, medians of ``iters``
-  on the host clock, and ``torch.profiler`` over one of each;
+  on the host clock, and ``torch.profiler`` over one of each; the same for
+  the refinement trainer's steps at 16 x 8192 points (its first stage);
 * slice G, the activation stash at 16 x 64^3 (the counterpart of the JAX
   package's ``bench_profile.py stash_breakdown``, fresh full-width weights):
   the forward with the stash writes of (2,4,6) and (1..6) beside the grid
@@ -60,6 +61,7 @@ It needs CUDA and builds the kernels if they are not built yet. ``slices=EF``
 
 from __future__ import annotations
 
+import itertools
 import os
 import statistics
 import subprocess
@@ -371,16 +373,53 @@ def point_gan_steps(device: torch.device, batch: int = 32, points: int = 4096,
                                                         device=device))}
 
 
+def refinement_steps(device: torch.device, batch: int = 16, points: int = 8192,
+                     seed: int = 0) -> Dict[str, Callable[[], object]]:
+    """The refinement trainer's steps (``train.point_gan_ref.make_steps``)
+    on fresh full-width models and one random real cloud (uniform points
+    with their distances to a sphere of radius 0.5, surface points near it),
+    each call with new noise: ``{"D step, switch on", "D step, switch off",
+    "G step"}``; the D steps set the fused generator switch for their call."""
+    from shapegan_tpu_torch.ops import point_gen_kernels as PG
+    from shapegan_tpu_torch.optim import RMSprop
+    from shapegan_tpu_torch.train import point_gan_ref as R
+
+    generator, critic = R.create_models(seed, device)
+    d_step, g_step = R.make_steps(generator, critic,
+                                  RMSprop(dict(generator.named_parameters()), R.LEARN_RATE),
+                                  RMSprop(dict(critic.named_parameters()), R.LEARN_RATE))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    u_pos = torch.rand((batch, points, 3), generator=gen, device=device) * 2 - 1
+    s_pos = torch.nn.functional.normalize(u_pos, dim=-1) * 0.5
+    real = (u_pos, u_pos.norm(dim=-1, keepdim=True) - 0.5, s_pos, s_pos.norm(dim=-1, keepdim=True) - 0.5)
+    noise, step = torch.Generator(device=device), itertools.count(1)
+
+    def d(fused: bool):
+        default = PG._FORCE_FUSED_GENERATE
+        PG._FORCE_FUSED_GENERATE = fused
+        try:
+            return d_step(real, R.step_noise(noise, seed, next(step), batch, points, device)[0])
+        finally:
+            PG._FORCE_FUSED_GENERATE = default
+
+    return {"D step, switch on": lambda: d(True), "D step, switch off": lambda: d(False),
+            "G step": lambda: g_step(u_pos, R.step_noise(noise, seed, next(step), batch, points,
+                                                         device)[1])}
+
+
 def profile_point_gan(device: torch.device, iters: int) -> None:
     """Slice F: the point GAN's D step (fused generator switch on and off)
-    and G step at 32 x 4096 points."""
-    steps = point_gan_steps(device)
-    for name, fn in steps.items():
-        times = [_host_ms(fn) for _ in range(iters + 2)][2:]
-        print(f"slice F, point GAN {name}, 32 x 4096 points: {statistics.median(times):.3f} ms "
-              f"(host clock, median of {iters})")
-    for name, fn in steps.items():
-        report(f"one point GAN {name}", *profile_device(fn, top=10))
+    and G step at 32 x 4096 points, and the refinement trainer's at 16 x
+    8192."""
+    for what, steps in (("point GAN", point_gan_steps(device)),
+                        ("refinement", refinement_steps(device))):
+        shape = "32 x 4096" if what == "point GAN" else "16 x 8192"
+        for name, fn in steps.items():
+            times = [_host_ms(fn) for _ in range(iters + 2)][2:]
+            print(f"slice F, {what} {name}, {shape} points: {statistics.median(times):.3f} ms "
+                  f"(host clock, median of {iters})")
+        for name, fn in steps.items():
+            report(f"one {what} {name}", *profile_device(fn, top=10))
 
 
 def voxel_steps(device: torch.device, seed: int = 0) -> Dict[str, Callable[[], Callable[[], object]]]:

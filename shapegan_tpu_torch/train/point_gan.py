@@ -30,7 +30,7 @@ module, the JAX package's choice off a TPU); the G step differentiates the gener
 bf16 critic. The steps take their noise as arguments, so a test can hand
 both packages the same. Batches come from the host (:class:`BatchLoader`,
 threads) and go to the card from pinned memory. Not ported: the sharded
-mesh (one card) and the refinement trainer ``point_gan_ref``.
+mesh (one card).
 """
 
 from __future__ import annotations
@@ -166,9 +166,8 @@ def _load_module(module: torch.nn.Module, name: str, base: str) -> None:
             param.copy_(restored[key])
 
 
-def _load_optimizers(g_opt: RMSprop, d_opt: RMSprop, base: str) -> None:
-    restored = checkpoints.load_tree(_optimizer_tree(g_opt, d_opt), OPT_NAME, base=base,
-                                     strict=True)
+def _load_optimizers(g_opt: RMSprop, d_opt: RMSprop, base: str, name: str = OPT_NAME) -> None:
+    restored = checkpoints.load_tree(_optimizer_tree(g_opt, d_opt), name, base=base, strict=True)
     device = next(iter(g_opt.nu.values())).device
     g_opt.nu = point_sdf_net.params_from_jax(restored["g"][0]["nu"], device=device)
     d_opt.nu = point_sdf_net.params_from_jax(restored["d"][0]["nu"], device=device)

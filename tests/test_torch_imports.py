@@ -44,5 +44,6 @@ def test_port_imports_nothing_of_jax():
     assert int(count) >= 36  # every module was walked
     for module in ("models.point_sdf_net", "ops.point_gen_kernels", "train.point_gan",
                    "data.datasets", "data.synthetic", "models.gan", "train.hybrid_gan",
-                   "train.hybrid_wgan"):
+                   "train.hybrid_wgan", "train.point_gan_ref", "metrics", "gan_gate",
+                   "render.viewer"):
         assert f"shapegan_tpu_torch.{module}" in names.split(), module
