@@ -136,8 +136,24 @@ Phases, each fatal on failure (nothing is caught):
      progressive iteration, the points kernel once per mesh of the SDF
      generator and no kernel elsewhere; the metrics CLI's ``sample`` mode on
      the fitted chair (the points kernel once) and ``dataset`` mode on 4
-     synthetic shapes, with MMD-CD and COV-CD.
-Each run of a path in phases 5-7 and 9-13 starts with every launch count set to 0
+     synthetic shapes, with MMD-CD and COV-CD;
+ 14. data preparation, streaming and the fixture corpus: (a) the C++ mesh
+     SDF engine built with g++ (timed); (b) the 12-mesh fixture corpus
+     prepared at the JAX package's full defaults (voxels 8-64, uniform and
+     surface 64^3, clouds 200,000, 50 scans at 1024^2, cpu_count // 2
+     spawned workers), its ok / bad / skipped, seconds a mesh and the peak
+     host memory of the process tree, then again (all skipped); (c) one
+     prepared mesh's voxels, samples and cloud against the engine's numpy
+     plain versions (their scans at 1024^2); (d) the classic AE at 32^3,
+     batch 32, on 256 voxel files: streamed batches (the process backend,
+     pinned copies) equal to resident ones bit for bit, the entry point
+     streamed and resident (no hand kernel; losses, step times) and each
+     epoch's busy share; (e) the autodecoder's entry point at full width on
+     the corpus's 200,000-point clouds, B6a and B6b once a step; (f) the
+     fixture-corpus entry point at a reduced budget: exit 0 or 3, its GATE
+     record, B6a and B6b once a step in both autodecoder runs, B3 once a
+     reconstruction and no kernel elsewhere.
+Each run of a path in phases 5-7 and 9-14 starts with every launch count set to 0
 and reads the counts just after; launches made to compare a kernel with its
 plain version or to time it are never counted. The kernels line gives each
 kernel's launches summed over the runs made at the shipped switch
@@ -1864,6 +1880,348 @@ def metrics_cli_path(chair, code) -> dict:
     return paths
 
 
+# Phase 14's bounds. The engine against its numpy plain versions on a
+# prepared mesh's points: unsigned distances (float32 BVH against float32
+# brute force; read <= 7.7e-8 on the H100 machine's host), and the share of
+# points whose sign differs outside the one-texel band of the scans (0 in
+# the CPU tests for every fixture at 256^2, and on the H100 machine's host
+# at 1024^2). The classic AE's logged
+# loss streamed against resident, relative: the same batches bit for bit
+# and the same init, so only cuDNN's run-to-run order of sums differs
+# (predicted ~1e-6).
+PREP_UNSIGNED_ATOL = 1e-5
+PREP_SIGN_SHARE = 0.0
+STREAM_LOSS_RTOL = 1e-3
+# The fixture corpus at full prep defaults (the JAX package's PrepareConfig),
+# and the corpus entry point's reduced budget.
+CORPUS_COUNT = 12
+CORPUS_GATE_ARGS = ["count=6", "epochs=2", "ad_epochs=8", "overfit_epochs=30"]
+
+
+class PeakMemory:
+    """The largest summed private memory of this process and all its
+    descendants, sampled from /proc/<pid>/status every 20 ms on a thread
+    while the block runs: ``RssAnon + RssShmem`` (the heap, without the
+    torch and CUDA libraries every worker maps), or ``VmRSS`` where the
+    kernel does not report those (``measure`` says which); ``first`` is the
+    first sample's, ``largest_child`` the largest one descendant reached."""
+
+    def __enter__(self):
+        import threading
+
+        self.peak = self.first = self.largest_child = 0
+        self.measure = "RssAnon+RssShmem"
+        self._stop = threading.Event()
+        self._sampled = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        self._sampled.wait()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        return False
+
+    def _sample(self):
+        while not self._stop.is_set():
+            parents = {}
+            for pid in filter(str.isdigit, os.listdir("/proc")):
+                try:
+                    with open(f"/proc/{pid}/stat") as f:
+                        parents[int(pid)] = int(f.read().rsplit(")", 1)[1].split()[1])
+                except (OSError, IndexError, ValueError):  # the process ended meanwhile
+                    continue
+            tree, frontier = {os.getpid()}, [os.getpid()]
+            while frontier:
+                frontier = [p for p, parent in parents.items() if parent in frontier and p not in tree]
+                tree.update(frontier)
+            total = 0
+            for pid in tree:
+                try:
+                    with open(f"/proc/{pid}/status") as f:
+                        fields = dict(line.split(":", 1) for line in f if ":" in line)
+                except OSError:
+                    continue
+                if "RssAnon" not in fields and "VmRSS" in fields:  # (a zombie has neither)
+                    self.measure = "VmRSS"
+                keys = ("RssAnon", "RssShmem") if "RssAnon" in fields else ("VmRSS",)
+                size = sum(int(fields.get(k, "0 kB").split()[0]) * 1024 for k in keys)
+                total += size
+                if pid != os.getpid():
+                    self.largest_child = max(self.largest_child, size)
+            self.first = self.first or total
+            self.peak = max(self.peak, total)
+            self._sampled.set()
+            self._stop.wait(0.02)
+
+
+def prep_path(tmp: str) -> dict:
+    """Phase 14 (a)-(c): the engine's build; the 12-mesh fixture corpus
+    prepared at the JAX package's full defaults (voxels 8-64, uniform and
+    surface 64^3, clouds 200,000, 50 scans at 1024^2, the default pool of
+    spawned workers) with its wall time, seconds a mesh and peak host
+    memory, then again (all skipped: the pool's idle footprint); one prepared mesh's artifacts against
+    the engine's numpy plain versions; the clouds combined. Returns the
+    figures."""
+    import numpy as np
+    from shapegan_tpu_torch.data import mesh_to_sdf as M
+    from shapegan_tpu_torch.data.fixtures import make_fixture_corpus
+    from shapegan_tpu_torch.data.mesh_io import load_mesh
+    from shapegan_tpu_torch.data.prepare import (PrepareConfig, combine_sdf_clouds,
+                                                 process_mesh_files, write_split_file)
+    from shapegan_tpu_torch.ops.coords import _voxel_coordinates_np
+
+    t0 = time.perf_counter()
+    lib = M.build_engine()
+    build_s = time.perf_counter() - t0
+    log(f"  (a) engine built in {build_s:.2f} s: {os.path.relpath(lib, REPO)} "
+        f"(g++, {os.cpu_count()} host cores)")
+
+    paths = make_fixture_corpus(os.path.join(tmp, "meshes"), count=CORPUS_COUNT, seed=0)
+    config = PrepareConfig(output_dir=os.path.join(tmp, "data", "fixtures"))
+    runs = []
+    for attempt in ("first", "again"):
+        with PeakMemory() as memory:
+            t0 = time.perf_counter()
+            results = process_mesh_files(paths, config)
+            seconds = time.perf_counter() - t0
+        counts = {s: results.count(s) for s in ("ok", "skipped", "bad")}
+        runs.append({"results": counts, "s": seconds, "s_per_mesh": seconds / len(paths),
+                     "peak_gb": memory.peak / 1e9, "before_gb": memory.first / 1e9,
+                     "largest_worker_gb": memory.largest_child / 1e9})
+        log(f"  (b) prep {attempt}: {counts} in {seconds:.2f} s, {seconds / len(paths):.3f} s a mesh "
+            f"(host clock, {max(1, (os.cpu_count() or 2) // 2)} workers), peak memory of the "
+            f"process tree ({memory.measure}) {memory.peak / 1e9:.3f} GB ({memory.first / 1e9:.3f} "
+            f"GB before the pool), the largest worker {memory.largest_child / 1e9:.3f} GB")
+    log(f"  (b) the prep's own memory at the defaults: {runs[0]['peak_gb'] - runs[1]['peak_gb']:.3f} "
+        f"GB (the first run's peak less the second's, whose idle workers hold the same libraries)")
+    if runs[0]["results"]["ok"] < CORPUS_COUNT - 2 or runs[1]["results"] != {
+            "ok": 0, "skipped": CORPUS_COUNT, "bad": 0}:
+        raise AssertionError(f"prep results {runs}")
+
+    # (c) one prepared mesh (the self-intersecting union) against the plain
+    # versions, their scans at the artifacts' 1024^2 (scan signs are a
+    # property of the scan resolution: a coarser scan's 3x3 texels see
+    # further past a silhouette)
+    name = "fixture_002"
+    mesh = load_mesh(os.path.join(tmp, "meshes", f"{name}.obj"))
+    rng = np.random.default_rng(0)
+    readings = {}
+    t0 = time.perf_counter()
+    for scaled, kinds in ((mesh.scaled_to_unit_cube(), ("voxels_64",)),
+                          (mesh.scaled_to_unit_sphere(), ("uniform", "surface", "cloud"))):
+        plain = M.MeshSDF(scaled, use_native=False, scan_resolution=M.SCAN_RESOLUTION)
+        lo, hi = scaled.bounding_box
+        texel = 2.0 * (float(np.linalg.norm((hi - lo) / 2)) * 1.02 + 1e-6) / plain.scan_resolution
+        for kind in kinds:
+            data = np.load(os.path.join(config.output_dir, kind, f"{name}.npy"))
+            if kind.startswith("voxels"):
+                pts, sdf = _voxel_coordinates_np(64, 1.0, (0.0, 0.0, 0.0)), data.reshape(-1)
+            else:
+                pts, sdf = data[:, :3], data[:, 3]
+            pick = rng.choice(len(pts), 2000, replace=False)
+            pts, sdf = np.ascontiguousarray(pts[pick]), sdf[pick]
+            unsigned = plain.query(pts, signed=False)
+            signed = plain.query(pts)
+            clear = np.abs(signed) > texel
+            readings[kind] = (float(np.abs(np.abs(sdf) - unsigned).max()),
+                              float((np.sign(sdf[clear]) != np.sign(signed[clear])).mean()),
+                              float(clear.mean()))
+            log(f"  (c) {name} {kind} against the plain versions (2000 points, 1024^2 scans): "
+                f"unsigned max |d| {readings[kind][0]:.3e} (<= {PREP_UNSIGNED_ATOL}), signs "
+                f"differing outside the one-texel band {readings[kind][1]:.4f} (<= "
+                f"{PREP_SIGN_SHARE}; {readings[kind][2]:.3f} of the points outside it)")
+    log(f"  (c) {time.perf_counter() - t0:.1f} s (the plain versions' scans: a Python loop over faces)")
+    if any(r[0] > PREP_UNSIGNED_ATOL or r[1] > PREP_SIGN_SHARE for r in readings.values()):
+        raise AssertionError(f"prepared artifacts disagree with the plain versions: {readings}")
+    combine_sdf_clouds(config)
+    write_split_file(config)
+    return {"build_s": build_s, "runs": runs, "plain": readings}
+
+
+def streaming_ae_path(tmp: str, device) -> dict:
+    """Phase 14 (d): the classic AE at full width (32^3, batch 32) on 256
+    voxel files (``write_voxel_dataset_files``): the streamed batches
+    (``resident=0``: the process backend by ``auto``) equal the resident
+    ones bit for bit for two epochs; the trainer's entry point one epoch
+    streamed and one resident from the same init (no hand kernel), their
+    logged losses within STREAM_LOSS_RTOL and their step times; the
+    streamed and resident epoch's busy share (torch.profiler). Returns the
+    launch counts per run."""
+    import numpy as np
+    import torch
+    from shapegan_tpu_torch.core.config import parse_cli
+    from shapegan_tpu_torch.data.synthetic import write_voxel_dataset_files
+    from shapegan_tpu_torch.profile_slice import profile_device
+    from shapegan_tpu_torch.train import autoencoder as ae
+    from shapegan_tpu_torch.train.common import make_voxel_batches, resolve_voxel_dataset
+
+    root = os.path.join(tmp, "ae")
+    write_voxel_dataset_files(os.path.join(root, "data", "chairs", "voxels_32"), 256)
+    common = ["classic", "epochs=1", f"data_dir={root}/data", f"model_dir={root}/models"]
+    dataset = resolve_voxel_dataset(parse_cli(common), resolution=32)
+    streamed = make_voxel_batches(dataset, 32, 0, {"resident": "0"}, device)
+    resident = make_voxel_batches(dataset, 32, 0, {"resident": "1"}, device)
+    try:
+        if streamed.loader.backend != "process" or not len(streamed) == len(resident) == 8:
+            raise AssertionError(f"streaming: backend {streamed.loader.backend}, {len(streamed)} batches")
+        for epoch in (0, 1):
+            streamed.set_epoch(epoch)
+            resident.set_epoch(epoch)
+            pairs = list(zip(streamed, resident))
+            if len(pairs) != 8 or not all(a.device == b.device == device and torch.equal(a, b)
+                                          for a, b in pairs):
+                raise AssertionError(f"epoch {epoch}: streamed batches differ from resident ones")
+        log("  (d) 2 epochs x 8 batches of 32 x 32^3: streamed (process backend, pinned copies) "
+            "equal resident bit for bit")
+
+        model, opt = ae.create_state(False, 0, device)
+        step = ae.make_step(model, opt)
+
+        def epoch_of(batches):
+            def run():
+                for batch in batches:
+                    step(batch, None)
+            return run
+
+        shares = {}
+        for name, batches in (("streamed", streamed), ("resident", resident)):
+            wall, dev, top = profile_device(epoch_of(batches), top=4)
+            shares[name] = dev / wall
+            log(f"  (d) one {name} epoch (8 steps) under torch.profiler: wall {wall:.3f} ms, device "
+                f"{dev:.3f} ms, busy share {dev / wall:.3f}; top "
+                + "; ".join(f"{k[:40]} {ms:.3f}" for k, ms in top))
+    finally:
+        streamed.loader.close()
+
+    paths, losses, step_ms = {}, {}, {}
+    for mode in ("0", "1"):
+        reset_counts()
+        result = ae.train(parse_cli(common + [f"resident={mode}", f"plot_dir={root}/plots{mode}"]))
+        torch.cuda.synchronize()
+        path = f"autoencoder classic resident={mode}"
+        paths[path] = read_counts()
+        check_counts(path, paths[path], idle=list(paths[path]))
+        rows = np.loadtxt(os.path.join(root, f"plots{mode}", "autoencoder_training.csv"), ndmin=2)
+        losses[mode] = rows[0, 2]
+        step_ms[mode] = statistics.median(result["step_s"]) * 1e3
+        if result["steps"] != 8 or not np.isfinite(rows).all():
+            raise AssertionError(f"{path}: {result['steps']} steps, CSV {rows}")
+    rel = abs(losses["0"] - losses["1"]) / max(abs(losses["1"]), 1e-12)
+    log(f"  (d) the entry point, one epoch (8 steps): step {step_ms['0']:.3f} ms streamed, "
+        f"{step_ms['1']:.3f} ms resident (host clock after a synchronize, median of 8); logged "
+        f"reconstruction loss {losses['0']:.6f} / {losses['1']:.6f}, relative difference "
+        f"{rel:.2e} (<= {STREAM_LOSS_RTOL})")
+    if rel > STREAM_LOSS_RTOL:
+        raise AssertionError("the streamed AE's loss differs from the resident one's")
+    return {"paths": paths, "step_ms": step_ms, "busy": shares}
+
+
+def corpus_autodecoder_path(tmp: str) -> dict:
+    """Phase 14 (e): the autodecoder's entry point at full width (8 x 256,
+    L = 128, batch 20,000) for two epochs on the corpus's combined
+    200,000-point clouds; B6a and B6b once a step and no other kernel.
+    Returns the launch counts."""
+    import torch
+    from shapegan_tpu_torch.core.config import TrainConfig
+    from shapegan_tpu_torch.train import sdf_autodecoder as ad
+
+    reset_counts()
+    t0 = time.perf_counter()
+    result = ad.train(TrainConfig(epochs=2, data_dir=os.path.join(tmp, "data"),
+                                  model_dir=os.path.join(tmp, "ad_models"),
+                                  plot_dir=os.path.join(tmp, "ad_plots")))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    steps = sum(result["steps"])
+    log(f"  (e) autodecoder on the corpus: {result['latent_codes'].shape[0]} shapes x 200,000 points, "
+        f"steps per epoch {result['steps']}, ms/step {[round(t, 3) for t in result['step_ms']]}, "
+        f"{seconds:.2f} s (host clock)")
+    check_counts("autodecoder on the corpus", counts, launched=("rowwise", "rowwise_bwd"),
+                 idle=[k for k in counts if k not in ("rowwise", "rowwise_bwd")])
+    if counts["rowwise"] != steps or counts["rowwise_bwd"] != steps:
+        raise AssertionError(f"autodecoder on the corpus: {steps} steps but launches {counts}")
+    return {"autodecoder on the corpus": counts}
+
+
+def corpus_gate_path(tmp: str, kind: str) -> dict:
+    """Phase 14 (f): the fixture-corpus entry point at a reduced budget
+    (CORPUS_GATE_ARGS); its exit code 0 or BARS_FAILED, its GATE line and
+    record (finite metrics, the card's name), and the counts: B6a and B6b
+    once a step in each autodecoder run, B3 once a reconstruction (every
+    trained shape and the overfit's) and no kernel elsewhere. Returns the
+    launch counts per part."""
+    import contextlib
+    import io
+    import math
+
+    import torch
+    from shapegan_tpu_torch import run_fixture_corpus as R
+    from shapegan_tpu_torch.models.sdf_net import SDFNet
+    from shapegan_tpu_torch.train import sdf_autodecoder as ad
+
+    paths, meshes = {}, []
+    train, get_mesh = ad.train, SDFNet.get_mesh
+
+    def counted_train(config):
+        before = read_counts()
+        result = train(config)
+        torch.cuda.synchronize()
+        after = read_counts()
+        counts = {k: after[k] - before[k] for k in after}
+        path = f"corpus gate: autodecoder run {len(paths)}"
+        paths[path] = counts
+        steps = sum(result["steps"])
+        check_counts(path, counts, launched=("rowwise", "rowwise_bwd"),
+                     idle=[k for k in counts if k not in ("rowwise", "rowwise_bwd")])
+        if counts["rowwise"] != steps or counts["rowwise_bwd"] != steps:
+            raise AssertionError(f"{path}: {steps} steps but launches {counts}")
+        return result
+
+    def counted_get_mesh(self, *args, **kwargs):
+        meshes.append(1)
+        return get_mesh(self, *args, **kwargs)
+
+    out = io.StringIO()
+    ad.train, SDFNet.get_mesh = counted_train, counted_get_mesh
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            code = R.main([os.path.join(tmp, "corpus"), *CORPUS_GATE_ARGS])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        total = read_counts()
+        with open(os.path.join(tmp, "corpus", "gate_autodecoder.json")) as f:
+            record = json.load(f)
+    finally:
+        ad.train, SDFNet.get_mesh = train, get_mesh
+    gate_lines = [l for l in out.getvalue().splitlines() if l.startswith("GATE ")]
+    for line in out.getvalue().splitlines():
+        if not line.startswith(("Epoch", "GATE")):
+            log("  | " + line)
+    log(f"  (f) run_fixture_corpus {' '.join(CORPUS_GATE_ARGS)}: exit code {code} in {seconds:.2f} s "
+        f"(host clock); {len(meshes)} meshes; GATE {json.dumps(record['quality'])}")
+    if code not in (0, R.BARS_FAILED):
+        raise AssertionError(f"the corpus gate exited {code}")
+    if len(gate_lines) != 1 or json.loads(gate_lines[0][5:]) != record:
+        raise AssertionError("the corpus gate printed no GATE line of its record")
+    q = record["quality"]
+    if (not all(math.isfinite(q[k]) for k in ("recon_chamfer", "mmd_cd", "cov_cd"))
+            or record["device"] != kind):
+        raise AssertionError(f"corpus gate record {record}")
+    rest = {k: total[k] - sum(p[k] for p in paths.values()) for k in total}
+    paths["corpus gate: reconstructions and scores"] = rest
+    check_counts("corpus gate: reconstructions and scores", rest, launched=("points",),
+                 idle=[k for k in rest if k != "points"])
+    if len(paths) != 3 or rest["points"] != len(meshes) or len(meshes) < 2:
+        raise AssertionError(f"corpus gate: {len(paths) - 1} autodecoder runs, points kernel "
+                             f"{rest['points']} launches for {len(meshes)} meshes")
+    return paths
+
+
 def main() -> int:
     import torch
     from torch.func import functional_call
@@ -2329,6 +2687,14 @@ def main() -> int:
     paths.update(gate_path(kind))
     paths.update(metrics_cli_path(chair, chair_code))
     log(f"  phase 13: {time.perf_counter() - t0:.1f} s")
+    log(f"== 14. data preparation, streaming and the fixture corpus ({kind}; {smi})")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        prep_path(tmp)
+        paths.update(streaming_ae_path(tmp, device)["paths"])
+        paths.update(corpus_autodecoder_path(tmp))
+        paths.update(corpus_gate_path(tmp, kind))
+    log(f"  phase 14: {time.perf_counter() - t0:.1f} s")
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         raise AssertionError("jax was imported")
 

@@ -1,12 +1,11 @@
 """Datasets on the host and a prefetching batch loader (counterpart of
 :mod:`shapegan_tpu.data.datasets`): a list of ``.npy`` SDF volumes, clamped
 and optionally rescaled as they are read; an in-memory array; per-shape
-point samples (:class:`PointDataset`); and :class:`BatchLoader`, which
-collates shuffled batches in worker threads ahead of the training loop.
-
-The loader has the thread backend only. The JAX package's process pool
-(spawn) pickles the dataset, which fails for datasets defined in a local
-scope; threads need no pickling, and ``np.load`` releases the GIL."""
+point samples (:class:`PointDataset`); :class:`BatchLoader`, which collates
+shuffled batches in worker threads or processes ahead of the training loop;
+and :func:`prefetch_to_device`, which keeps the next batches' host→device
+copies queued while a step runs.
+"""
 
 from __future__ import annotations
 
@@ -110,18 +109,49 @@ class PointDataset:
         return PointDataset(root, filenames, num_points, seed=seed)
 
 
+def _process_worker_init(dataset) -> None:
+    """Runs once in each loader worker process: keeps the dataset, so a
+    task ships only its indices."""
+    global _WORKER_DATASET
+    _WORKER_DATASET = dataset
+
+
+def _process_worker_collate(indices, epoch=None):
+    # The worker's dataset is a copy made when the pool started: the
+    # parent's set_epoch never reaches it, so the epoch comes with each task.
+    if epoch is not None and hasattr(_WORKER_DATASET, "set_epoch"):
+        _WORKER_DATASET.set_epoch(epoch)
+    return _collate(_WORKER_DATASET, indices)
+
+
+def _collate(dataset, indices):
+    items = [dataset[int(i)] for i in indices]
+    if isinstance(items[0], tuple):
+        return tuple(np.stack(parts) for parts in zip(*items))
+    return np.stack(items)
+
+
 class BatchLoader:
     """Shuffled batches of a map-style dataset, collated (``np.stack``, per
-    part for tuple items) in ``num_workers`` threads, at most ``num_workers +
+    part for tuple items) by ``num_workers`` workers, at most ``num_workers +
     prefetch`` batches ahead of the consumer. The order equals the JAX
     package's ``BatchLoader``: with a ``seed``, :meth:`set_epoch` reseeds the
     shuffle from ``(seed, epoch)`` and forwards the epoch to the dataset; an
     iteration without a preceding ``set_epoch`` advances the epoch by one
     itself, so an epoch-keyed dataset never serves the same subsample twice.
-    ``drop_remainder`` drops the last short batch."""
+    ``drop_remainder`` drops the last short batch.
+
+    ``backend``: ``"thread"`` (the default: no pickling; ``np.load``
+    releases the GIL), ``"process"`` (a persistent pool of ``spawn``
+    workers, each given the dataset once, which must pickle; the epoch
+    travels with each task), or ``"auto"``, the JAX package's rule:
+    processes for a dataset that is not an :class:`ArrayDataset` when there
+    are several workers and at least four cores, threads otherwise.
+    :meth:`close` ends the pool (as does garbage collection)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, drop_remainder: bool = False,
-                 num_workers: int = 4, prefetch: int = 4, seed: Optional[int] = None):
+                 num_workers: int = 4, prefetch: int = 4, seed: Optional[int] = None,
+                 backend: str = "thread"):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -132,6 +162,36 @@ class BatchLoader:
         self._epoch = None
         self._epoch_pinned = False
         self._rng = np.random.default_rng(seed)
+        self._pool = None
+        if backend == "auto":
+            in_memory = isinstance(dataset, ArrayDataset)
+            multicore = (os.cpu_count() or 1) >= 4
+            several = self.num_workers > 1
+            backend = "process" if (several and multicore and not in_memory) else "thread"
+        if backend not in ("thread", "process"):
+            raise ValueError(f"unknown loader backend {backend!r}")
+        self.backend = backend
+
+    def _process_pool(self):
+        """The persistent worker pool, started at first use. ``spawn``, not
+        ``fork``: the training process has torch's threads (and CUDA) live,
+        and forking those is unsafe."""
+        if self._pool is None:
+            import multiprocessing
+
+            context = multiprocessing.get_context("spawn")
+            self._pool = context.Pool(self.num_workers, initializer=_process_worker_init,
+                                      initargs=(self.dataset,))
+        return self._pool
+
+    def close(self) -> None:
+        if self._pool is not None:
+            self._pool.terminate()
+            self._pool.join()
+            self._pool = None
+
+    def __del__(self):
+        self.close()
 
     def set_epoch(self, epoch: int) -> None:
         self._epoch = int(epoch)
@@ -157,27 +217,51 @@ class BatchLoader:
                 return
             yield chunk
 
-    def _collate(self, indices):
-        items = [self.dataset[int(i)] for i in indices]
-        if isinstance(items[0], tuple):
-            return tuple(np.stack(parts) for parts in zip(*items))
-        return np.stack(items)
-
     def __iter__(self):
         if self._epoch_pinned:
             self._epoch_pinned = False
         else:
             self.set_epoch(0 if self._epoch is None else self._epoch + 1)
             self._epoch_pinned = False
+        window = self.num_workers + self.prefetch
+        if self.backend == "process":
+            # An early break leaves at most `window` submitted batches to
+            # finish in the pool; they are dropped.
+            pool = self._process_pool()
+            epoch = self._epoch
+            for handle in prefetch_to_device(
+                    self._batch_indices(),
+                    lambda idx: pool.apply_async(_process_worker_collate, (idx, epoch)),
+                    buffer_size=window):
+                yield handle.get()
+            return
         pool = concurrent.futures.ThreadPoolExecutor(self.num_workers)
-        pending = collections.deque()
         try:
-            for indices in self._batch_indices():
-                pending.append(pool.submit(self._collate, indices))
-                if len(pending) > self.num_workers + self.prefetch:
-                    yield pending.popleft().result()
-            while pending:
-                yield pending.popleft().result()
+            for future in prefetch_to_device(
+                    self._batch_indices(), lambda idx: pool.submit(_collate, self.dataset, idx),
+                    buffer_size=window):
+                yield future.result()
         finally:
             # An early break or an exception drops the queued work.
             pool.shutdown(wait=False, cancel_futures=True)
+
+
+def prefetch_to_device(iterator, put, buffer_size: int = 2):
+    """Map ``put`` over ``iterator`` ``buffer_size`` items ahead of the
+    consumer, in order: with ``put`` an asynchronous host→device copy, the
+    next batches' copies are queued while the current step runs (with a
+    submit to a pool, the loader's bounded window)."""
+    buffer = collections.deque()
+    it = iter(iterator)
+    for _ in range(buffer_size):
+        try:
+            buffer.append(put(next(it)))
+        except StopIteration:
+            break
+    while buffer:
+        item = buffer.popleft()
+        try:
+            buffer.append(put(next(it)))
+        except StopIteration:
+            pass
+        yield item

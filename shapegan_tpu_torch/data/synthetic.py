@@ -8,10 +8,13 @@ so :func:`make_voxel_dataset` returns bit-identical volumes for the same
 ``(count, resolution, clamp, rescale, seed)``, and
 :func:`make_sdf_pointcloud` bit-identical ``(points, sdf)`` for the same
 ``(count_shapes, points_per_shape, clamp, seed)``, and
-:class:`SyntheticPointDataset` the same pools and draws.
+:class:`SyntheticPointDataset` the same pools and draws;
+:func:`write_voxel_dataset_files` writes the volumes as per-shape files.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -149,3 +152,19 @@ class SyntheticPointDataset:
         rng = np.random.default_rng((self.seed, self.epoch, idx))
         sample = rng.choice(pool.shape[0], self.num_points)
         return pool[sample], self._surface[idx][sample]
+
+
+def write_voxel_dataset_files(directory: str, count: int, resolution: int = 32, seed: int = 0):
+    """Write ``count`` unclamped synthetic SDF volumes as
+    ``<directory>/synthetic_<i>.npy`` (the prepared layout
+    ``data/<category>/voxels_<res>/<id>.npy``); returns their ids. The
+    files equal the JAX package's for the same arguments."""
+    os.makedirs(directory, exist_ok=True)
+    pts = voxel_coordinates(resolution).numpy()
+    names = []
+    for i in range(count):
+        sdf = random_shape_sdf(pts, seed=seed + i).astype(np.float32).reshape((resolution,) * 3)
+        name = f"synthetic_{i:04d}"
+        np.save(os.path.join(directory, f"{name}.npy"), sdf)
+        names.append(name)
+    return names

@@ -13,24 +13,33 @@ fixtures stand in:
   analytic chair of :func:`example_chair_sdf`, with the float32 reference
   math (:func:`shapegan_tpu_torch.ops.sdf_mlp.apply_grid`, TF32 off), so it
   does not depend on the kernels it is used to check.
+
+The analytic chair also has a mesh (:func:`example_chair_mesh`), written
+as ``chair.obj`` by :func:`example_chair_path` into the git-ignored
+``shapegan_tpu_torch/example_meshes/``.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from shapegan_tpu_torch import LATENT_CODE_SIZE, SDF_CLIPPING, checkpoints
+from shapegan_tpu_torch.data.mesh_io import TriangleMesh
 from shapegan_tpu_torch.data.synthetic import box_sdf
 from shapegan_tpu_torch.models import LATENT_CODES_FILENAME
 from shapegan_tpu_torch.ops import sdf_mlp
+from shapegan_tpu_torch.ops.coords import _voxel_coordinates_np
+from shapegan_tpu_torch.ops.mesh_extract import extract_mesh
 
 # The chair's legs reach |p| = 1.045 in example_chair_sdf's frame; scaled by
 # 0.9 the whole chair lies inside the unit bounding sphere of the raymarcher.
 CHAIR_SCALE = 0.9
+EXAMPLE_MESH_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "example_meshes")
 
 
 def example_chair_sdf(points: np.ndarray) -> np.ndarray:
@@ -45,6 +54,27 @@ def example_chair_sdf(points: np.ndarray) -> np.ndarray:
                 box_sdf(points, half_extents=(0.05, 0.35, 0.05), center=(sx, -0.5, sz))
             )
     return np.minimum.reduce(parts)
+
+
+def example_chair_mesh(resolution: int = 64, device="cuda") -> TriangleMesh:
+    """The analytic chair meshed by marching tetrahedra on ``device`` (the
+    card unless the caller asks for the CPU) over [-1, 1]^3 at
+    ``resolution``^3, then welded (the JAX package's ``example_chair_mesh``)."""
+    points = _voxel_coordinates_np(int(resolution), 1.0, (0.0, 0.0, 0.0))
+    sdf = example_chair_sdf(points).astype(np.float32).reshape((resolution,) * 3)
+    vertices, faces = extract_mesh(torch.tensor(sdf, device=device),
+                                   spacing=2.0 / (resolution - 1), origin=(-1.0, -1.0, -1.0))
+    return TriangleMesh(vertices, faces).weld()
+
+
+def example_chair_path(resolution: int = 64, device="cuda") -> str:
+    """Path of ``example_meshes/chair.obj``, written by
+    :func:`example_chair_mesh` on first use."""
+    path = os.path.join(EXAMPLE_MESH_DIR, "chair.obj")
+    if not os.path.exists(path):
+        os.makedirs(EXAMPLE_MESH_DIR, exist_ok=True)
+        example_chair_mesh(resolution, device).save(path)
+    return path
 
 
 def octahedron_params(latent_size: int = LATENT_CODE_SIZE,

@@ -13,49 +13,22 @@ without any display or GL context.
 from __future__ import annotations
 
 import ctypes
-import fcntl
 import functools
-import hashlib
 import os
-import subprocess
 
 import numpy as np
 
+from shapegan_tpu_torch.host_build import build_shared_library
+
 SHADOW_TEXTURE_SIZE = 1024
-CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-BUILD_DIR = os.path.join(CSRC_DIR, "build")
-SOURCE = os.path.join(CSRC_DIR, "rasterizer.cpp")
-CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-pthread", "-Wall", "-shared")
+SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "rasterizer.cpp")
 
 
 def build_rasterizer() -> str:
     """Compile the rasterizer if this source revision has no library yet
-    (the name carries a hash of the source and flags), under a file lock so
-    concurrent processes build once; returns the library's path. Raises when
-    the compiler is missing or fails: there is no fallback."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
-    lib_path = os.path.join(BUILD_DIR, f"librasterizer_{digest}.so")
-    if os.path.exists(lib_path):
-        return lib_path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    with open(os.path.join(BUILD_DIR, "build.lock"), "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        try:
-            if not os.path.exists(lib_path):  # another process may have built it meanwhile
-                tmp_path = f"{lib_path}.tmp.{os.getpid()}"
-                cmd = [os.environ.get("CXX", "g++"), *CXX_FLAGS, SOURCE, "-o", tmp_path]
-                try:
-                    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
-                except OSError as exc:
-                    raise RuntimeError(f"the C++ rasterizer cannot be built: {exc}") from exc
-                if proc.returncode:
-                    raise RuntimeError(f"the C++ rasterizer failed to build ({proc.returncode}):\n"
-                                       f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-                os.replace(tmp_path, lib_path)
-        finally:
-            fcntl.flock(lock, fcntl.LOCK_UN)
-    return lib_path
+    (``host_build.build_shared_library``); returns the library's path.
+    Raises when the compiler is missing or fails: there is no fallback."""
+    return build_shared_library(SOURCE, "librasterizer", "the C++ rasterizer")
 
 
 @functools.lru_cache(maxsize=None)

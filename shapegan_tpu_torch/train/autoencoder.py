@@ -38,11 +38,11 @@ from shapegan_tpu_torch.optim import Adam
 from shapegan_tpu_torch.train.common import (
     CSVLogger,
     EpochTimer,
-    ResidentBatches,
     RollingHistory,
     StepProfiler,
     effective_batch_size,
     load_network,
+    make_voxel_batches,
     maybe_print_slice,
     network_payload,
     resolve_voxel_dataset,
@@ -97,7 +97,7 @@ def train(config: Optional[TrainConfig] = None) -> dict:
 
     dataset = resolve_voxel_dataset(config, resolution=32)
     batch_size = effective_batch_size(config.batch_size or BATCH_SIZE, len(dataset))
-    batches = ResidentBatches(dataset, batch_size, config.seed, device)
+    batches = make_voxel_batches(dataset, batch_size, config.seed, config.extras, device)
     first_epoch = 0
     if config.resume and checkpoints.exists(name, base=base):
         first_epoch = load_network(model, opt, name, base) + 1

@@ -4,10 +4,11 @@
 The reference's observability conventions: space-separated CSV logs in
 ``plots/`` (append on ``continue``, flushed per epoch; the same format, so
 ``create_plot.py`` reads both packages), rolling 50-step histories, epoch
-timers and host-clock step times. The voxel dataset lives on the device
-whole and each batch is gathered there, in the JAX package's shuffle order.
-Streaming batches from the host (for datasets larger than the card's
-memory) is not ported.
+timers and host-clock step times. The voxel trainers take their batches
+from :func:`make_voxel_batches`: the whole dataset on the device, each
+batch gathered there, when it fits :data:`RESIDENT_MAX_BYTES`; otherwise
+streamed from the host through pinned buffers. Both give the JAX package's
+shuffle order.
 """
 
 from __future__ import annotations
@@ -221,3 +222,81 @@ class ResidentBatches:
         for start in range(0, len(self) * self.batch_size, self.batch_size):
             idx = torch.tensor(order[start:start + self.batch_size], device=self.data.device)
             yield self.data.index_select(0, idx)
+
+
+# The device-resident dataset cap: the JAX package's value (4 GiB), not
+# retuned for the card. extras['resident_max_gb'] moves it.
+RESIDENT_MAX_BYTES = 4 << 30
+
+
+class StreamingBatches:
+    """:class:`ResidentBatches`'s surface over a host
+    :class:`~shapegan_tpu_torch.data.datasets.BatchLoader`: each batch is
+    copied to ``device`` as it is needed, ``prefetch_to_device``'s two
+    batches ahead. On the GPU a batch is copied from pinned host memory
+    with ``non_blocking=True``, and its pinned buffer is kept until the
+    consumer asks for the next batch, after the step that read it was
+    queued; without CUDA the copy fails."""
+
+    def __init__(self, loader, device):
+        self.loader = loader
+        self.device = torch.device(device)
+
+    def set_epoch(self, epoch: int) -> None:
+        self.loader.set_epoch(epoch)
+
+    def __len__(self) -> int:
+        return len(self.loader)
+
+    def _put(self, batch: np.ndarray):
+        host = torch.from_numpy(np.ascontiguousarray(batch, dtype=np.float32))
+        if self.device.type != "cuda":
+            return host.to(self.device), None
+        pinned = host.pin_memory()
+        return pinned.to(self.device, non_blocking=True), pinned
+
+    def __iter__(self) -> Iterator[torch.Tensor]:
+        from shapegan_tpu_torch.data.datasets import prefetch_to_device
+
+        for batch, pinned in prefetch_to_device(self.loader, self._put):
+            yield batch
+            del pinned  # the consumer asked for the next batch
+
+
+def make_voxel_batches(dataset, batch_size: int, seed: Optional[int],
+                       extras: Optional[dict] = None, device="cpu"):
+    """The voxel trainers' batch source, by the JAX package's rule: on the
+    device (:class:`ResidentBatches`) when the dataset's bytes are at most
+    ``extras['resident_max_gb']`` GiB (default :data:`RESIDENT_MAX_BYTES`),
+    estimated from the first item and checked again once stacked (ragged
+    items); streamed from the host otherwise (:class:`StreamingBatches`
+    over a ``BatchLoader`` with the ``auto`` backend: worker processes for
+    files). ``extras['resident']`` = ``auto`` (default), ``1`` or ``0``
+    forces the choice, though a stacked array above the cap streams even
+    with ``1``. Both draw the same shuffle order and drop the remainder."""
+    from shapegan_tpu_torch.data.datasets import ArrayDataset, BatchLoader
+
+    extras = extras or {}
+    mode = str(extras.get("resident", "auto")).lower()
+    max_bytes = int(float(extras.get("resident_max_gb", RESIDENT_MAX_BYTES / 2**30)) * 2**30)
+    resident = None
+    if mode in ("1", "true", "yes"):
+        resident = True
+    elif mode in ("0", "false", "no"):
+        resident = False
+    elif mode != "auto":
+        raise ValueError(f"resident={mode!r}: expected auto/0/1")
+
+    if resident is None:
+        probe = np.asarray(dataset[0]) if len(dataset) else None
+        resident = (0 if probe is None else probe.nbytes * len(dataset)) <= max_bytes
+    if resident:
+        if isinstance(dataset, ArrayDataset):
+            array = dataset.array
+        else:
+            array = np.stack([dataset[i] for i in range(len(dataset))])
+        if array.nbytes <= max_bytes:
+            return ResidentBatches(ArrayDataset(array), batch_size, seed, device)
+    loader = BatchLoader(dataset, batch_size, shuffle=True, drop_remainder=True, seed=seed,
+                         backend="auto")
+    return StreamingBatches(loader, device)

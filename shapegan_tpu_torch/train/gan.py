@@ -39,11 +39,11 @@ from shapegan_tpu_torch.optim import Adam
 from shapegan_tpu_torch.train.common import (
     CSVLogger,
     EpochTimer,
-    ResidentBatches,
     RollingHistory,
     StepProfiler,
     effective_batch_size,
     load_network,
+    make_voxel_batches,
     maybe_print_slice,
     network_payload,
     resolve_voxel_dataset,
@@ -137,7 +137,7 @@ def train(config: Optional[TrainConfig] = None) -> dict:
 
     dataset = resolve_voxel_dataset(config, resolution=32)
     batch_size = effective_batch_size(config.batch_size or BATCH_SIZE, len(dataset))
-    batches = ResidentBatches(dataset, batch_size, config.seed, device)
+    batches = make_voxel_batches(dataset, batch_size, config.seed, config.extras, device)
     g_step, d_step = make_steps(g_net, d_net, g_opt, d_opt)
     save_every = int(config.extras.get("save_every", 1))
 

@@ -54,12 +54,12 @@ from shapegan_tpu_torch.optim import Adam, load_optimizer_tree, optimizer_tree
 from shapegan_tpu_torch.train.common import (
     CSVLogger,
     EpochTimer,
-    ResidentBatches,
     RollingHistory,
     StepProfiler,
     effective_batch_size,
     load_critic,
     load_generator,
+    make_voxel_batches,
     maybe_print_slice,
     resolve_voxel_dataset,
 )
@@ -230,7 +230,7 @@ def train(config: Optional[TrainConfig] = None) -> dict:
 
     dataset = resolve_voxel_dataset(config, resolution=VOXEL_RESOLUTION, rescale_sdf=False)
     batch_size = effective_batch_size(config.batch_size or BATCH_SIZE, len(dataset))
-    batches = ResidentBatches(dataset, batch_size, config.seed, device)
+    batches = make_voxel_batches(dataset, batch_size, config.seed, config.extras, device)
     g_step, d_step = make_steps(net, discriminator, g_opt, d_opt)
 
     logger = CSVLogger(f"{config.plot_dir}/hybrid_gan_training.csv", resume=config.resume)

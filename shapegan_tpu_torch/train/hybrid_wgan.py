@@ -40,12 +40,12 @@ from shapegan_tpu_torch.optim import Adam, RMSprop, load_optimizer_tree, optimiz
 from shapegan_tpu_torch.train.common import (
     CSVLogger,
     EpochTimer,
-    ResidentBatches,
     RollingHistory,
     StepProfiler,
     effective_batch_size,
     load_critic,
     load_generator,
+    make_voxel_batches,
     maybe_print_slice,
     resolve_voxel_dataset,
 )
@@ -158,7 +158,7 @@ def train(config: Optional[TrainConfig] = None) -> dict:
 
     dataset = resolve_voxel_dataset(config, resolution=VOXEL_RESOLUTION, rescale_sdf=False)
     batch_size = effective_batch_size(config.batch_size or BATCH_SIZE, len(dataset))
-    batches = ResidentBatches(dataset, batch_size, config.seed, device)
+    batches = make_voxel_batches(dataset, batch_size, config.seed, config.extras, device)
     critic_step, generator_step = make_steps(net, critic, g_opt, d_opt)
 
     logger = CSVLogger(f"{config.plot_dir}/hybrid_wgan_training.csv", resume=config.resume)

@@ -36,10 +36,10 @@ from shapegan_tpu_torch.optim import RMSprop
 from shapegan_tpu_torch.train.common import (
     CSVLogger,
     EpochTimer,
-    ResidentBatches,
     RollingHistory,
     StepProfiler,
     effective_batch_size,
+    make_voxel_batches,
     resolve_voxel_dataset,
 )
 from shapegan_tpu_torch.train.gan import print_sample, restore, save
@@ -111,7 +111,7 @@ def train(config: Optional[TrainConfig] = None) -> dict:
 
     dataset = resolve_voxel_dataset(config, resolution=32)
     batch_size = effective_batch_size(config.batch_size or BATCH_SIZE, len(dataset))
-    batches = ResidentBatches(dataset, batch_size, config.seed, device)
+    batches = make_voxel_batches(dataset, batch_size, config.seed, config.extras, device)
     critic_step, generator_step = make_steps(g_net, critic, g_opt, d_opt)
 
     logger = CSVLogger(f"{config.plot_dir}/wgan_training.csv", resume=config.resume)

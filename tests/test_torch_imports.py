@@ -1,6 +1,8 @@
 """The port stands alone: every module of ``shapegan_tpu_torch`` and the
 module of ``chip_smoke.py`` import in a fresh interpreter in which any
-import of ``jax``, ``jaxlib`` or the JAX package ``shapegan_tpu`` raises."""
+import of ``jax``, ``jaxlib`` or the JAX package ``shapegan_tpu`` raises,
+and in which starting a process (a compiler) raises: importing builds
+neither the C++ libraries nor the CUDA kernels."""
 
 import os
 import subprocess
@@ -12,6 +14,7 @@ GUARDED_IMPORTS = r"""
 import importlib
 import importlib.util
 import pkgutil
+import subprocess
 import sys
 
 
@@ -22,7 +25,12 @@ class Refuse:
         return None
 
 
+def refuse_process(*args, **kwargs):
+    raise RuntimeError(f"a process was started while importing: {args}")
+
+
 sys.meta_path.insert(0, Refuse())
+subprocess.run = subprocess.Popen = refuse_process
 import shapegan_tpu_torch
 
 names = [m.name for m in pkgutil.walk_packages(shapegan_tpu_torch.__path__, "shapegan_tpu_torch.")]
@@ -45,5 +53,7 @@ def test_port_imports_nothing_of_jax():
     for module in ("models.point_sdf_net", "ops.point_gen_kernels", "train.point_gan",
                    "data.datasets", "data.synthetic", "models.gan", "train.hybrid_gan",
                    "train.hybrid_wgan", "train.point_gan_ref", "metrics", "gan_gate",
-                   "render.viewer"):
+                   "render.viewer", "host_build", "data.mesh_io", "data.mesh_to_sdf",
+                   "data.fixtures", "data.shapenet", "data.prepare", "prepare_data",
+                   "prepare_shapenet_dataset", "run_fixture_corpus"):
         assert f"shapegan_tpu_torch.{module}" in names.split(), module
