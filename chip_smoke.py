@@ -152,8 +152,25 @@ Phases, each fatal on failure (nothing is caught):
      the corpus's 200,000-point clouds, B6a and B6b once a step; (f) the
      fixture-corpus entry point at a reduced budget: exit 0 or 3, its GATE
      record, B6a and B6b once a step in both autodecoder runs, B3 once a
-     reconstruction and no kernel elsewhere.
-Each run of a path in phases 5-7 and 9-14 starts with every launch count set to 0
+     reconstruction and no kernel elsewhere;
+ 15. the demos and their bootstrap, in a temporary directory: (a)
+     make_examples at its default budget (each stage timed; B6a and B6b
+     once an autodecoder step, no other kernel), its bundle's keys and
+     dtypes against the shipped bundle's, loaded back; (b) demo_gan
+     frames=80 show_slice from (a)'s generator and from the shipped bundle,
+     each against the checkpoint called directly on all 80 codes; (c)
+     demo_autoencoder classic synthetic=8 epochs=2; (d) demo_training
+     steps=2000 headless (no hand kernel), its last loss below half its
+     first, the sampling timed apart, then steps=200 show_slice (B3 once a
+     slice); (e) demo_latent_space frames_per_transition=2 resolution=200
+     on (a)'s autodecoder (B4, B1 and B2; B3 where a bucket holds few
+     lanes): one frame a path step, a frame's left half equal to
+     render_image of its code, the renders' non-background share and the
+     autodecoder's SDF range; (g) the headless viewer's frame of a bundled
+     generator volume as binary cubes; (f) render_image(crop=True) of the
+     fitted chair at 800 with ssaa 2 (800^2) and ssaa 1 (the crop box),
+     each bit-equal to crop_frame of the uncropped frame at 800 * ssaa.
+Each run of a path in phases 5-7 and 9-15 starts with every launch count set to 0
 and reads the counts just after; launches made to compare a kernel with its
 plain version or to time it are never counted. The kernels line gives each
 kernel's launches summed over the runs made at the shipped switch
@@ -2222,6 +2239,222 @@ def corpus_gate_path(tmp: str, kind: str) -> dict:
     return paths
 
 
+# Phase 15's bounds. demo_gan's volumes against the same checkpoint loaded
+# apart and called on all its codes at once in eval mode: cuDNN may pick
+# another algorithm for 80 codes than for one (float32 sums in another
+# order, TF32 as PyTorch's default); bounded where a wrong checkpoint or
+# BatchNorm mode (O(0.1)) cannot pass.
+DEMO_GAN_DIRECT_MAX = 1e-3
+# demo_training: the last loss it prints below this share of the first.
+DEMO_TRAINING_LOSS_DROP = 0.5
+# make_examples runs at its default budget (its `quick` cuts the epochs by 4).
+MAKE_EXAMPLES_ARGV = []
+DEMO_TRAINING_STEPS = 2000
+LATENT_TOUR_RESOLUTION = 200
+
+
+def demos_path(chair, chair_code, device, kind: str) -> dict:
+    """Phase 15: the demos and their bootstrap, in a temporary directory,
+    each run with its own launch counts. (a) make_examples (every stage
+    timed; B6a and B6b in the autodecoder's, no other kernel); its bundle's
+    keys and dtypes against the shipped bundle's, loaded back. (b) demo_gan
+    frames=80 show_slice from (a)'s generator and from the shipped bundle
+    (a directory with no models/), each against the checkpoint loaded apart
+    and called on every code at once. (c) demo_autoencoder classic
+    synthetic=8 epochs=2. (d) demo_training steps=2000 headless (no hand
+    kernel: the JAX demo's plain float32 product), the last loss below half
+    the first, the sampling timed apart; then steps=200 show_slice (B3 for
+    each slice). (e) demo_latent_space frames_per_transition=2
+    resolution=200 on (a)'s autodecoder (B4, or B3 a step where a bucket
+    holds few lanes, and B1 and B2 for the
+    normals): one frame a path step, a frame's left half equal to
+    render_image of its code. (f) render_image(crop=True) of the fitted
+    chair at 800 with ssaa 2, and with ssaa 1 (the crop box's size), each
+    bit-equal to crop_frame of the uncropped frame at 800 * ssaa. (g)
+    the headless viewer's frame of one generator volume as binary cubes.
+    Returns the launch counts per run."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from shapegan_tpu_torch import checkpoints, demo_autoencoder, demo_gan, demo_latent_space
+    from shapegan_tpu_torch import demo_training, make_examples
+    from shapegan_tpu_torch.models.gan import Generator
+    from shapegan_tpu_torch.models.sdf_net import SDFNet
+    from shapegan_tpu_torch.render.png import read_png
+    from shapegan_tpu_torch.render.raymarching import crop_frame, render_image
+    from shapegan_tpu_torch.render.viewer import MeshRenderer
+    from shapegan_tpu_torch.train.common import load_module
+
+    paths = {}
+    kernels = list(launch_counters())
+    shipped = os.path.join(REPO, "shapegan_tpu", "examples")
+
+    def run(path, fn, launched=(), allowed=()):
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        paths[path] = read_counts()
+        check_counts(path, paths[path], launched=launched,
+                     idle=[k for k in kernels if k not in launched + allowed])
+        return out, seconds
+
+    # A frame's trace runs B4, or B3 a step where a bucket holds too few
+    # lanes for it (small frames); its normals B1 and B2.
+    frame_kernels = {"launched": ("trace", "grid", "grid_bwd"), "allowed": ("points",)}
+
+    def gan_direct(out, base):
+        net = Generator(torch.Generator().manual_seed(1), device)  # other weights until loaded
+        load_module(net, "generator", base)
+        with torch.no_grad():
+            direct = net(torch.tensor(out["codes"], device=device), train=False)
+        return float((out["volumes"] - direct).abs().max())
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            # (a)
+            printed = io.StringIO()
+
+            def bootstrap():
+                with contextlib.redirect_stdout(printed):  # the trainers' epoch lines
+                    return make_examples.main(MAKE_EXAMPLES_ARGV)
+
+            stages, total_s = run("make_examples", bootstrap, launched=("rowwise", "rowwise_bwd"))
+            for line in printed.getvalue().splitlines():
+                if line.startswith("[make_examples]"):
+                    log("  | " + line)
+            budget = " ".join(MAKE_EXAMPLES_ARGV) or "the default budget"
+            log(f"  (a) make_examples at {budget}: {total_s:.1f} s (host clock); "
+                + ", ".join(f"{k} {v:.1f} s" for k, v in stages.items()))
+            for name in make_examples.ARTIFACTS:
+                with np.load(os.path.join(make_examples.BUNDLE_DIR, f"{name}.npz")) as ours, \
+                        np.load(os.path.join(shipped, f"{name}.npz")) as theirs:
+                    if sorted(ours.files) != sorted(theirs.files):
+                        raise AssertionError(f"bundle {name}: keys {sorted(ours.files)} against the "
+                                             f"shipped {sorted(theirs.files)}")
+                    dtypes = {k: (str(ours[k].dtype), str(theirs[k].dtype)) for k in ours.files}
+                # The JAX rule keeps the latent table float32 (make_examples.py:104-106);
+                # the shipped table is float16.
+                want = "float32" if name == "sdf_net_latent_codes" else None
+                wrong = {k: d for k, d in dtypes.items() if d[0] != (want or d[1])}
+                if wrong:
+                    raise AssertionError(f"bundle {name}: dtypes (ours, shipped) {wrong}")
+                loaded = checkpoints.load(name, base=make_examples.BUNDLE_DIR, device=device)
+                if not all(v.dtype == torch.float32 and bool(torch.isfinite(v).all())
+                           for v in loaded.values()):
+                    raise AssertionError(f"bundle {name} does not load back finite float32")
+                log(f"  (a) bundle {name}: {len(dtypes)} keys as shipped, dtypes (ours, shipped) "
+                    f"{sorted(set(dtypes.values()))}, loads back")
+
+            # (b)
+            fresh, fresh_s = run("demo_gan", lambda: demo_gan.main(["frames=80", "show_slice"]))
+            os.makedirs("fresh_clone")
+            os.chdir("fresh_clone")
+            try:
+                bundled, bundled_s = run("demo_gan bundle",
+                                         lambda: demo_gan.main(["frames=80", "show_slice"]))
+            finally:
+                os.chdir(tmp)
+            errs = (gan_direct(fresh, "models"), gan_direct(bundled, shipped))
+            log(f"  (b) demo_gan frames=80 show_slice: {fresh_s:.2f} s from make_examples' generator, "
+                f"{bundled_s:.2f} s from the shipped bundle; against a direct eval-mode call on "
+                f"all 80 codes: max_abs {errs[0]:.3e}, {errs[1]:.3e} (<= {DEMO_GAN_DIRECT_MAX})")
+            for out in (fresh, bundled):
+                if out["volumes"].shape != (80, 32, 32, 32) or out["volumes"].device != device:
+                    raise AssertionError(f"demo_gan volumes {tuple(out['volumes'].shape)}")
+            if max(errs) > DEMO_GAN_DIRECT_MAX:
+                raise AssertionError("demo_gan disagrees with a direct eval-mode call")
+
+            # (c)
+            ae, ae_s = run("demo_autoencoder", lambda: demo_autoencoder.main(
+                ["classic", "synthetic=8", "epochs=2"]))
+            log(f"  (c) demo_autoencoder classic synthetic=8 epochs=2: {ae_s:.2f} s; order "
+                f"{ae['order'].tolist()}")
+            if (ae["codes"].shape != (3, 128) or ae["last_frames"].shape != (2, 32, 32, 32)
+                    or not bool(torch.isfinite(ae["last_frames"]).all())):
+                raise AssertionError("demo_autoencoder: bad codes or frames")
+
+            # (d)
+            steps = DEMO_TRAINING_STEPS
+            train, train_all_s = run("demo_training", lambda: demo_training.main([f"steps={steps}"]))
+            losses = train["losses"]
+            log(f"  (d) demo_training steps={steps}: sampling {train['sample_s']:.2f} s (200,000 "
+                f"points of the chair), {steps} steps {train['train_s']:.2f} s "
+                f"({train['train_s'] / steps * 1e3:.3f} ms a step, host clock with a read of the "
+                f"loss every 100 steps); loss {losses[0]:.5f} at the first read -> {losses[-1]:.5f} "
+                f"at step {steps - 1} ({kind})")
+            if len(losses) != -(-steps // 100) or not losses[-1] < DEMO_TRAINING_LOSS_DROP * losses[0]:
+                raise AssertionError(f"demo_training losses {losses}")
+            sliced, sliced_s = run("demo_training show_slice",
+                                   lambda: demo_training.main(["steps=200", "show_slice"]),
+                                   launched=("points",))
+            log(f"  (d) demo_training steps=200 show_slice: {sliced_s:.2f} s; losses {sliced['losses']}")
+            if paths["demo_training show_slice"]["points"] != 2:
+                raise AssertionError("demo_training show_slice: not one points launch a slice")
+
+            # (e)
+            res = LATENT_TOUR_RESOLUTION
+            tour, tour_s = run("demo_latent_space", lambda: demo_latent_space.main(
+                ["frames_per_transition=2", f"resolution={res}"]), **frame_kernels)
+            frames = sorted(os.listdir(demo_latent_space.OUT_DIR))
+            middle = len(frames) // 2
+            image = read_png(os.path.join(demo_latent_space.OUT_DIR, frames[middle]))
+            net = SDFNet(checkpoints.load("sdf_net", base="models", device=device))
+            want = render_image(net, tour["path"][middle].astype(np.float32), resolution=res, ssaa=1,
+                                iterations=400)
+            log(f"  (e) demo_latent_space frames_per_transition=2 resolution={res}: {len(frames)} frames "
+                f"in {tour_s:.2f} s; non-background share of the renders: "
+                f"{', '.join(f'{c:.4f}' for c in tour['coverage'])}")
+            # Whether the autodecoder has a surface: its SDF over the cube.
+            sdf = net.get_voxels(tour["path"][middle].astype(np.float32), 32, sphere_only=False)
+            log(f"  (e) the autodecoder's SDF at a path code on 32^3 over [-1, 1]^3: min "
+                f"{float(sdf.min()):.5f}, max {float(sdf.max()):.5f}, share >= 0 "
+                f"{float((sdf >= 0).float().mean()):.4f}")
+            if len(frames) != len(tour["path"]) or image.shape != (res, 2 * res, 3):
+                raise AssertionError(f"demo_latent_space: {len(frames)} frames for a path of "
+                                     f"{len(tour['path'])}, shape {image.shape}")
+            if not np.array_equal(image[:, :res], want):
+                raise AssertionError("demo_latent_space: a frame's render differs from render_image")
+        finally:
+            os.chdir(cwd)
+
+    # (g)
+    viewer = MeshRenderer(size=512)
+    frame, binary_s = run("binary voxels", lambda: (
+        viewer.set_voxels(bundled["volumes"][0], use_marching_cubes=False), viewer.get_image())[1])
+    covered = float((frame != 255).any(axis=2).mean())
+    log(f"  (g) set_voxels(use_marching_cubes=False) of a generator volume: "
+        f"{viewer._vertices.shape[0] // 3} triangles, frame {frame.shape} in {binary_s:.3f} s, "
+        f"non-background share {covered:.4f}")
+    if viewer._vertices.shape[0] == 0 or not 0.01 < covered < 0.9:
+        raise AssertionError("the binary voxel frame is empty")
+
+    # (f)
+    net = SDFNet(chair)
+    crop2, crop2_s = run("render_image crop", lambda: render_image(net, chair_code, resolution=800,
+                                                                   ssaa=2, crop=True), **frame_kernels)
+    crop1, crop1_s = run("render_image crop ssaa 1", lambda: render_image(
+        net, chair_code, resolution=800, ssaa=1, crop=True), **frame_kernels)
+    log(f"  (f) render_image(crop=True) of the chair: 800 ssaa 2 {crop2_s:.3f} s -> {crop2.shape}, "
+        f"ssaa 1 {crop1_s:.3f} s -> {crop1.shape} (host clock, first calls; {kind})")
+    if crop2.shape != (800, 800, 3) or not (200 < crop1.shape[0] == crop1.shape[1] < 800):
+        raise AssertionError(f"render_image crop shapes {crop2.shape}, {crop1.shape}")
+    # The crop's wiring: each equals crop_frame of the uncropped frame at
+    # resolution * ssaa (no device downsample), bit for bit.
+    for crop, ssaa in ((crop2, 2), (crop1, 1)):
+        full = render_image(net, chair_code, resolution=800 * ssaa, ssaa=1)
+        if not np.array_equal(crop, crop_frame(full, 800, ssaa)):
+            raise AssertionError(f"render_image(crop=True) at ssaa {ssaa} differs from crop_frame "
+                                 f"of the {full.shape[0]}^2 frame")
+    log("  (f) both equal crop_frame of the uncropped 1600^2 and 800^2 frames, bit for bit")
+    return paths
+
+
 def main() -> int:
     import torch
     from torch.func import functional_call
@@ -2695,6 +2928,10 @@ def main() -> int:
         paths.update(corpus_autodecoder_path(tmp))
         paths.update(corpus_gate_path(tmp, kind))
     log(f"  phase 14: {time.perf_counter() - t0:.1f} s")
+    log(f"== 15. the demos and their bootstrap ({kind}; {smi})")
+    t0 = time.perf_counter()
+    paths.update(demos_path(chair, chair_code, device, f"{kind}; {smi}"))
+    log(f"  phase 15: {time.perf_counter() - t0:.1f} s")
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         raise AssertionError("jax was imported")
 

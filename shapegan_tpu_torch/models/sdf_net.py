@@ -20,7 +20,7 @@ from torch import nn
 
 from shapegan_tpu_torch.data.mesh_io import TriangleMesh
 from shapegan_tpu_torch.ops import sdf_mlp
-from shapegan_tpu_torch.ops.coords import unit_sphere_mask, voxel_coordinates
+from shapegan_tpu_torch.ops.coords import sample_unit_sphere, unit_sphere_mask, voxel_coordinates
 from shapegan_tpu_torch.ops.mesh_extract import extract_mesh
 from shapegan_tpu_torch.ops.sdf_mlp_kernels import ROW_CAP, apply_grid_best, points_value_and_gradient
 
@@ -166,10 +166,7 @@ class SDFNet(nn.Module):
             generator.seed()
         shape = (int(sample_size), 3)
         if use_unit_sphere:
-            direction = torch.randn(shape, generator=generator, device=self.device)
-            direction = direction / (torch.linalg.norm(direction, dim=1, keepdim=True) + 1e-12)
-            radius = torch.rand((shape[0], 1), generator=generator, device=self.device) ** (1 / 3)
-            points = direction * radius * 1.1
+            points = sample_unit_sphere(shape[0], generator, self.device) * 1.1
         else:
             points = torch.rand(shape, generator=generator, device=self.device) * 2.2 - 1.1
         projected, normals, sdf = self.project_to_surface(latent_code, points)

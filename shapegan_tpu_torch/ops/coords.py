@@ -57,3 +57,20 @@ def unit_sphere_mask(resolution: int, radius: float = 1.1, device="cpu") -> torc
     outside it get SDF +1, reproducing the reference's sphere-masked
     voxelization."""
     return torch.tensor(_unit_sphere_mask_np(int(resolution), float(radius)), device=device)
+
+
+def unit_ball_from_draws(normal: torch.Tensor, uniform: torch.Tensor) -> torch.Tensor:
+    """Points in the unit ball from a normal draw [n, 3] and a uniform draw
+    [n, 1] in [0, 1): the direction over its norm (+1e-12) times the radius
+    ``uniform ** (1/3)``, whose cubic CDF makes the points uniform in the
+    ball."""
+    direction = normal / (torch.linalg.norm(normal, dim=1, keepdim=True) + 1e-12)
+    return direction * uniform ** (1.0 / 3.0)
+
+
+def sample_unit_sphere(n: int, generator: torch.Generator, device="cpu") -> torch.Tensor:
+    """``n`` float32 points [n, 3] uniform in the unit ball, at a static
+    shape (no rejection), drawn from ``generator`` (on ``device``)."""
+    normal = torch.randn((n, 3), generator=generator, device=device)
+    uniform = torch.rand((n, 1), generator=generator, device=device)
+    return unit_ball_from_draws(normal, uniform)

@@ -122,3 +122,21 @@ def extract_mesh(voxels: torch.Tensor, level: float = 0.0, spacing: float = 1.0,
     vertices = tris[area2 > 1e-12].reshape(-1, 3).cpu().numpy()
     faces = np.arange(vertices.shape[0], dtype=np.int32).reshape(-1, 3)
     return vertices, faces
+
+
+def marching_cubes(voxels: torch.Tensor, level: float = 0.0, spacing=(1.0, 1.0, 1.0)):
+    """``skimage.measure.marching_cubes``-style facade over
+    :func:`extract_mesh`: (vertices, faces, normals, values), the normals
+    each vertex's copy of its face normal in the triangle soup, the values
+    zero. Only isotropic spacing is supported."""
+    if isinstance(spacing, (int, float)):
+        spacing = (spacing,) * 3
+    if len(set(spacing)) != 1:
+        raise NotImplementedError("anisotropic spacing not supported")
+    vertices, faces = extract_mesh(torch.as_tensor(voxels), level=level, spacing=spacing[0])
+    tri = vertices.reshape(-1, 3, 3)
+    fnormals = np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
+    fnormals = fnormals / np.maximum(np.linalg.norm(fnormals, axis=1, keepdims=True), 1e-12)
+    normals = np.repeat(fnormals, 3, axis=0)
+    values = np.zeros(vertices.shape[0], dtype=np.float32)
+    return vertices, faces, normals, values

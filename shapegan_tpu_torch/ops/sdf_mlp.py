@@ -111,3 +111,20 @@ def fold_latent(params: Params, latent: torch.Tensor) -> Params:
     folded["w1z"] = params["w1z"][:0]
     folded["w5z"] = params["w5z"][:0]
     return folded
+
+
+def apply_grid_remat(params: Params, grid_points: torch.Tensor, latents: torch.Tensor,
+                     chunk_size: int = 16384) -> torch.Tensor:
+    """:func:`apply_grid` with bounded activation memory for losses over
+    large grids: the points are padded to a multiple of ``chunk_size`` and
+    each chunk runs under ``torch.utils.checkpoint``, so the forward keeps
+    only the [B, P] outputs and the backward recomputes one chunk's
+    activations at a time."""
+    from torch.utils.checkpoint import checkpoint
+
+    p = grid_points.shape[0]
+    pad = (-p) % chunk_size
+    points = torch.nn.functional.pad(grid_points, (0, 0, 0, pad))
+    out = [checkpoint(apply_grid, params, chunk, latents, use_reentrant=False)
+           for chunk in points.split(chunk_size)]
+    return torch.cat(out, dim=1)[:, :p]

@@ -7,7 +7,9 @@ into the bounding sphere, sphere tracing with the step clamped to ±0.02,
 surface normals from the gradient of the network, 200-step shadow rays,
 diffuse / specular (power 20) / rim (power 4) shading, ground-plane shadows
 and a Lanczos-3 SSAA downsample. The whole frame stays on the device; only
-the final [res, res, 3] uint8 pixels are copied to the host.
+the final [res, res, 3] uint8 pixels are copied to the host (with ``crop``,
+the SSAA-size frame, which the host crops and resizes with Pillow's
+Lanczos written out).
 
 The trace runs in stages (``_trace_staged``): masked iterations advance all
 lanes (resolved lanes ride at zero step), and between stages the ACTIVE
@@ -38,6 +40,7 @@ from shapegan_tpu_torch.ops import sdf_mlp
 from shapegan_tpu_torch.ops import sdf_mlp_kernels as K
 from shapegan_tpu_torch.render.camera import camera_position_from_transform, get_camera_transform
 from shapegan_tpu_torch.render.png import read_png, write_png
+from shapegan_tpu_torch.util import crop_image, resize_lanczos
 
 # Compaction schedule constants (the JAX package's, measured there on the
 # chair's live-lane decay: a plateau of surface oscillators after ~100
@@ -451,16 +454,30 @@ def _render_pixels(params, latent, camera_position, camera_right, camera_up, cam
     return pixels
 
 
+def crop_frame(pixels: np.ndarray, resolution: int, ssaa: int) -> np.ndarray:
+    """``render_image``'s crop of a uint8 frame rendered at ``resolution *
+    ssaa`` without the SSAA downsample: the square around the content
+    (:func:`shapegan_tpu_torch.util.crop_image` on the frame in [0, 1],
+    background 1; only a box wider than 200 pixels crops), back to uint8,
+    then with ``ssaa != 1`` resized to ``resolution``^2 by Pillow's Lanczos
+    (:func:`shapegan_tpu_torch.util.resize_lanczos`); with ``ssaa == 1``
+    the cropped size is kept."""
+    pixels = np.uint8(np.round(crop_image(pixels / 255.0, background=1) * 255.0))
+    if ssaa != 1:
+        pixels = resize_lanczos(pixels, resolution)
+    return pixels
+
+
 def render_image(net, latent_code, resolution: int = 800, threshold: float = 0.0005,
                  sdf_offset: float = 0.0, iterations: int = 1000, ssaa: int = 2,
                  radius: float = 1.0, crop: bool = False, color=(0.8, 0.1, 0.1),
                  vertical_cutoff=None, on_phase=None) -> np.ndarray:
     """Render one latent code of ``net`` (an ``SDFNet``) on its device:
     returns the [resolution, resolution, 3] uint8 frame as a numpy array.
-    ``crop`` is not ported (it needs a non-integer Lanczos resize);
+    With ``crop`` the frame is rendered at ``resolution * ssaa`` without
+    the device's downsample and goes through :func:`crop_frame` on the
+    host (with ``ssaa == 1`` it keeps the crop box's size).
     ``on_phase`` is :func:`_render_pixels`' profiling hook."""
-    if crop:
-        raise NotImplementedError("render_image(crop=True) is not ported to shapegan_tpu_torch")
     device = net.device
     camera_position = CAMERA_POSITION
     camera_forward = -camera_position / np.linalg.norm(camera_position)
@@ -473,15 +490,19 @@ def render_image(net, latent_code, resolution: int = 800, threshold: float = 0.0
         return torch.as_tensor(a, dtype=torch.float32, device=device)
 
     size = resolution * ssaa
+    # The crop is taken on the SSAA-size frame and only then resized, so
+    # with crop the device's downsample is skipped.
+    device_ssaa = 1 if crop else ssaa
     with torch.no_grad():
         pixels = _render_pixels(
             net.param_dict(), f32(latent_code), f32(camera_position), f32(camera_right),
             f32(camera_up), f32(camera_forward), f32(LIGHT_POSITION), size=size,
             iterations=iterations, threshold=threshold, sdf_offset=sdf_offset, radius=radius,
-            vertical_cutoff=vertical_cutoff, color=tuple(color), ssaa=ssaa,
+            vertical_cutoff=vertical_cutoff, color=tuple(color), ssaa=device_ssaa,
             shadow_bucket=_shadow_mask_capacity(camera_position, size, radius),
             on_phase=on_phase)
-    return pixels.cpu().numpy()
+    pixels = pixels.cpu().numpy()
+    return crop_frame(pixels, resolution, ssaa) if crop else pixels
 
 
 def render_image_sequence(net, latent_codes: Sequence, on_frame: Optional[Callable] = None,

@@ -9,65 +9,27 @@ C++ rasterizer: a light-space shadow map, then the shaded camera pass and a
 shadowed floor), which is the JAX viewer's own ``get_image`` route on a
 host without GL. ``get_image`` crops and resizes as the JAX one does; the
 card's machine has neither OpenCV nor Pillow, so the resize is
-:func:`resize_area`, OpenCV's ``INTER_AREA`` rule written out.
+:func:`shapegan_tpu_torch.util.resize_area`, OpenCV's ``INTER_AREA`` rule
+written out.
 
-Not ported: the GL window, its event loop and screenshots, and binary-cube
-meshing of voxels (``set_voxels(use_marching_cubes=False)`` raises).
+``set_voxels(use_marching_cubes=False)`` shows binary cubes
+(:func:`shapegan_tpu_torch.render.binary_voxels.create_binary_voxel_mesh`).
+Not ported: the GL window, its event loop and screenshots.
 """
 
 from __future__ import annotations
-
-import math
 
 import numpy as np
 import torch
 
 from shapegan_tpu_torch.data.mesh_io import TriangleMesh
 from shapegan_tpu_torch.ops.mesh_extract import extract_mesh
+from shapegan_tpu_torch.render.binary_voxels import create_binary_voxel_mesh
 from shapegan_tpu_torch.render.camera import get_camera_transform
 from shapegan_tpu_torch.render.software import render_scene
-from shapegan_tpu_torch.util import crop_image
+from shapegan_tpu_torch.util import crop_image, resize_area
 
 DEFAULT_ROTATION = (147.0, 20.0)
-
-
-def _area_weights(n_in: int, n_out: int) -> np.ndarray:
-    """[n_out, n_in] weights of OpenCV's ``INTER_AREA`` along one axis.
-    Shrinking: each output pixel averages the source pixels its footprint
-    of ``n_in / n_out`` covers, each by the covered fraction. Enlarging:
-    linear between two source pixels, with OpenCV's area coefficient ``fx =
-    (i + 1) - (sx + 1) * n_out / n_in`` folded into [0, 1)."""
-    scale = n_in / n_out
-    weights = np.zeros((n_out, n_in), np.float64)
-    for i in range(n_out):
-        if scale >= 1.0:
-            start, end = i * scale, (i + 1) * scale
-            for j in range(int(math.floor(start)), min(int(math.ceil(end)), n_in)):
-                weights[i, j] = (min(end, j + 1) - max(start, j)) / scale
-        else:
-            sx = int(math.floor(i * scale))
-            fx = (i + 1) - (sx + 1) / scale
-            fx = 0.0 if fx <= 0 else fx - math.floor(fx)
-            if sx >= n_in - 1:
-                sx, fx = n_in - 1, 0.0
-            weights[i, sx] += 1.0 - fx
-            if fx:
-                weights[i, sx + 1] += fx
-    return weights
-
-
-def resize_area(image: np.ndarray, size: int) -> np.ndarray:
-    """A uint8 image [H, W] or [H, W, C] resized to [size, size] with the
-    weights of ``cv2.resize(..., interpolation=cv2.INTER_AREA)``, separable,
-    summed in float64 and rounded to the nearest integer (halves up when
-    both sides shrink by whole factors, as OpenCV's integer averages; to
-    even otherwise)."""
-    height, width = image.shape[:2]
-    out = np.tensordot(_area_weights(height, size), image.astype(np.float64), axes=(1, 0))
-    out = np.moveaxis(np.tensordot(_area_weights(width, size), out, axes=(1, 1)), 0, 1)
-    whole = height % size == 0 and width % size == 0 and height >= size and width >= size
-    out = np.floor(out + 0.5) if whole else np.rint(out)
-    return np.clip(out, 0, 255).astype(np.uint8)
 
 
 class MeshRenderer:
@@ -102,17 +64,21 @@ class MeshRenderer:
         self.ground_level = float(tri[:, 1].min()) if tri.size else -1.0
 
     def set_voxels(self, voxels, use_marching_cubes: bool = True, level: float = 0.0) -> None:
-        """Show the ``level`` iso-surface of an SDF volume [R, R, R] (a
-        tensor, meshed on its device, or an array, meshed on the CPU),
-        padded with +1 and placed in [-1, 1]^3, framed at the model size
-        1.4."""
-        if not use_marching_cubes:
-            raise NotImplementedError("binary-cube voxel meshes are not ported")
+        """Show an SDF volume [R, R, R] (a tensor, meshed on its device, or
+        an array, meshed on the CPU) placed in [-1, 1]^3 and framed at the
+        model size 1.4: its ``level`` iso-surface, padded with +1, or with
+        ``use_marching_cubes=False`` the cubes of its voxels below
+        ``level``."""
         voxels = torch.as_tensor(voxels, dtype=torch.float32)
         res = voxels.shape[0]
-        padded = torch.nn.functional.pad(voxels, (1,) * 6, value=1.0)
-        vertices, faces = extract_mesh(padded, level=level, spacing=2.0 / res)
-        self.set_mesh(TriangleMesh(vertices - 1.0 - 1.0 / res, faces))
+        if use_marching_cubes:
+            padded = torch.nn.functional.pad(voxels, (1,) * 6, value=1.0)
+            vertices, faces = extract_mesh(padded, level=level, spacing=2.0 / res)
+            mesh = TriangleMesh(vertices - 1.0 - 1.0 / res, faces)
+        else:
+            mesh = create_binary_voxel_mesh(voxels, threshold=level)
+            mesh = TriangleMesh(mesh.vertices * (2.0 / res) - 1.0, mesh.faces)
+        self.set_mesh(mesh)
         self.model_size = 1.4
 
     def _matrices(self):

@@ -111,8 +111,11 @@ def test_sheet_tiles_match_jax_viewer(scene):
     assert diff.max() <= TILE_MAX_LEVELS
     full_ours, full_theirs = ours.get_image(), theirs.get_image()
     np.testing.assert_array_equal(full_ours, full_theirs)
-    with pytest.raises(NotImplementedError):
-        ours.set_voxels(volume, use_marching_cubes=False)
+    # Binary cubes of the same volume: the same mesh in [-1, 1]^3.
+    ours.set_voxels(volume, use_marching_cubes=False)
+    theirs.set_voxels(volume, use_marching_cubes=False)
+    np.testing.assert_array_equal(ours._vertices, theirs._vertices)
+    assert ours.model_size == theirs.model_size == 1.4
 
 
 def _gate(*argv, cwd=REPO):

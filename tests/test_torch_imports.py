@@ -55,5 +55,7 @@ def test_port_imports_nothing_of_jax():
                    "train.hybrid_wgan", "train.point_gan_ref", "metrics", "gan_gate",
                    "render.viewer", "host_build", "data.mesh_io", "data.mesh_to_sdf",
                    "data.fixtures", "data.shapenet", "data.prepare", "prepare_data",
-                   "prepare_shapenet_dataset", "run_fixture_corpus"):
+                   "prepare_shapenet_dataset", "run_fixture_corpus", "make_examples", "demo_gan",
+                   "demo_autoencoder", "demo_training", "demo_latent_space", "embedding",
+                   "render.binary_voxels", "render.panel"):
         assert f"shapegan_tpu_torch.{module}" in names.split(), module
