@@ -169,8 +169,24 @@ Phases, each fatal on failure (nothing is caught):
      autodecoder's SDF range; (g) the headless viewer's frame of a bundled
      generator volume as binary cubes; (f) render_image(crop=True) of the
      fitted chair at 800 with ssaa 2 (800^2) and ssaa 1 (the crop box),
-     each bit-equal to crop_frame of the uncropped frame at 800 * ssaa.
-Each run of a path in phases 5-7 and 9-15 starts with every launch count set to 0
+     each bit-equal to crop_frame of the uncropped frame at 800 * ssaa;
+ 16. the figure factory, in a temporary directory holding phase 15's
+     make_examples output, a VAE trained here (synthetic=64 epochs=10, its
+     final state also kept as the epoch-9 snapshot), the fitted chair with
+     its code folded in as the hybrid generator (every code the chair), and
+     two screenshots each in screenshots/wgan and screenshots/errors written by
+     write_png: every create_plot recipe through its main at the JAX
+     defaults (res 400, ssaa 2, 1000 steps, 128^3 and 256^3 volumes;
+     synthetic=64 where a recipe reads a voxel dataset, count=2 for the
+     two screenshot grids, count=50 for gan_tsne), each timed, its files checked and each PNG's
+     non-background share printed (B4, B1 and B2 in every raymarched
+     recipe, B3 in every voxel and mesh recipe, no kernel elsewhere); a
+     cell of sdf_net_interpolation bit-equal to render_image of its code
+     (that frame timed again), a 256^3 mesh of the autodecoder timed by
+     part (get_mesh, weld, STL), hybrid_gan_upscaling's 128^3 volume equal
+     to get_voxels, every STL loaded back; then demo_data_preparation (host
+     engine, no kernel).
+Each run of a path in phases 5-7 and 9-16 starts with every launch count set to 0
 and reads the counts just after; launches made to compare a kernel with its
 plain version or to time it are never counted. The kernels line gives each
 kernel's launches summed over the runs made at the shipped switch
@@ -183,6 +199,7 @@ beside it, the script exits non-zero before printing any result.
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2253,7 +2270,7 @@ DEMO_TRAINING_STEPS = 2000
 LATENT_TOUR_RESOLUTION = 200
 
 
-def demos_path(chair, chair_code, device, kind: str) -> dict:
+def demos_path(chair, chair_code, device, kind: str, keep: str) -> dict:
     """Phase 15: the demos and their bootstrap, in a temporary directory,
     each run with its own launch counts. (a) make_examples (every stage
     timed; B6a and B6b in the autodecoder's, no other kernel); its bundle's
@@ -2272,6 +2289,7 @@ def demos_path(chair, chair_code, device, kind: str) -> dict:
     chair at 800 with ssaa 2, and with ssaa 1 (the crop box's size), each
     bit-equal to crop_frame of the uncropped frame at 800 * ssaa. (g)
     the headless viewer's frame of one generator volume as binary cubes.
+    (a)'s models/ and plots/ are copied into ``keep`` for phase 16.
     Returns the launch counts per run."""
     import contextlib
     import io
@@ -2420,6 +2438,8 @@ def demos_path(chair, chair_code, device, kind: str) -> dict:
                                      f"{len(tour['path'])}, shape {image.shape}")
             if not np.array_equal(image[:, :res], want):
                 raise AssertionError("demo_latent_space: a frame's render differs from render_image")
+            for name in ("models", "plots"):
+                shutil.copytree(name, os.path.join(keep, name))
         finally:
             os.chdir(cwd)
 
@@ -2452,6 +2472,245 @@ def demos_path(chair, chair_code, device, kind: str) -> dict:
             raise AssertionError(f"render_image(crop=True) at ssaa {ssaa} differs from crop_frame "
                                  f"of the {full.shape[0]}^2 frame")
     log("  (f) both equal crop_frame of the uncropped 1600^2 and 800^2 frames, bit for bit")
+    return paths
+
+
+# Phase 16: the files each recipe writes (the JAX script's names), and the
+# recipes whose frames are raymarched (B4, B1, B2; B3 where a bucket holds
+# few lanes) or whose volumes and meshes come from the points kernel (B3).
+FIGURE_FILES = {
+    "training_curves": ["plots/training_curves.png"],
+    "autoencoder_training": ["plots/autoencoder-training.png",
+                             "plots/variational-autoencoder-training.png"],
+    "wgan_training": ["plots/wgan-training-critic.png"],
+    "sdf_training": ["plots/deepsdf-training-loss.png"],
+    "latent_distribution": ["plots/latent_distribution.png"],
+    "autoencoder_hist": ["plots/variational-autoencoder-histogram.png",
+                         "plots/variational-autoencoder-histogram-combined.png"],
+    "autodecoder_hist": ["plots/autodecoder-histogram.png", "plots/autodecoder-histogram-combined.png"],
+    "tsne": ["plots/latent_space_tsne.png"],
+    "autoencoder_tsne": ["plots/variational-autoencoder-tsne.png"],
+    "autodecoder_tsne": ["plots/deepsdf-tsne.png"],
+    "gan_tsne": ["plots/gan-images.png"],
+    "color_test": ["plots/color-test.png"],
+    "autoencoder_results": ["plots/autoencoder_results.png"],
+    "autoencoder_classes": ["plots/vae-reconstruction-classes.png"],
+    "autoencoder_examples": ["plots/autoencoder-examples.png"],
+    "autoencoder_examples_2": ["plots/ae-vae-examples.png"],
+    "autoencoder_generate": ["plots/ae-vae-samples.png"],
+    "autoencoder_interpolation": ["plots/ae-vae-interpolation.png"],
+    "autoencoder_interpolation_2": ["plots/vae-interpolation.png"],
+    "gan_results": ["plots/gan_results.png"],
+    "gan_examples": ["plots/gan-examples.png"],
+    "gan_interpolation": ["plots/gan-interpolation.png"],
+    "wgan_results": ["plots/wgan-results.png"],
+    "sdf_slices": ["plots/sdf_slices.png"],
+    "sdf_slice": ["plots/sdf_example.png"],
+    "voxel_occupancy": ["plots/voxel-occupancy-histogram.png"],
+    "model_images": ["screenshots/sdf_meshes/0.png"],
+    "sdf_net_reconstruction": ["plots/deepsdf-reconstruction.png"],
+    "sdf_net_interpolation": ["plots/deepsdf-interpolation.png"],
+    "sdf_net_sample": ["plots/deepsdf-samples.png"],
+    "hybrid_gan": ["plots/hybrid-gan-samples.png"],
+    "hybrid_gan_interpolation": [f"plots/option-{i}.png" for i in range(10)]
+    + ["plots/hybrid-gan-interpolation.png"],
+    "hybrid_gan_upscaling": ["plots/hybrid-gan-upscaling.png"],
+    "checkpoint_evolution": ["plots/checkpoint_evolution.png"],
+    "vae_checkpoints": ["plots/vae-checkpoints.png"],
+    "sdf_checkpoints": ["plots/deepsdf-checkpoints.png"],
+    "shapenet_errors": ["plots/errors.png"],
+    "raymarch_examples": [f"screenshots/raymarching-examples/image-{i}-400.png" for i in range(4)],
+    "export_stl": [f"plots/stl/shape_{i}.stl" for i in range(4)],
+    "deepsdf_interpolation_stl": [f"plots/mesh-{i}.stl" for i in range(5)],
+}
+RAYMARCHED = {"sdf_net_reconstruction", "sdf_net_interpolation", "sdf_net_sample", "hybrid_gan",
+              "hybrid_gan_interpolation", "hybrid_gan_upscaling", "sdf_checkpoints",
+              "raymarch_examples"}
+POINTS = {"sdf_slices", "checkpoint_evolution", "hybrid_gan_upscaling", "export_stl",
+          "deepsdf_interpolation_stl"}
+# Recipes that read a voxel dataset run on 64 synthetic shapes (the card's
+# machine has no dataset); the screenshot grids show the two files of each
+# folder.
+FIGURE_ARGV = {name: ["synthetic=64"] for name in FIGURE_FILES}
+FIGURE_ARGV["wgan_results"] = FIGURE_ARGV["shapenet_errors"] = ["count=2"]
+# gan_tsne's 100 thumbnails took 16.7 s of the phase's 94.9 on an NVIDIA H100
+# 80GB HBM3 at 700 W (host meshing and rasterizing; PERF.md section 6): half
+# of them keep the phase near 90 s.
+FIGURE_ARGV["gan_tsne"] = ["count=50"]
+# The VAE the recipes read is trained here (make_examples trains none): its
+# snapshots are epoch 0 and, saved from its final state, the last epoch.
+FIGURE_VAE_EPOCHS = 10
+
+
+def figures_path(chair, chair_code, device, kind: str, made: str) -> dict:
+    """Phase 16: the figure factory in a temporary directory holding
+    ``made`` (phase 15's make_examples output: the GAN and WGAN generators,
+    the classic AE, the autodecoder, its table and its snapshot of every
+    epoch, the trainers' CSVs), a VAE trained here (synthetic=64
+    epochs=10: the epoch-0 snapshot, and its final state saved as the
+    epoch-9 one), the fitted chair with its code folded in and zero latent
+    weights as ``hybrid_gan_generator`` (every code the chair), and two
+    screenshots each in screenshots/wgan and screenshots/errors (the
+    viewer's frames of two generator volumes, written by write_png). Every recipe runs through
+    ``create_plot.main`` at the JAX defaults, with its own launch counts,
+    then demo_data_preparation. Returns the launch counts per run."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from shapegan_tpu_torch import checkpoints, create_plot, demo_data_preparation
+    from shapegan_tpu_torch.data.mesh_io import load_mesh
+    from shapegan_tpu_torch.models import LATENT_CODES_FILENAME
+    from shapegan_tpu_torch.models.sdf_net import SDFNet
+    from shapegan_tpu_torch.ops import sdf_mlp
+    from shapegan_tpu_torch.render.png import read_png, write_png
+    from shapegan_tpu_torch.render.raymarching import render_image
+    from shapegan_tpu_torch.render.viewer import MeshRenderer
+    from shapegan_tpu_torch.train import autoencoder as autoencoder_trainer
+    from shapegan_tpu_torch.core.config import TrainConfig, parse_cli
+
+    paths = {}
+    kernels = list(launch_counters())
+
+    def run(path, fn, launched=(), allowed=()):
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        paths[path] = read_counts()
+        check_counts(path, paths[path], launched=launched,
+                     idle=[k for k in kernels if k not in launched + allowed])
+        return out, seconds
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            for name in ("models", "plots"):
+                shutil.copytree(os.path.join(made, name), name)
+            printed = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                autoencoder_trainer.train(TrainConfig(synthetic=64, epochs=FIGURE_VAE_EPOCHS, nogui=True))
+            vae = "variational-autoencoder-128"
+            shutil.copy(checkpoints.get_filename(vae),
+                        checkpoints.get_filename(vae, FIGURE_VAE_EPOCHS - 1))
+            log(f"  the VAE, synthetic=64 epochs={FIGURE_VAE_EPOCHS}: {time.perf_counter() - t0:.1f} s; "
+                + printed.getvalue().strip().splitlines()[-1])
+            # The chair with its code folded into the biases and zero latent
+            # weights: every code the hybrid recipes draw is the chair.
+            folded = sdf_mlp.fold_latent(chair, chair_code)
+            checkpoints.save({**folded, "w1z": torch.zeros_like(chair["w1z"]),
+                              "w5z": torch.zeros_like(chair["w5z"])}, "hybrid_gan_generator")
+            snapshots = sorted(os.listdir(checkpoints.checkpoint_dir()))
+            if not any(n.startswith("sdf_net-epoch-") for n in snapshots):
+                raise AssertionError("make_examples wrote no sdf_net snapshots")
+            generator = create_plot._load_generator_fn(TrainConfig(), wgan=False)
+            volumes = generator(create_plot._gan_latents(2, 3))
+            viewer = MeshRenderer(size=400)
+            for i, volume in enumerate(volumes):
+                viewer.set_voxels(torch.as_tensor(volume, device=device))
+                os.makedirs("screenshots/wgan", exist_ok=True)
+                os.makedirs("screenshots/errors", exist_ok=True)
+                write_png(f"screenshots/wgan/{i}.png", viewer.get_image())
+                write_png(f"screenshots/errors/error-{i + 1}.png", viewer.get_image())
+            counted = {}
+            for n in snapshots:
+                counted[n.split("-epoch-")[0]] = counted.get(n.split("-epoch-")[0], 0) + 1
+            log(f"  set-up: {sorted(os.listdir('models'))}; snapshots {counted}; CSVs "
+                f"{sorted(os.listdir('plots'))}")
+
+            results, seconds = {}, {}
+            for name in create_plot.RECIPES:
+                if name in RAYMARCHED:
+                    launched, allowed = ("trace", "grid", "grid_bwd"), ("points",)
+                elif name in POINTS:
+                    launched, allowed = ("points",), ()
+                else:
+                    launched, allowed = (), ()
+                argv = [name] + FIGURE_ARGV[name]
+
+                def recipe():
+                    with contextlib.redirect_stdout(io.StringIO()):  # the files' names
+                        return create_plot.main(argv)
+
+                results[name], seconds[name] = run(f"create_plot {name}", recipe,
+                                                   launched=launched, allowed=allowed)
+                shares = []
+                for path in FIGURE_FILES[name]:
+                    if not os.path.isfile(path):
+                        raise AssertionError(f"create_plot {name} did not write {path}")
+                    if path.endswith(".png"):
+                        image = read_png(path)
+                        share = float((image != 255).any(axis=-1).mean())
+                        if not share > 0:
+                            raise AssertionError(f"create_plot {name}: {path} is blank")
+                        shares.append(f"{os.path.basename(path)} {image.shape[1]}x{image.shape[0]} "
+                                      f"{share:.4f}")
+                    else:
+                        mesh = load_mesh(path)
+                        if len(mesh.faces) == 0:
+                            raise AssertionError(f"create_plot {name}: {path} has no faces")
+                        shares.append(f"{os.path.basename(path)} {len(mesh.faces)} faces")
+                log(f"  {name} {' '.join(FIGURE_ARGV[name])}: {seconds[name]:.3f} s (host clock); "
+                    + "; ".join(shares))
+
+            # A raymarched cell of the interpolation against render_image of
+            # its code with the recipe's arguments.
+            extras = parse_cli(FIGURE_ARGV["sdf_net_interpolation"]).extras
+            kw = {"resolution": int(extras.get("res", 400)), "ssaa": int(extras.get("ssaa", 2)),
+                  "iterations": int(extras.get("iterations", 1000))}
+            grid = results["sdf_net_interpolation"]
+            net = SDFNet(checkpoints.load("sdf_net", device=device))
+            t0 = time.perf_counter()
+            want = render_image(net, grid.codes[0].astype(np.float32), crop=True, **kw)
+            frame_s = time.perf_counter() - t0
+            if not np.array_equal(grid.cells[(0, 0)]["image"], want):
+                raise AssertionError("sdf_net_interpolation: a cell differs from render_image")
+            log(f"  sdf_net_interpolation's first cell {want.shape} equals render_image({kw}, "
+                f"crop) of its code, bit for bit; that frame again: {frame_s:.3f} s (host clock, "
+                f"the crop and Lanczos on the host included; {kind})")
+            # One of deepsdf_interpolation_stl's meshes again, by part.
+            code = checkpoints.load_array(LATENT_CODES_FILENAME)[0]
+            t0 = time.perf_counter()
+            mesh = net.get_mesh(code, voxel_resolution=256, sphere_only=False)
+            torch.cuda.synchronize()
+            mesh_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            welded = mesh.weld()
+            weld_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            welded.save("mesh-again.stl")
+            log(f"  a 256^3 mesh again: get_mesh {mesh_s:.3f} s ({len(mesh.faces)} triangles, "
+                f"on the card with its copy to the host), weld {weld_s:.3f} s, STL "
+                f"{time.perf_counter() - t0:.3f} s (host clocks; {kind})")
+            # The upscaling figure's voxel_res^3 volume against get_voxels.
+            high_res = int(parse_cli(FIGURE_ARGV["hybrid_gan_upscaling"]).extras.get("voxel_res", 128))
+            grid = results["hybrid_gan_upscaling"]
+            hybrid = SDFNet(checkpoints.load("hybrid_gan_generator", device=device))
+            want = hybrid.get_voxels(grid.code, high_res, sphere_only=False).cpu().numpy()
+            if not np.array_equal(grid.cells[(2, 0)]["volume"], want):
+                raise AssertionError(f"hybrid_gan_upscaling: the {high_res}^3 volume differs from "
+                                     f"get_voxels")
+            log(f"  hybrid_gan_upscaling's {high_res}^3 volume equals get_voxels, share below 0 "
+                f"{float((want < 0).mean()):.4f}")
+
+            def prepare():
+                with contextlib.redirect_stdout(io.StringIO()):  # the slices
+                    return demo_data_preparation.main([])
+
+            prep, prep_s = run("demo_data_preparation", prepare)
+            written = [os.path.join(demo_data_preparation.OUT_DIR, n) for n in ("voxels.png", "points.png")]
+            log(f"  demo_data_preparation: {prep_s:.3f} s; "
+                + ", ".join(f"{os.path.basename(p)} non-background {float((read_png(p) != 255).any(-1).mean()):.4f}"
+                            for p in written)
+                + f"; occupied voxels {[int((v < 0).sum()) for v in prep['volumes']]}")
+            total = sum(seconds.values())
+            log(f"  recipes: {total:.1f} s in all ({kind})")
+        finally:
+            os.chdir(cwd)
     return paths
 
 
@@ -2930,8 +3189,13 @@ def main() -> int:
     log(f"  phase 14: {time.perf_counter() - t0:.1f} s")
     log(f"== 15. the demos and their bootstrap ({kind}; {smi})")
     t0 = time.perf_counter()
-    paths.update(demos_path(chair, chair_code, device, f"{kind}; {smi}"))
-    log(f"  phase 15: {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as made:
+        paths.update(demos_path(chair, chair_code, device, f"{kind}; {smi}", made))
+        log(f"  phase 15: {time.perf_counter() - t0:.1f} s")
+        log(f"== 16. the figure factory ({kind}; {smi})")
+        t0 = time.perf_counter()
+        paths.update(figures_path(chair, chair_code, device, f"{kind}; {smi}", made))
+        log(f"  phase 16: {time.perf_counter() - t0:.1f} s")
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         raise AssertionError("jax was imported")
 

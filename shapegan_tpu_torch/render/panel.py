@@ -13,11 +13,8 @@ from __future__ import annotations
 
 import numpy as np
 
-TAB10 = np.array([
-    (0x1f, 0x77, 0xb4), (0xff, 0x7f, 0x0e), (0x2c, 0xa0, 0x2c), (0xd6, 0x27, 0x28),
-    (0x94, 0x67, 0xbd), (0x8c, 0x56, 0x4b), (0xe3, 0x77, 0xc2), (0x7f, 0x7f, 0x7f),
-    (0xbc, 0xbd, 0x22), (0x17, 0xbe, 0xcf),
-], np.float64) / 255.0
+from shapegan_tpu_torch.render import colormaps
+
 POINT_ALPHA = 0.6
 MARGIN = 0.05
 
@@ -26,10 +23,7 @@ def tab10_colours(labels) -> np.ndarray:
     """RGB in [0, 1] [N, 3] of each label as matplotlib colours ``c=labels``
     with ``cmap="tab10"``: the labels normalised over their range (all 0
     when they are equal), then one of ten bins."""
-    labels = np.asarray(labels, np.float64)
-    lo, hi = labels.min(), labels.max()
-    x = (labels - lo) / (hi - lo) if hi > lo else np.zeros_like(labels)
-    return TAB10[np.clip((x * 10).astype(np.int64), 0, 9)]
+    return colormaps.to_rgb(labels, "tab10")
 
 
 class ScatterPanel:

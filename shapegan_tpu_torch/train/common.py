@@ -169,16 +169,17 @@ def load_network(module: torch.nn.Module, opt, name: str, base: str) -> int:
     return int(restored["epoch"])
 
 
-def load_module(module: torch.nn.Module, name: str, base: str) -> None:
+def load_module(module: torch.nn.Module, name: str, base: str, epoch: Optional[int] = None) -> None:
     """Restore ``module``'s flax variables (``params`` and ``batch_stats``)
-    in place from a checkpoint; the bundled example stands in when
-    ``base``'s file is missing (``checkpoints.load_tree``), and what the
-    file holds besides (an optimizer's state, the epoch) is ignored."""
+    in place from a checkpoint (the snapshot of ``epoch`` if given); the
+    bundled example stands in when ``base``'s latest file is missing
+    (``checkpoints.load_tree``), and what the file holds besides (an
+    optimizer's state, the epoch) is ignored."""
     from shapegan_tpu_torch import checkpoints
     from shapegan_tpu_torch.models import flax_layers
 
     template = flax_layers.variables_to_jax(module)
-    flax_layers.load_variables(module, checkpoints.load_tree(template, name, base=base))
+    flax_layers.load_variables(module, checkpoints.load_tree(template, name, epoch=epoch, base=base))
 
 
 def maybe_print_slice(volume: torch.Tensor, enabled: bool, scale: float = 1.0) -> None:

@@ -57,5 +57,6 @@ def test_port_imports_nothing_of_jax():
                    "data.fixtures", "data.shapenet", "data.prepare", "prepare_data",
                    "prepare_shapenet_dataset", "run_fixture_corpus", "make_examples", "demo_gan",
                    "demo_autoencoder", "demo_training", "demo_latent_space", "embedding",
-                   "render.binary_voxels", "render.panel"):
+                   "render.binary_voxels", "render.panel", "render.png", "render.colormaps",
+                   "render.font", "render.figure", "create_plot", "demo_data_preparation"):
         assert f"shapegan_tpu_torch.{module}" in names.split(), module
