@@ -185,8 +185,24 @@ Phases, each fatal on failure (nothing is caught):
      (that frame timed again), a 256^3 mesh of the autodecoder timed by
      part (get_mesh, weld, STL), hybrid_gan_upscaling's 128^3 volume equal
      to get_voxels, every STL loaded back; then demo_data_preparation (host
-     engine, no kernel).
-Each run of a path in phases 5-7 and 9-16 starts with every launch count set to 0
+     engine, no kernel);
+ 17. the sharded branch on the one card (shapegan_tpu_torch.parallel):
+     (a) dryrun_multichip on two gloo ranks sharing cuda:0 (the mesh's
+     collectives copy through the host), its six phases against one
+     process here, B1 and B2 on each rank in the progressive phases, B6a
+     and B6b in the autodecoder phase, B7 in the point-GAN phase; (b) the
+     progressive trainer's entry point at iteration 3 (64^3, batch 16,
+     synthetic=32, epochs=1) on those two ranks, B1 once a D step and a G
+     step and B2 once a G step on each, rank 0's checkpoints against one
+     process's run of the same steps (0.05 of the scale, the chain's
+     bound); (c) the autodecoder's entry point on two ranks at batch
+     20,000 (10,000 a rank, B6a and B6b once a step), the saved table the
+     gathered one; (d) one NCCL rank: an all-reduce on the card and
+     generate_volumes_inference at 16 x 64^3 under a 1 x 1 mesh, no
+     sharded route, bit-equal to one process; (e) render_image_sequence on
+     4 codes at 800^2 ssaa 2 with two workers on cuda:0, B4 launched, each
+     frame bit-equal to render_image's.
+Each run of a path in phases 5-7 and 9-17 starts with every launch count set to 0
 and reads the counts just after; launches made to compare a kernel with its
 plain version or to time it are never counted. The kernels line gives each
 kernel's launches summed over the runs made at the shipped switch
@@ -2714,6 +2730,174 @@ def figures_path(chair, chair_code, device, kind: str, made: str) -> dict:
     return paths
 
 
+def multichip_path(chair, chair_code, device, kind: str) -> dict:
+    """Phase 17: the sharded branch on the one card. (a) the multichip dryrun
+    on two gloo ranks sharing cuda:0; (b) the progressive trainer's entry
+    point at iteration 3 on those two ranks against one process; (c) the
+    autodecoder's entry point on two ranks at batch 20,000; (d) one NCCL
+    rank; (e) render_image_sequence with two workers on cuda:0. Returns the
+    launch counts of each rank's run."""
+    import csv
+    import math
+
+    import numpy as np
+    import torch
+    from shapegan_tpu_torch import checkpoints
+    from shapegan_tpu_torch.core.config import parse_cli
+    from shapegan_tpu_torch.dryrun_multichip import _relative, dryrun_multichip
+    from shapegan_tpu_torch.models import LATENT_CODES_FILENAME
+    from shapegan_tpu_torch.models.sdf_net import SDFNet
+    from shapegan_tpu_torch.ops.coords import voxel_coordinates
+    from shapegan_tpu_torch.parallel.mesh import spawn
+    from shapegan_tpu_torch.parallel.rank_checks import (
+        first_gradients,
+        nccl_volumes,
+        run_trainer,
+        to_numpy_tree,
+    )
+    from shapegan_tpu_torch.render.raymarching import render_image, render_image_sequence
+    from shapegan_tpu_torch.train import hybrid_progressive_gan as T
+    from shapegan_tpu_torch.train.common import load_critic, load_generator
+    from shapegan_tpu_torch.train.hybrid_gan import generate_volumes_inference
+
+    paths = {}
+    t0 = time.perf_counter()
+    out = dryrun_multichip(2, "cuda:0", backend="gloo", log=lambda line: log("  " + line))
+    wanted = {1: ("grid", "grid_bwd"), 2: ("rowwise", "rowwise_bwd"), 5: ("grid", "grid_bwd"),
+              6: ("point_gen",)}
+    for rank, by_phase in enumerate(out["counts"]):
+        for phase, counts in by_phase.items():
+            check_counts(f"17a rank {rank} dryrun phase {phase}", counts,
+                         launched=wanted.get(phase, ()))
+        paths[f"17a dryrun rank {rank}"] = {k: sum(c[k] for c in by_phase.values())
+                                           for k in by_phase[1]}
+    log(f"  17a: dryrun_multichip on 2 gloo ranks sharing cuda:0: {time.perf_counter() - t0:.1f} s "
+        f"({kind})")
+
+    # (b) and (c): the two trainers in turn on one pair of ranks; the
+    # progressive trainer's one-process run here while they run.
+    t0 = time.perf_counter()
+    prog_argv = ["iteration=3", "epochs=1", "synthetic=32", "batch_size=16", "nogui"]
+    ad_argv = ["synthetic=4", "pointcloud_size=20000", "batch_size=20000", "epochs=1", "nogui"]
+    single = {}
+
+    def one_process(workdir):
+        cwd = os.getcwd()
+        os.chdir(workdir)
+        try:
+            reset_counts()
+            with first_gradients() as grads:
+                single["result"] = T.train(parse_cli(prog_argv))
+            torch.cuda.synchronize()
+            single["counts"] = read_counts()
+            single["first_grads"] = to_numpy_tree(grads)
+        finally:
+            os.chdir(cwd)
+
+    with tempfile.TemporaryDirectory() as sharded_dir, tempfile.TemporaryDirectory() as one_dir:
+        ranks = spawn(run_trainer, 2, "cuda:0", "gloo",
+                      args=([("hybrid_progressive_gan", prog_argv), ("sdf_autodecoder", ad_argv)],
+                            sharded_dir),
+                      while_running=lambda: one_process(one_dir))
+        for rank, r in enumerate(ranks):
+            run = r["runs"][0]
+            g_steps, d_steps = len(run["result"]["g_step_s"]), len(run["result"]["d_step_s"])
+            want = dict.fromkeys(run["counts"], 0)
+            want.update(grid=d_steps + g_steps, grid_bwd=g_steps)
+            check_counts(f"17b rank {rank} progressive iteration 3", run["counts"],
+                         launched=("grid", "grid_bwd"))
+            if run["counts"] != want or g_steps != 1 or d_steps != 2:
+                raise AssertionError(f"17b rank {rank}: launches {run['counts']}, expected {want}")
+            paths[f"17b progressive rank {rank}"] = run["counts"]
+        with open(os.path.join(sharded_dir, "plots", "hybrid_gan_training_3.csv")) as f:
+            rows = [[float(v) for v in row] for row in csv.reader(f, delimiter=" ")]
+        if len(rows) != 1 or not all(math.isfinite(v) for v in rows[0]):
+            raise AssertionError(f"17b: CSV {rows}")
+        # What the G and D optimizers were handed first (G at the common
+        # start, D after one G step) against one process: a rank on the
+        # wrong rows or a gradient scaled by the rank count moves them by
+        # the order of their scale, which RMSprop's parameters would hide.
+        # Read on an H100: 1.3e-3 and 2.5e-3 (cuDNN's TF32 convolutions of
+        # the critic at batch 8 against 16).
+        errs = [_relative(a, b) for a, b in zip(ranks[0]["runs"][0]["first_grads"],
+                                                 single["first_grads"])]
+        # Rank 0's checkpoints hold the state every rank ends with.
+        net, critic = T.create_models(1, device)
+        load_generator(net, T.G_NAME.format(3), os.path.join(sharded_dir, "models"))
+        load_critic(critic, T.D_NAME.format(3), os.path.join(sharded_dir, "models"))
+        saved = to_numpy_tree({"net": net.param_dict(), "discriminator": dict(critic.named_parameters())})
+        for key, params in saved.items():
+            for r in ranks:
+                held = r["runs"][0]["result"][key]
+                if not all(np.array_equal(held[k], v) for k, v in params.items()):
+                    raise AssertionError(f"17b: rank 0's {key} checkpoint is not the ranks' state")
+        log(f"  17b: progressive iteration 3 (64^3, batch 16, 8 a rank) on 2 ranks: "
+            f"{', '.join('%.1f' % r['runs'][0]['seconds'] for r in ranks)} s a rank ({kind}); "
+            f"rank 0's first G and D gradients against one process max|d|/scale = "
+            f"{errs[0]:.3e}, {errs[1]:.3e} (< 2e-2); rank 0's checkpoints equal to every "
+            f"rank's final state; one process launched {single['counts']}")
+        if len(errs) != 2 or not max(errs) < 2e-2:
+            raise AssertionError("17b: the ranks' first gradients disagree with one process")
+
+        saved = checkpoints.load_array(LATENT_CODES_FILENAME,
+                                       base=os.path.join(sharded_dir, "models"))
+        for rank, r in enumerate(ranks):
+            run = r["runs"][1]
+            steps = sum(run["result"]["steps"])
+            want = dict.fromkeys(run["counts"], 0)
+            want.update(rowwise=steps, rowwise_bwd=steps)
+            check_counts(f"17c rank {rank} autodecoder", run["counts"],
+                         launched=("rowwise", "rowwise_bwd"))
+            if run["counts"] != want or run["result"]["shards"] != 2:
+                raise AssertionError(f"17c rank {rank}: launches {run['counts']}, shards "
+                                     f"{run['result']['shards']}")
+            if not np.array_equal(run["result"]["latent_codes"], saved):
+                raise AssertionError(f"17c rank {rank}: the saved table is not the gathered one")
+            paths[f"17c autodecoder rank {rank}"] = run["counts"]
+        log(f"  17c: autodecoder, 4 shapes x 20,000 points, batch 20,000 (10,000 a rank) on the "
+            f"2 ranks: {', '.join('%.1f' % r['runs'][1]['seconds'] for r in ranks)} s a rank "
+            f"({kind}); {steps} steps, saved table {saved.shape}")
+    del single
+    log(f"  17b and 17c: {time.perf_counter() - t0:.1f} s ({kind})")
+
+    t0 = time.perf_counter()
+    params = checkpoints.load("sdf_net", base=os.path.join(REPO, "shapegan_tpu", "examples"))
+    latents = np.random.default_rng(17).normal(size=(16, 128)).astype(np.float32)
+    nccl = spawn(nccl_volumes, 1, "cuda:0", "nccl",
+                 args=({k: v.numpy() for k, v in params.items()}, latents))[0]
+    net = SDFNet({k: v.to(device) for k, v in params.items()})
+    want = generate_volumes_inference(net, voxel_coordinates(64, device=device),
+                                      torch.tensor(latents, device=device), 64).cpu().numpy()
+    if nccl["backend"] != "nccl" or not np.array_equal(nccl["all_reduce"], np.ones(4)):
+        raise AssertionError(f"17d: {nccl['backend']} all-reduce gave {nccl['all_reduce']}")
+    if nccl["sharded_calls"] != 0 or nccl["mesh"] != {"data": 1, "points": 1}:
+        raise AssertionError(f"17d: mesh {nccl['mesh']}, sharded calls {nccl['sharded_calls']}")
+    if not np.array_equal(nccl["volumes"], want):
+        raise AssertionError("17d: the NCCL rank's volumes differ from one process's")
+    check_counts("17d NCCL rank", nccl["counts"], launched=("grid",))
+    paths["17d NCCL rank"] = nccl["counts"]
+    log(f"  17d: one NCCL rank, all-reduce and 16 x 64^3 volumes bit-equal to one process: "
+        f"{time.perf_counter() - t0:.1f} s ({kind})")
+
+    t0 = time.perf_counter()
+    chair_net = SDFNet(chair)
+    gen = torch.Generator().manual_seed(18)
+    codes = [(chair_code.cpu() + 0.05 * k * torch.randn(chair_code.shape, generator=gen)).numpy()
+             for k in range(4)]
+    reset_counts()
+    frames = render_image_sequence(chair_net, codes, devices=[device, device], resolution=800,
+                                   ssaa=2)
+    torch.cuda.synchronize()
+    counts = paths["17e render_image_sequence"] = read_counts()
+    check_counts("17e render_image_sequence", counts, launched=("trace",))
+    for i, code in enumerate(codes):
+        if not np.array_equal(frames[i], render_image(chair_net, code, resolution=800, ssaa=2)):
+            raise AssertionError(f"17e: frame {i} differs from render_image's")
+    log(f"  17e: render_image_sequence, 4 codes at 800^2 ssaa 2 on two workers of cuda:0, each "
+        f"frame bit-equal to render_image's: {time.perf_counter() - t0:.1f} s ({kind})")
+    return paths
+
+
 def main() -> int:
     import torch
     from torch.func import functional_call
@@ -3196,6 +3380,12 @@ def main() -> int:
         t0 = time.perf_counter()
         paths.update(figures_path(chair, chair_code, device, f"{kind}; {smi}", made))
         log(f"  phase 16: {time.perf_counter() - t0:.1f} s")
+    log(f"== 17. the sharded branch on the one card: the multichip dryrun, the progressive and "
+        f"autodecoder trainers on two gloo ranks, one NCCL rank, frames on two workers "
+        f"({kind}; {smi})")
+    t0 = time.perf_counter()
+    paths.update(multichip_path(chair, chair_code, device, f"{kind}; {smi}"))
+    log(f"  phase 17: {time.perf_counter() - t0:.1f} s")
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         raise AssertionError("jax was imported")
 

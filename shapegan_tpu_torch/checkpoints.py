@@ -95,8 +95,14 @@ def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
 def save(tree: Any, name: str, epoch: Optional[int] = None, base: Optional[str] = None) -> str:
     """Save a nested dict/sequence of tensors or arrays to the latest slot
     (``epoch=None``) or an epoch snapshot; written to a temporary file and
-    renamed, so a reader never sees half a file."""
+    renamed, so a reader never sees half a file. Under a process group
+    only rank 0 writes (every rank holds the same replicated state); the
+    others return the path without writing."""
+    from shapegan_tpu_torch.parallel.mesh import is_writer
+
     path = get_filename(name, epoch, base)
+    if not is_writer():
+        return path
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = path + ".tmp.npz"
     np.savez(tmp, **_flatten(tree))

@@ -6,7 +6,10 @@ use_fast_variance=False)``: in train mode it normalizes with the batch's
 mean and biased variance and, where the caller keeps the update, moves its
 running statistics by ``stat <- 0.9 stat + 0.1 batch_stat`` with the
 **biased** variance (``torch.nn.BatchNorm*d`` stores the unbiased one); in
-eval mode it normalizes with the stored statistics. Its tensors carry
+eval mode it normalizes with the stored statistics. Under a mesh of ranks
+with a data axis (``with mesh:``) the batch statistics are the global
+batch's, summed over the data group, as in the JAX package's sharded step.
+Its tensors carry
 flax's names: the parameters ``scale`` and ``bias``, the buffers ``mean``
 and ``var`` (flax's ``batch_stats`` collection).
 
@@ -32,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from shapegan_tpu_torch.models.progressive_gan import _from_jax_layout, _to_jax_layout
+from shapegan_tpu_torch.parallel.mesh import ambient_mesh, sum_over_data
 
 MOMENTUM = 0.9
 EPSILON = 1e-5
@@ -57,6 +61,9 @@ class BatchNorm(nn.Module):
         if not train:
             return F.batch_norm(x, self.mean, self.var, self.scale, self.bias, training=False,
                                 eps=EPSILON)
+        mesh = ambient_mesh()
+        if mesh is not None and mesh.data_group is not None:
+            return self._global_batch(x, mesh, update_stats)
         if update_stats:
             with torch.no_grad():
                 dims = [0, *range(2, x.ndim)]
@@ -64,6 +71,24 @@ class BatchNorm(nn.Module):
                 self.mean.mul_(MOMENTUM).add_(mean, alpha=1.0 - MOMENTUM)
                 self.var.mul_(MOMENTUM).add_(var, alpha=1.0 - MOMENTUM)
         return F.batch_norm(x, None, None, self.scale, self.bias, training=True, eps=EPSILON)
+
+    def _global_batch(self, x: torch.Tensor, mesh, update_stats: bool) -> torch.Tensor:
+        """Train mode over a data mesh: the statistics of the global batch
+        (each rank holds its rows), as XLA's partitioning of the JAX step
+        computes them; mean, then the biased variance about it, each summed
+        over the data group by an all-reduce that carries gradients."""
+        dims = [0, *range(2, x.ndim)]
+        shape = [1, -1] + [1] * (x.ndim - 2)
+        count = x.numel() // x.shape[1] * mesh.shape["data"]
+        mean = sum_over_data(mesh, x.sum(dims)) / count
+        centered = x - mean.reshape(shape)
+        var = sum_over_data(mesh, (centered * centered).sum(dims)) / count
+        if update_stats:
+            with torch.no_grad():
+                self.mean.mul_(MOMENTUM).add_(mean, alpha=1.0 - MOMENTUM)
+                self.var.mul_(MOMENTUM).add_(var, alpha=1.0 - MOMENTUM)
+        scale = torch.rsqrt(var + EPSILON) * self.scale
+        return centered * scale.reshape(shape) + self.bias.reshape(shape)
 
 
 def _layout_to_jax(layer: nn.Module, leaf: str, value: torch.Tensor) -> torch.Tensor:

@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(CSRC_DIR, "build")
@@ -115,9 +116,27 @@ def build_log() -> str:
         return f.read()
 
 
-@functools.lru_cache(maxsize=None)
+# The loader and the launch counts are shared by threads that drive one
+# card each (render.raymarching.render_image_sequence).
+_LOAD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to a kernel wrapper's ``launch_count`` (under a lock)."""
+    with _COUNT_LOCK:
+        wrapper.launch_count += 1
+
+
 def load() -> ctypes.CDLL:
-    """The kernel library with its C signatures declared (built if needed)."""
+    """The kernel library with its C signatures declared (built if needed,
+    once, whichever thread asks first)."""
+    with _LOAD_LOCK:
+        return _load()
+
+
+@functools.lru_cache(maxsize=None)
+def _load() -> ctypes.CDLL:
     lib = ctypes.CDLL(build())
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.sdf_grid_forward.argtypes = [ptr] * 8 + [i32, i32, i32, ptr]
@@ -155,6 +174,9 @@ def load() -> ctypes.CDLL:
     lib.sdf_error_string.argtypes = [i32]
     lib.sdf_error_string.restype = ctypes.c_char_p
     return lib
+
+
+load.cache_clear = _load.cache_clear
 
 
 def check(lib: ctypes.CDLL, name: str, code: int) -> None:

@@ -155,7 +155,7 @@ def generate_cuda(pos, zz1, zz2, w0p, w4p, w, b, gamma, beta, w7) -> torch.Tenso
         w.data_ptr(), b.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w7.data_ptr(),
         out.data_ptr(), batch, n, device.index, torch.cuda.current_stream(device).cuda_stream)
     _build.check(lib, "point_gen_forward", code)
-    generate_cuda.launch_count += 1
+    _build.count_launch(generate_cuda)
     return out
 
 

@@ -436,7 +436,7 @@ def grid_forward_cuda(pp1, pp5, zz1, zz5, w, b, w8) -> torch.Tensor:
         w.data_ptr(), b.data_ptr(), w8.data_ptr(), out.data_ptr(),
         batch, points, device.index, torch.cuda.current_stream(device).cuda_stream)
     _build.check(lib, "sdf_grid_forward", code)
-    grid_forward_cuda.launch_count += 1
+    _build.count_launch(grid_forward_cuda)
     return out
 
 
@@ -462,7 +462,7 @@ def points_forward_cuda(pts, w1p, w5p, zz1, zz5, w, b, w8) -> torch.Tensor:
         w.data_ptr(), b.data_ptr(), w8.data_ptr(), out.data_ptr(),
         n, device.index, torch.cuda.current_stream(device).cuda_stream)
     _build.check(lib, "sdf_points_forward", code)
-    points_forward_cuda.launch_count += 1
+    _build.count_launch(points_forward_cuda)
     return out
 
 
@@ -486,7 +486,7 @@ def grid_backward_cuda(pp1, pp5, zz1, zz5, w, b, w8, g):
         *(t.data_ptr() for t in outs), scratch.data_ptr(),
         batch, points, chunk, device.index, torch.cuda.current_stream(device).cuda_stream)
     _build.check(lib, "sdf_grid_backward", code)
-    grid_backward_cuda.launch_count += 1
+    _build.count_launch(grid_backward_cuda)
     return outs
 
 
@@ -514,7 +514,7 @@ def grid_backward_rows_cuda(pp1, pp5, zz1, zz5, w, b, w8, g):
         b.data_ptr(), w8.data_ptr(), g.data_ptr(), scratch.data_ptr(), batch, points, device.index,
         torch.cuda.current_stream(device).cuda_stream)
     _build.check(lib, "sdf_grid_backward_rows", code)
-    grid_backward_rows_cuda.launch_count += 1
+    _build.count_launch(grid_backward_rows_cuda)
     rows = batch * points
 
     def view(i, dtype, *shape):
@@ -549,7 +549,7 @@ def grid_backward_passes_cuda(h, dz, dx1, gz, shapes: int, points: int, s0: int 
         h.data_ptr(), dz.data_ptr(), dx1.data_ptr(), gz.data_ptr(), *(t.data_ptr() for t in outs),
         scratch.data_ptr(), shapes, points, s0, device.index, torch.cuda.current_stream(device).cuda_stream)
     _build.check(lib, "sdf_grid_backward_passes", code)
-    grid_backward_passes_cuda.launch_count += 1
+    _build.count_launch(grid_backward_passes_cuda)
     return outs
 
 
@@ -597,7 +597,7 @@ def grid_forward_stash_cuda(pp1, pp5, zz1, zz5, w, b, w8, stash):
         b.data_ptr(), w8.data_ptr(), out.data_ptr(), _stash_pointers(stash, planes),
         batch, points, device.index, torch.cuda.current_stream(device).cuda_stream)
     _build.check(lib, "sdf_grid_stash_forward", code)
-    grid_forward_stash_cuda.launch_count += 1
+    _build.count_launch(grid_forward_stash_cuda)
     return out, planes
 
 
@@ -628,7 +628,7 @@ def grid_backward_stash_cuda(pp1, pp5, zz1, zz5, w, b, w8, g, stashed, stash):
         *(t.data_ptr() for t in outs), scratch.data_ptr(),
         batch, points, chunk, device.index, torch.cuda.current_stream(device).cuda_stream)
     _build.check(lib, "sdf_grid_stash_backward", code)
-    grid_backward_stash_cuda.launch_count += 1
+    _build.count_launch(grid_backward_stash_cuda)
     return outs
 
 
@@ -672,7 +672,7 @@ def trace_steps_cuda(pts, dirs, status, escape, w1p, w5p, zz1, zz5, w, b, w8, *,
         sdf_offset, radius, radius * radius, device.index,
         torch.cuda.current_stream(device).cuda_stream)
     _build.check(lib, "sdf_trace_steps", code)
-    trace_steps_cuda.launch_count += 1
+    _build.count_launch(trace_steps_cuda)
     return pts_out, status_out
 
 
@@ -703,7 +703,7 @@ def rowwise_forward_cuda(pts, w1p, w5p, zz1, zz5, w, b, w8) -> torch.Tensor:
         w.data_ptr(), b.data_ptr(), w8.data_ptr(), out.data_ptr(),
         n, device.index, torch.cuda.current_stream(device).cuda_stream)
     _build.check(lib, "sdf_rowwise_forward", code)
-    rowwise_forward_cuda.launch_count += 1
+    _build.count_launch(rowwise_forward_cuda)
     return out
 
 
@@ -738,7 +738,7 @@ def rowwise_backward_cuda(pts, w1p, w5p, zz1, zz5, w, b, w8, g):
         *(t.data_ptr() for t in outs), scratch.data_ptr(),
         n, device.index, torch.cuda.current_stream(device).cuda_stream)
     _build.check(lib, "sdf_rowwise_backward", code)
-    rowwise_backward_cuda.launch_count += 1
+    _build.count_launch(rowwise_backward_cuda)
     return outs
 
 
@@ -954,6 +954,69 @@ def apply_grid_trainable_stash(params: Params, grid_points: torch.Tensor, latent
     :func:`apply_grid_trainable`'s by the rounding of the positions read."""
     return _GridTrainableStash.apply(check_stash(stash), grid_points, latents,
                                      *(params[k] for k in PARAM_KEYS))
+
+
+# Calls of apply_grid_sharded: tests and the multichip dryrun read it to
+# see that a multi-rank step took the sharded route.
+sharded_call_count = 0
+
+
+def _trainable_dispatch(params: Params, grid_points: torch.Tensor,
+                        latents: torch.Tensor) -> torch.Tensor:
+    """A rank's differentiable grid evaluation (the JAX package's
+    ``_trainable_dispatch``): the grid kernel and the grid backward kernel
+    on CUDA; on the CPU the float32 reference math, chunked under
+    ``torch.utils.checkpoint`` (:func:`sdf_mlp.apply_grid_remat`) when
+    ``P * B > 2**18``."""
+    if grid_points.device.type != "cpu":
+        return apply_grid_trainable(params, grid_points, latents)
+    n_points = grid_points.shape[0]
+    if n_points * latents.shape[0] > 2**18:
+        return sdf_mlp.apply_grid_remat(params, grid_points, latents,
+                                        chunk_size=min(n_points, 16384))
+    return sdf_mlp.apply_grid(params, grid_points, latents)
+
+
+def _forward_dispatch(params: Params, grid_points: torch.Tensor,
+                      latents: torch.Tensor) -> torch.Tensor:
+    """A rank's forward-only evaluation: :func:`apply_grid_best` on CUDA (the
+    grid kernel, or the points kernel for one latent), the float32 reference
+    math on the CPU (the JAX package's ``apply_grid_best`` off a TPU)."""
+    if grid_points.device.type != "cpu":
+        return apply_grid_best(params, grid_points, latents)
+    return sdf_mlp.apply_grid(params, grid_points, latents)
+
+
+def apply_grid_sharded(params: Params, grid_points: torch.Tensor, latents: torch.Tensor, mesh,
+                       trainable: bool = False) -> torch.Tensor:
+    """The grid evaluation over a mesh of ranks (the JAX package's
+    ``apply_grid_sharded``, shard_map's ``P(data, points)`` layout): this
+    rank evaluates its rows of the global ``latents`` [B, L] (over
+    ``data``) at its slice of ``grid_points`` [P, 3] (over ``points``) with
+    the single-process dispatch, and gathers the slices over its points
+    group: it returns its data rows ``[B / data, P]``.
+
+    ``trainable`` differentiates it: the gradient of the gathered rows
+    keeps this rank's point slice, the rank's backward runs locally (the
+    grid backward kernel on CUDA), and the gradients of the parameters, the
+    points and the latents are summed over the points group, as shard_map's
+    transpose psums them. The mean over ``data`` is the trainer's
+    (``Mesh.mean_over_data``), so no gradient is reduced twice."""
+    global sharded_call_count
+    sharded_call_count += 1
+    if not mesh.member:
+        raise ValueError(f"rank {mesh.rank} is outside {mesh}")
+    rows = mesh.data_slice(latents.shape[0])
+    cols = mesh.points_slice(grid_points.shape[0])
+    if not trainable:
+        with torch.no_grad():
+            local = _forward_dispatch(params, grid_points[cols].contiguous(), latents[rows])
+        return mesh.gather_points(local)
+    grid_points, latents, *values = mesh.sum_grads_over_points(
+        grid_points, latents, *(params[k] for k in PARAM_KEYS))
+    local = _trainable_dispatch(dict(zip(PARAM_KEYS, values)), grid_points[cols].contiguous(),
+                                latents[rows])
+    return mesh.gather_points(local)
 
 
 def points_value_and_gradient(params: Params, points: torch.Tensor, latent: torch.Tensor,

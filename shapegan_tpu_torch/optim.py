@@ -48,6 +48,20 @@ class RMSprop:
         self.nu = dict(state["nu"])
 
 
+class SGD:
+    """``optax.sgd(lr)``: ``p <- p - lr g``, no state. The sharded checks use
+    it where Adam's normalization would hide a gradient's scale."""
+
+    def __init__(self, params: Dict[str, torch.Tensor], learning_rate: float):
+        self.params = params
+        self.learning_rate = float(learning_rate)
+
+    @torch.no_grad()
+    def step(self, grads: Dict[str, torch.Tensor]) -> None:
+        for key, param in self.params.items():
+            param.add_(grads[key] * -self.learning_rate)
+
+
 B1 = 0.9
 B2 = 0.999
 

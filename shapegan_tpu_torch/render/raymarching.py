@@ -505,22 +505,76 @@ def render_image(net, latent_code, resolution: int = 800, threshold: float = 0.0
     return crop_frame(pixels, resolution, ssaa) if crop else pixels
 
 
-def render_image_sequence(net, latent_codes: Sequence, on_frame: Optional[Callable] = None,
+def _render_devices(net, devices) -> list:
+    """The devices of :func:`render_image_sequence`: the given ones (``cpu``
+    for the CPU), by default every local CUDA device when the network lies
+    on one, else the network's device."""
+    if devices is None:
+        if net.device.type == "cuda":
+            return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        return [net.device]
+    if isinstance(devices, (str, torch.device)):
+        devices = [devices]
+    out = []
+    for d in devices:
+        d = torch.device(d)
+        if d.type == "cuda" and d.index is None:
+            d = torch.device("cuda", torch.cuda.current_device())
+        out.append(d)
+    return out
+
+
+def render_image_sequence(net, latent_codes: Sequence, devices=None,
+                          on_frame: Optional[Callable] = None,
                           keep_results: Optional[bool] = None, **render_kw):
-    """Render many latent codes in turn on the network's device.
-    ``on_frame(index, image)``, when given, fires as each frame completes;
-    frames are then not kept unless ``keep_results=True``. Returns the
-    frames in order, or None in that streaming mode."""
+    """Render many latent codes, one worker thread a device (the JAX
+    package's ``render_image_sequence``): each worker holds its own copy of
+    the network on its device and renders the codes ``d::n`` of the ``n``
+    devices in turn (a device may be named twice: two workers then share
+    it). With one device, or one code, the frames are rendered in turn on
+    that device, the network's own when it lies there.
+    ``on_frame(index, image)``, when given, fires as each frame completes,
+    from the workers, possibly out of order; frames are then not kept
+    unless ``keep_results=True``. Returns the frames in code order, or None
+    in that streaming mode. ``devices``: a list of devices, ``cpu``, or by
+    default every local CUDA device when the network lies on one."""
+    import concurrent.futures
+    import contextlib
+
+    from shapegan_tpu_torch.models.sdf_net import SDFNet
+
     if keep_results is None:
         keep_results = on_frame is None
-    images = [] if keep_results else None
-    for i, code in enumerate(latent_codes):
-        image = render_image(net, code, **render_kw)
-        if on_frame is not None:
-            on_frame(i, image)
-        if keep_results:
-            images.append(image)
-    return images
+    codes = list(latent_codes)
+    devices = _render_devices(net, devices)
+    results = [None] * len(codes) if keep_results else None
+
+    def on_device(device: torch.device):
+        if device == net.device:
+            return net
+        return SDFNet({k: v.detach().to(device) for k, v in net.param_dict().items()})
+
+    def drive(worker: int, worker_net) -> None:
+        device = devices[worker]
+        ctx = torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+        with ctx:
+            for i in range(worker, len(codes), len(devices)):
+                image = render_image(worker_net, codes[i], **render_kw)
+                if keep_results:
+                    results[i] = image
+                if on_frame is not None:
+                    on_frame(i, image)
+
+    if len(devices) <= 1 or len(codes) <= 1:
+        devices = devices[:1]
+        drive(0, on_device(devices[0]))
+        return results
+    nets = [SDFNet({k: v.detach().to(d, copy=True) for k, v in net.param_dict().items()})
+            for d in devices]
+    with concurrent.futures.ThreadPoolExecutor(len(devices)) as pool:
+        # list() raises the first worker's exception.
+        list(pool.map(drive, range(len(devices)), nets))
+    return results
 
 
 def render_image_for_index(net, latent_codes, index: int, crop: bool = False,

@@ -8,7 +8,9 @@ timers and host-clock step times. The voxel trainers take their batches
 from :func:`make_voxel_batches`: the whole dataset on the device, each
 batch gathered there, when it fits :data:`RESIDENT_MAX_BYTES`; otherwise
 streamed from the host through pinned buffers. Both give the JAX package's
-shuffle order.
+shuffle order. Under a mesh of ranks (:mod:`shapegan_tpu_torch.parallel.mesh`)
+every rank draws the same global order and takes its rows of each batch;
+the CSV logs and checkpoints are written by rank 0 alone.
 """
 
 from __future__ import annotations
@@ -21,29 +23,50 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
+from shapegan_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, is_writer
 from shapegan_tpu_torch.util import create_text_slice, ensure_directory
 
 
 class CSVLogger:
     """Space-separated CSV in the reference's format; the line count doubles
-    as resume state."""
+    as resume state. Every rank reads it; rank 0 alone writes it."""
 
     def __init__(self, path: str, resume: bool = False):
-        ensure_directory(os.path.dirname(path) or ".")
         self.path = path
         self.first_epoch = 0
         if resume and os.path.exists(path):
             with open(path) as f:
                 self.first_epoch = sum(1 for _ in f)
-        self._file = open(path, "a" if resume else "w")
+        self._file = None
+        if is_writer():
+            ensure_directory(os.path.dirname(path) or ".")
+            self._file = open(path, "a" if resume else "w")
 
     def write(self, *values) -> None:
+        if self._file is None:
+            return
         self._file.write(" ".join(f"{v:.6f}" if isinstance(v, float) else str(v)
                                   for v in values) + "\n")
         self._file.flush()
 
     def close(self) -> None:
-        self._file.close()
+        if self._file is not None:
+            self._file.close()
+
+
+def average_over_data(mesh: Optional[Mesh], tensors: dict) -> dict:
+    """Gradients (or metrics) averaged over the mesh's data group: each rank
+    differentiates the mean over its rows, so the mean of the ranks' values
+    is the global batch's. Without a mesh, or with one data shard, the
+    tensors as they are."""
+    return tensors if mesh is None else mesh.mean_over_data(tensors)
+
+
+def idle_result(mesh: Mesh) -> dict:
+    """What a trainer returns on a rank outside its mesh (a batch that
+    divides over fewer ranks than were started): it trains nothing."""
+    print(f"rank {mesh.rank} is outside the {mesh}: idle", flush=True)
+    return {"idle": True}
 
 
 def effective_batch_size(requested: int, dataset_len: int) -> int:
@@ -211,9 +234,11 @@ class ResidentBatches:
     """The whole dataset on the device, each batch gathered there from a
     host-drawn index vector. The shuffle order equals the JAX package's
     ``ResidentBatches``/``BatchLoader``: ``default_rng((seed, epoch))`` after
-    :meth:`set_epoch`, remainder dropped."""
+    :meth:`set_epoch`, remainder dropped. With a ``mesh`` each batch is this
+    rank's rows of the global batch (the same order on every rank)."""
 
-    def __init__(self, dataset, batch_size: int, seed: Optional[int], device):
+    def __init__(self, dataset, batch_size: int, seed: Optional[int], device,
+                 mesh: Optional[Mesh] = None):
         array = getattr(dataset, "array", None)
         if array is None:
             array = np.stack([dataset[i] for i in range(len(dataset))])
@@ -221,6 +246,7 @@ class ResidentBatches:
         self.batch_size = batch_size
         self.seed = seed
         self._rng = np.random.default_rng(seed)
+        self._rows = _rows_of(mesh, batch_size)
 
     def set_epoch(self, epoch: int) -> None:
         if self.seed is not None:
@@ -233,7 +259,8 @@ class ResidentBatches:
         order = np.arange(len(self.data))
         self._rng.shuffle(order)
         for start in range(0, len(self) * self.batch_size, self.batch_size):
-            idx = torch.tensor(order[start:start + self.batch_size], device=self.data.device)
+            idx = torch.tensor(order[start:start + self.batch_size][self._rows],
+                               device=self.data.device)
             yield self.data.index_select(0, idx)
 
 
@@ -249,11 +276,13 @@ class StreamingBatches:
     batches ahead. On the GPU a batch is copied from pinned host memory
     with ``non_blocking=True``, and its pinned buffer is kept until the
     consumer asks for the next batch, after the step that read it was
-    queued; without CUDA the copy fails."""
+    queued; without CUDA the copy fails. With a ``mesh`` only this rank's
+    rows of each global batch are copied."""
 
-    def __init__(self, loader, device):
+    def __init__(self, loader, device, mesh: Optional[Mesh] = None):
         self.loader = loader
         self.device = torch.device(device)
+        self._rows = _rows_of(mesh, loader.batch_size)
 
     def set_epoch(self, epoch: int) -> None:
         self.loader.set_epoch(epoch)
@@ -262,7 +291,7 @@ class StreamingBatches:
         return len(self.loader)
 
     def _put(self, batch: np.ndarray):
-        host = torch.from_numpy(np.ascontiguousarray(batch, dtype=np.float32))
+        host = torch.from_numpy(np.ascontiguousarray(batch[self._rows], dtype=np.float32))
         if self.device.type != "cuda":
             return host.to(self.device), None
         pinned = host.pin_memory()
@@ -276,8 +305,15 @@ class StreamingBatches:
             del pinned  # the consumer asked for the next batch
 
 
+def _rows_of(mesh: Optional[Mesh], batch_size: int) -> slice:
+    """This rank's rows of a global batch: all of them without a data axis."""
+    if mesh is None or mesh.shape[DATA_AXIS] == 1:
+        return slice(None)
+    return mesh.data_slice(batch_size)
+
+
 def make_voxel_batches(dataset, batch_size: int, seed: Optional[int],
-                       extras: Optional[dict] = None, device="cpu"):
+                       extras: Optional[dict] = None, device="cpu", mesh: Optional[Mesh] = None):
     """The voxel trainers' batch source, by the JAX package's rule: on the
     device (:class:`ResidentBatches`) when the dataset's bytes are at most
     ``extras['resident_max_gb']`` GiB (default :data:`RESIDENT_MAX_BYTES`),
@@ -286,7 +322,8 @@ def make_voxel_batches(dataset, batch_size: int, seed: Optional[int],
     over a ``BatchLoader`` with the ``auto`` backend: worker processes for
     files). ``extras['resident']`` = ``auto`` (default), ``1`` or ``0``
     forces the choice, though a stacked array above the cap streams even
-    with ``1``. Both draw the same shuffle order and drop the remainder."""
+    with ``1``. Both draw the same shuffle order and drop the remainder;
+    under a ``mesh`` a batch is this rank's rows of the global batch."""
     from shapegan_tpu_torch.data.datasets import ArrayDataset, BatchLoader
 
     extras = extras or {}
@@ -309,7 +346,7 @@ def make_voxel_batches(dataset, batch_size: int, seed: Optional[int],
         else:
             array = np.stack([dataset[i] for i in range(len(dataset))])
         if array.nbytes <= max_bytes:
-            return ResidentBatches(ArrayDataset(array), batch_size, seed, device)
+            return ResidentBatches(ArrayDataset(array), batch_size, seed, device, mesh)
     loader = BatchLoader(dataset, batch_size, shuffle=True, drop_remainder=True, seed=seed,
                          backend="auto")
-    return StreamingBatches(loader, device)
+    return StreamingBatches(loader, device, mesh)

@@ -27,7 +27,16 @@ or the stash forward and stash backward kernels (:data:`_GRID_STASH`). With
 ``cpu`` their plain versions run on the CPU. The latents are drawn on the
 device from a ``torch.Generator`` seeded per epoch (not the JAX trainer's
 noise); the steps take them as arguments, so a test can hand both packages
-the same. The sharded branch and the GL viewer are not ported.
+the same.
+
+Under ``python -m torch.distributed.run --nproc_per_node=N`` (or ranks of
+:func:`shapegan_tpu_torch.parallel.mesh.spawn`) the run is data-parallel,
+as the JAX trainer's mesh: ``get_mesh(batch_size=B)`` takes ``gcd(N, B)``
+ranks, each draws the global batch's latents from the same seeded
+generator, evaluates its rows of the batch through
+:func:`~shapegan_tpu_torch.ops.sdf_mlp_kernels.apply_grid_sharded` and
+averages the gradients over the data group; rank 0 writes the files. The
+GL viewer is not ported.
 """
 
 from __future__ import annotations
@@ -47,16 +56,27 @@ from shapegan_tpu_torch.ops.coords import voxel_coordinates
 from shapegan_tpu_torch.ops.losses import bce_loss
 from shapegan_tpu_torch.ops.sdf_mlp_kernels import (
     apply_grid_best,
+    apply_grid_sharded,
     apply_grid_trainable,
     apply_grid_trainable_stash,
 )
 from shapegan_tpu_torch.optim import Adam, load_optimizer_tree, optimizer_tree
+from shapegan_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    POINTS_AXIS,
+    Mesh,
+    ambient_mesh,
+    get_mesh,
+    init_from_env,
+)
 from shapegan_tpu_torch.train.common import (
     CSVLogger,
     EpochTimer,
+    average_over_data,
     RollingHistory,
     StepProfiler,
     effective_batch_size,
+    idle_result,
     load_critic,
     load_generator,
     make_voxel_batches,
@@ -97,14 +117,30 @@ _GRID_STASH = None
 Grads = Dict[str, torch.Tensor]
 
 
+def _shardable_mesh(grid_points: torch.Tensor, latent_codes: torch.Tensor) -> Optional[Mesh]:
+    """The ambient mesh when it has more than one rank and both axes divide
+    the workload (the JAX package's ``_shardable_mesh``), else None."""
+    mesh = ambient_mesh()
+    if (mesh is not None and mesh.size > 1
+            and grid_points.shape[0] % mesh.shape[POINTS_AXIS] == 0
+            and latent_codes.shape[0] % mesh.shape[DATA_AXIS] == 0):
+        return mesh
+    return None
+
+
 def generate_volumes(net: SDFNet, grid_points: torch.Tensor, latent_codes: torch.Tensor,
                      resolution: int) -> torch.Tensor:
     """Latents [B, L] over grid points [res^3, 3] → SDF volumes
     [B, res, res, res] with gradients for the network's parameters (and the
     points and latents), through the VJP that :data:`_GRID_STASH` picks: the
-    kernels on CUDA, their plain versions on the CPU."""
+    kernels on CUDA, their plain versions on the CPU. Under a mesh of ranks
+    (:func:`_shardable_mesh`) ``latent_codes`` is the global batch and the
+    result this rank's rows of it, through :func:`apply_grid_sharded`."""
     params = net.param_dict()
-    if _GRID_STASH is None:
+    mesh = _shardable_mesh(grid_points, latent_codes)
+    if mesh is not None:
+        flat = apply_grid_sharded(params, grid_points, latent_codes, mesh, trainable=True)
+    elif _GRID_STASH is None:
         flat = apply_grid_trainable(params, grid_points, latent_codes)
     else:
         flat = apply_grid_trainable_stash(params, grid_points, latent_codes, _GRID_STASH)
@@ -116,8 +152,13 @@ def generate_volumes_inference(net: SDFNet, grid_points: torch.Tensor,
                                latent_codes: torch.Tensor, resolution: int) -> torch.Tensor:
     """Latents [B, L] over grid points [res^3, 3] → SDF volumes
     [B, res, res, res], forward only: the grid kernel on CUDA (the points
-    kernel when B == 1)."""
-    flat = apply_grid_best(net.param_dict(), grid_points, latent_codes)
+    kernel when B == 1). Under a mesh of ranks, this rank's rows of the
+    global batch, as :func:`generate_volumes`."""
+    mesh = _shardable_mesh(grid_points, latent_codes)
+    if mesh is not None:
+        flat = apply_grid_sharded(net.param_dict(), grid_points, latent_codes, mesh)
+    else:
+        flat = apply_grid_best(net.param_dict(), grid_points, latent_codes)
     return flat.reshape(-1, resolution, resolution, resolution)
 
 
@@ -156,7 +197,7 @@ def bce_grads(discriminator: Discriminator, volumes: torch.Tensor,
 
 
 def make_steps(net: SDFNet, discriminator: Discriminator, g_opt: Adam, d_opt: Adam,
-               resolution: int = VOXEL_RESOLUTION):
+               resolution: int = VOXEL_RESOLUTION, mesh: Optional[Mesh] = None):
     """The trainer's steps:
 
     * ``g_step(z)`` — one generator update from latents ``z`` [B, L];
@@ -164,21 +205,26 @@ def make_steps(net: SDFNet, discriminator: Discriminator, g_opt: Adam, d_opt: Ad
     * ``d_step(batch, z)`` — two discriminator updates, on fakes generated
       (forward only) from ``z``, then on the real ``batch``; returns the
       mean predictions.
+
+    Under a ``mesh`` (entered by the caller) ``z`` is the global batch's,
+    ``batch`` this rank's rows; the gradients and the predictions are
+    averaged over the data group.
     """
     grid = voxel_coordinates(resolution, device=net.device)
 
     def g_step(z: torch.Tensor) -> torch.Tensor:
         grads, fake = generator_grads(net, discriminator, grid, z, resolution)
-        g_opt.step(grads)
+        g_opt.step(average_over_data(mesh, grads))
         return fake
 
     def d_step(batch: torch.Tensor, z: torch.Tensor) -> Dict[str, torch.Tensor]:
         fake = generate_volumes_inference(net, grid, z, resolution)
         grads, pred_fake = bce_grads(discriminator, fake, 0.0)
-        d_opt.step(grads)
+        d_opt.step(average_over_data(mesh, grads))
         grads, pred_real = bce_grads(discriminator, batch, 1.0)
-        d_opt.step(grads)
-        return {"pred_fake": pred_fake.mean(), "pred_real": pred_real.mean()}
+        d_opt.step(average_over_data(mesh, grads))
+        return average_over_data(mesh, {"pred_fake": pred_fake.mean(),
+                                        "pred_real": pred_real.mean()})
 
     return g_step, d_step
 
@@ -215,7 +261,7 @@ def train(config: Optional[TrainConfig] = None) -> dict:
     config = config or parse_cli()
     if not config.nogui:
         raise SystemExit("the GL viewer is not ported: run without 'gui' (nogui is the default)")
-    device = resolve_device(config)
+    device = init_from_env(resolve_device(config))
     base = config.model_dir
     net, discriminator, g_opt, d_opt = create_states(config.seed, device)
     if config.resume:
@@ -230,8 +276,11 @@ def train(config: Optional[TrainConfig] = None) -> dict:
 
     dataset = resolve_voxel_dataset(config, resolution=VOXEL_RESOLUTION, rescale_sdf=False)
     batch_size = effective_batch_size(config.batch_size or BATCH_SIZE, len(dataset))
-    batches = make_voxel_batches(dataset, batch_size, config.seed, config.extras, device)
-    g_step, d_step = make_steps(net, discriminator, g_opt, d_opt)
+    mesh = get_mesh(batch_size=batch_size)
+    if not mesh.member:
+        return idle_result(mesh)
+    batches = make_voxel_batches(dataset, batch_size, config.seed, config.extras, device, mesh)
+    g_step, d_step = make_steps(net, discriminator, g_opt, d_opt, mesh=mesh)
 
     logger = CSVLogger(f"{config.plot_dir}/hybrid_gan_training.csv", resume=config.resume)
     history_fake, history_real = RollingHistory(), RollingHistory()
@@ -239,37 +288,40 @@ def train(config: Optional[TrainConfig] = None) -> dict:
     noise = torch.Generator(device=device)
     steps = 0
     try:
-        for epoch in epoch_range(config, logger.first_epoch):
-            # Epoch-deterministic noise, so a resumed run replays its epochs.
-            noise.manual_seed((config.seed + 1) * 1_000_003 + epoch)
-            batches.set_epoch(epoch)
-            with EpochTimer() as timer:
-                for batch_index, batch in enumerate(batches):
-                    z_g = torch.randn((batch_size, LATENT_CODE_SIZE), generator=noise, device=device)
-                    z_d = torch.randn((batch_size, LATENT_CODE_SIZE), generator=noise, device=device)
-                    with profiler:
-                        fake = g_step(z_g)
-                        metrics = d_step(batch, z_d)
-                    steps += 1
-                    history_fake.append(metrics["pred_fake"])
-                    history_real.append(metrics["pred_real"])
-                    if batch_index % SLICE_EVERY == 0:
-                        maybe_print_slice(fake[0], config.show_slice, scale=SDF_CLIPPING)
-                    if config.verbose:
-                        print(f"Epoch {epoch}, batch {batch_index}: prediction on fake samples: "
-                              f"{history_fake.mean:.4f}, prediction on valid samples: "
-                              f"{history_real.mean:.4f}")
+        with mesh:
+            for epoch in epoch_range(config, logger.first_epoch):
+                # Epoch-deterministic noise, so a resumed run replays its epochs.
+                noise.manual_seed((config.seed + 1) * 1_000_003 + epoch)
+                batches.set_epoch(epoch)
+                with EpochTimer() as timer:
+                    for batch_index, batch in enumerate(batches):
+                        z_g = torch.randn((batch_size, LATENT_CODE_SIZE), generator=noise,
+                                          device=device)
+                        z_d = torch.randn((batch_size, LATENT_CODE_SIZE), generator=noise,
+                                          device=device)
+                        with profiler:
+                            fake = g_step(z_g)
+                            metrics = d_step(batch, z_d)
+                        steps += 1
+                        history_fake.append(metrics["pred_fake"])
+                        history_real.append(metrics["pred_real"])
+                        if batch_index % SLICE_EVERY == 0:
+                            maybe_print_slice(fake[0], config.show_slice, scale=SDF_CLIPPING)
+                        if config.verbose:
+                            print(f"Epoch {epoch}, batch {batch_index}: prediction on fake "
+                                  f"samples: {history_fake.mean:.4f}, prediction on valid "
+                                  f"samples: {history_real.mean:.4f}")
 
-            print(f"Epoch {epoch} ({timer.duration:.1f}s, {profiler.mean_step_time * 1000:.1f} "
-                  f"ms/step), prediction on fake: {history_fake.mean:.4f}, on real: "
-                  f"{history_real.mean:.4f}", flush=True)
-            if abs(history_fake.mean - history_real.mean) > DIVERGENCE_LIMIT:
-                print("Network diverged.")
-                break
-            save_networks(net, discriminator, G_NAME, D_NAME, base)
-            checkpoints.save(_optimizer_tree(g_opt, d_opt), OPT_NAME, base=base)
-            save_networks(net, discriminator, G_NAME, D_NAME, base, epoch=epoch)
-            logger.write(epoch, timer.duration, history_fake.mean, history_real.mean)
+                print(f"Epoch {epoch} ({timer.duration:.1f}s, {profiler.mean_step_time * 1000:.1f} "
+                      f"ms/step), prediction on fake: {history_fake.mean:.4f}, on real: "
+                      f"{history_real.mean:.4f}", flush=True)
+                if abs(history_fake.mean - history_real.mean) > DIVERGENCE_LIMIT:
+                    print("Network diverged.")
+                    break
+                save_networks(net, discriminator, G_NAME, D_NAME, base)
+                checkpoints.save(_optimizer_tree(g_opt, d_opt), OPT_NAME, base=base)
+                save_networks(net, discriminator, G_NAME, D_NAME, base, epoch=epoch)
+                logger.write(epoch, timer.duration, history_fake.mean, history_real.mean)
     except KeyboardInterrupt:
         pass
     finally:

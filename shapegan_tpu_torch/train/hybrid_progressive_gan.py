@@ -24,6 +24,15 @@ the penalty's interpolation coefficients) is drawn on the device from a
 ``torch.Generator`` seeded per epoch, so it is not the JAX trainer's noise;
 the steps take it as arguments, so a test can hand both the same. The GL
 viewer is not ported: ``nogui`` is the only mode.
+
+Data-parallel under ``python -m torch.distributed.run --nproc_per_node=N``
+(NCCL, one card a rank; gloo with ``cpu``), as the JAX trainer under its
+mesh: ``get_mesh(batch_size=B)`` takes ``gcd(N, B)`` ranks; every rank
+draws the global batch's latents and penalty coefficients from the same
+seeded generator and takes its rows; the G step evaluates its rows through
+:func:`~shapegan_tpu_torch.ops.sdf_mlp_kernels.apply_grid_sharded` (the
+grid kernel and the grid backward kernel on each card); the gradients and
+the metrics are averaged over the data group; rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -41,12 +50,15 @@ from shapegan_tpu_torch.ops import sdf_mlp
 from shapegan_tpu_torch.ops.coords import voxel_coordinates
 from shapegan_tpu_torch.ops.losses import gradient_penalty
 from shapegan_tpu_torch.optim import RMSprop
+from shapegan_tpu_torch.parallel.mesh import Mesh, get_mesh, init_from_env, shard_batch
 from shapegan_tpu_torch.train.common import (
     CSVLogger,
     EpochTimer,
+    average_over_data,
     RollingHistory,
     StepProfiler,
     effective_batch_size,
+    idle_result,
     load_critic,
     load_generator,
     make_voxel_batches,
@@ -112,7 +124,7 @@ def critic_grads(discriminator: ProgressiveDiscriminator, fake: torch.Tensor, ba
 
 
 def make_steps(net: SDFNet, discriminator: ProgressiveDiscriminator, g_opt: RMSprop,
-               d_opt: RMSprop, iteration: int):
+               d_opt: RMSprop, iteration: int, mesh: Optional[Mesh] = None):
     """The G and D steps of one growth iteration:
 
     * ``g_step(z, fade)`` — one generator update from latents ``z`` [B, L];
@@ -120,20 +132,25 @@ def make_steps(net: SDFNet, discriminator: ProgressiveDiscriminator, g_opt: RMSp
     * ``d_step(batch, z, alpha, fade)`` — one critic update on real volumes
       ``batch``, fakes generated (forward only) from ``z``, and penalty
       coefficients ``alpha`` [B, 1, 1, 1]; returns the metrics.
+
+    Under a ``mesh`` (entered by the caller) ``z`` and ``alpha`` are the
+    global batch's and ``batch`` this rank's rows; each step averages its
+    gradients, and the D step its metrics, over the data group.
     """
     resolution = RESOLUTIONS[iteration]
     grid = voxel_coordinates(resolution, device=net.device)
 
     def g_step(z: torch.Tensor, fade) -> torch.Tensor:
         grads, fake = generator_grads(net, discriminator, grid, z, iteration, fade)
-        g_opt.step(grads)
+        g_opt.step(average_over_data(mesh, grads))
         return fake
 
     def d_step(batch: torch.Tensor, z: torch.Tensor, alpha: torch.Tensor, fade):
         fake = generate_volumes_inference(net, grid, z, resolution)
-        grads, metrics = critic_grads(discriminator, fake, batch, alpha, iteration, fade)
-        d_opt.step(grads)
-        return metrics
+        grads, metrics = critic_grads(discriminator, fake, batch, shard_batch(mesh, alpha),
+                                      iteration, fade)
+        d_opt.step(average_over_data(mesh, grads))
+        return average_over_data(mesh, metrics)
 
     return g_step, d_step
 
@@ -149,7 +166,7 @@ def train(config: Optional[TrainConfig] = None) -> dict:
     config = config or parse_cli()
     if not config.nogui:
         raise SystemExit("the GL viewer is not ported: run without 'gui' (nogui is the default)")
-    device = resolve_device(config)
+    device = init_from_env(resolve_device(config))
     iteration = config.iteration
     resolution = RESOLUTIONS[iteration]
     epochs_total = config.epochs or DEFAULT_EPOCHS
@@ -180,9 +197,12 @@ def train(config: Optional[TrainConfig] = None) -> dict:
 
     dataset = resolve_voxel_dataset(config, resolution=resolution, rescale_sdf=False)
     batch_size = effective_batch_size(config.batch_size or BATCH_SIZE, len(dataset))
-    batches = make_voxel_batches(dataset, batch_size, config.seed, config.extras, device)
+    mesh = get_mesh(batch_size=batch_size)
+    if not mesh.member:
+        return idle_result(mesh)
+    batches = make_voxel_batches(dataset, batch_size, config.seed, config.extras, device, mesh)
     batches_per_epoch = max(1, len(batches))
-    g_step, d_step = make_steps(net, discriminator, g_opt, d_opt, iteration)
+    g_step, d_step = make_steps(net, discriminator, g_opt, d_opt, iteration, mesh)
 
     logger = CSVLogger(f"{config.plot_dir}/hybrid_gan_training_{iteration}.csv",
                        resume=config.resume)
@@ -192,51 +212,55 @@ def train(config: Optional[TrainConfig] = None) -> dict:
     fading = (not config.resume) and iteration > 0
 
     try:
-        for epoch in range(logger.first_epoch, epochs_total):
-            # Epoch-deterministic noise, so a resumed run replays its epochs.
-            noise.manual_seed((config.seed + 1) * 1_000_003 + epoch)
-            batches.set_epoch(epoch)
-            with EpochTimer() as timer:
-                for batch_index, batch in enumerate(batches):
-                    fade = ((epoch + batch_index / batches_per_epoch) / FADE_IN_EPOCHS
-                            if fading else 1.0)
-                    if batch_index % g_every == 0:
+        with mesh:
+            for epoch in range(logger.first_epoch, epochs_total):
+                # Epoch-deterministic noise, so a resumed run replays its epochs.
+                noise.manual_seed((config.seed + 1) * 1_000_003 + epoch)
+                batches.set_epoch(epoch)
+                with EpochTimer() as timer:
+                    for batch_index, batch in enumerate(batches):
+                        fade = ((epoch + batch_index / batches_per_epoch) / FADE_IN_EPOCHS
+                                if fading else 1.0)
+                        if batch_index % g_every == 0:
+                            z = torch.randn((batch_size, LATENT_CODE_SIZE), generator=noise,
+                                            device=device)
+                            with g_profiler:
+                                fake = g_step(z, fade)
+                            if batch_index % 50 == 0:
+                                maybe_print_slice(fake[0], config.show_slice, scale=SDF_CLIPPING)
                         z = torch.randn((batch_size, LATENT_CODE_SIZE), generator=noise,
                                         device=device)
-                        with g_profiler:
-                            fake = g_step(z, fade)
-                        if batch_index % 50 == 0:
-                            maybe_print_slice(fake[0], config.show_slice, scale=SDF_CLIPPING)
-                    z = torch.randn((batch_size, LATENT_CODE_SIZE), generator=noise, device=device)
-                    alpha = torch.rand((batch_size, 1, 1, 1), generator=noise, device=device)
-                    with d_profiler:
-                        metrics = d_step(batch, z, alpha, fade)
-                    history_fake.append(metrics["pred_fake"])
-                    history_real.append(metrics["pred_real"])
-                    history_gp.append(metrics["gradient_penalty"])
-                    if config.verbose and batch_index % 50 == 0:
-                        print(f"Epoch {epoch}, batch {batch_index}: "
-                              f"D(x'): {history_fake.mean:.4f}, D(x): {history_real.mean:.4f}, "
-                              f"loss: {history_real.mean - history_fake.mean:.4f}, "
-                              f"gradient penalty: {history_gp.mean:.4f}")
+                        alpha = torch.rand((batch_size, 1, 1, 1), generator=noise, device=device)
+                        with d_profiler:
+                            metrics = d_step(batch, z, alpha, fade)
+                        history_fake.append(metrics["pred_fake"])
+                        history_real.append(metrics["pred_real"])
+                        history_gp.append(metrics["gradient_penalty"])
+                        if config.verbose and batch_index % 50 == 0:
+                            print(f"Epoch {epoch}, batch {batch_index}: "
+                                  f"D(x'): {history_fake.mean:.4f}, D(x): {history_real.mean:.4f}, "
+                                  f"loss: {history_real.mean - history_fake.mean:.4f}, "
+                                  f"gradient penalty: {history_gp.mean:.4f}")
 
-            print(f"Epoch {epoch} ({timer.duration:.1f}s, G {g_profiler.mean_step_time * 1000:.1f} "
-                  f"ms/step, D {d_profiler.mean_step_time * 1000:.1f} ms/step) [{resolution}^3], "
-                  f"D(x'): {history_fake.mean:.4f}, D(x): {history_real.mean:.4f}, "
-                  f"loss: {history_real.mean - history_fake.mean:.4f}, "
-                  f"gradient penalty: {history_gp.mean:.4f}", flush=True)
+                print(f"Epoch {epoch} ({timer.duration:.1f}s, "
+                      f"G {g_profiler.mean_step_time * 1000:.1f} ms/step, "
+                      f"D {d_profiler.mean_step_time * 1000:.1f} ms/step) [{resolution}^3], "
+                      f"D(x'): {history_fake.mean:.4f}, D(x): {history_real.mean:.4f}, "
+                      f"loss: {history_real.mean - history_fake.mean:.4f}, "
+                      f"gradient penalty: {history_gp.mean:.4f}", flush=True)
 
-            if (epoch + 1) % save_every == 0 or epoch == epochs_total - 1:
-                checkpoints.save(net.param_dict(), G_NAME.format(iteration), base=base)
-                checkpoints.save(progressive_gan.params_to_jax(dict(discriminator.named_parameters())),
-                                 D_NAME.format(iteration), base=base)
-                checkpoints.save(_optimizer_tree(g_opt, d_opt), OPT_NAME.format(iteration), base=base)
-            if epoch % SNAPSHOT_EVERY == 0:
-                checkpoints.save(net.param_dict(), G_NAME.format(iteration), epoch=epoch, base=base)
-                checkpoints.save(progressive_gan.params_to_jax(dict(discriminator.named_parameters())),
-                                 D_NAME.format(iteration), epoch=epoch, base=base)
-            logger.write(epoch, timer.duration, history_fake.mean, history_real.mean,
-                         history_gp.mean)
+                critic = progressive_gan.params_to_jax(dict(discriminator.named_parameters()))
+                if (epoch + 1) % save_every == 0 or epoch == epochs_total - 1:
+                    checkpoints.save(net.param_dict(), G_NAME.format(iteration), base=base)
+                    checkpoints.save(critic, D_NAME.format(iteration), base=base)
+                    checkpoints.save(_optimizer_tree(g_opt, d_opt), OPT_NAME.format(iteration),
+                                     base=base)
+                if epoch % SNAPSHOT_EVERY == 0:
+                    checkpoints.save(net.param_dict(), G_NAME.format(iteration), epoch=epoch,
+                                     base=base)
+                    checkpoints.save(critic, D_NAME.format(iteration), epoch=epoch, base=base)
+                logger.write(epoch, timer.duration, history_fake.mean, history_real.mean,
+                             history_gp.mean)
     except KeyboardInterrupt:
         pass
     finally:

@@ -29,8 +29,17 @@ under ``no_grad`` through :func:`~shapegan_tpu_torch.ops.point_gen_kernels.gener
 module, the JAX package's choice off a TPU); the G step differentiates the generator in float32 through the
 bf16 critic. The steps take their noise as arguments, so a test can hand
 both packages the same. Batches come from the host (:class:`BatchLoader`,
-threads) and go to the card from pinned memory. Not ported: the sharded
-mesh (one card).
+threads) and go to the card from pinned memory.
+
+With several ranks (``python -m torch.distributed.run``) each curriculum
+stage gets the JAX trainer's per-stage mesh, ``get_mesh(batch_size=B)``:
+``gcd(ranks, B)`` data ranks for the batches of 32, 24, 12 and 6. Each
+takes its rows of every global batch and of the step's noise (drawn alike
+on every rank), makes its D step's fakes (the generator kernel on its card)
+and averages the gradients and the loss over the data group; ranks outside
+a stage's mesh wait through it, keeping the step count. At every stage
+change, and at the end, rank 0's state is broadcast to all ranks, so none
+drifts. Rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -49,7 +58,13 @@ from shapegan_tpu_torch.models.point_sdf_net import PointNet, SDFGenerator
 from shapegan_tpu_torch.ops.losses import gradient_penalty
 from shapegan_tpu_torch.ops.point_gen_kernels import generate_best
 from shapegan_tpu_torch.optim import RMSprop
-from shapegan_tpu_torch.train.common import CSVLogger, EpochTimer, StepProfiler
+from shapegan_tpu_torch.parallel.mesh import Mesh, get_mesh, init_from_env, shard_batch
+from shapegan_tpu_torch.train.common import (
+    CSVLogger,
+    EpochTimer,
+    StepProfiler,
+    average_over_data,
+)
 
 LATENT_SIZE = 128
 GRADIENT_PENALTY = 10.0
@@ -114,7 +129,8 @@ def generator_grads(generator: SDFGenerator, discriminator: PointNet, u_pos: tor
     return dict(zip(params, grads)), loss.detach()
 
 
-def make_steps(generator: SDFGenerator, discriminator: PointNet, g_opt: RMSprop, d_opt: RMSprop):
+def make_steps(generator: SDFGenerator, discriminator: PointNet, g_opt: RMSprop, d_opt: RMSprop,
+               mesh: Optional[Mesh] = None):
     """The two steps:
 
     * ``d_step(u_pos, u_dist, z, alpha)`` — one critic update on the real
@@ -122,20 +138,25 @@ def make_steps(generator: SDFGenerator, discriminator: PointNet, g_opt: RMSprop,
       generated (forward only, bf16) from latents ``z`` [B, L], penalty
       coefficients ``alpha`` [B, 1, 1]; returns the metrics;
     * ``g_step(u_pos, z)`` — one generator update; returns its loss.
+
+    Under a ``mesh`` the clouds are this rank's rows and ``z`` and ``alpha``
+    the global batch's; the gradients and the metrics are averaged over the
+    data group.
     """
     g_params = dict(generator.named_parameters())
 
     def d_step(u_pos, u_dist, z, alpha):
+        z, alpha = shard_batch(mesh, (z, alpha))
         with torch.no_grad():
             fake = generate_best(generator, g_params, u_pos, z)
         grads, metrics = critic_grads(discriminator, u_pos, u_dist, fake, alpha)
-        d_opt.step(grads)
-        return metrics
+        d_opt.step(average_over_data(mesh, grads))
+        return average_over_data(mesh, metrics)
 
     def g_step(u_pos, z):
-        grads, loss = generator_grads(generator, discriminator, u_pos, z)
-        g_opt.step(grads)
-        return loss
+        grads, loss = generator_grads(generator, discriminator, u_pos, shard_batch(mesh, z))
+        g_opt.step(average_over_data(mesh, grads))
+        return average_over_data(mesh, {"loss": loss})["loss"]
 
     return d_step, g_step
 
@@ -192,12 +213,19 @@ def step_noise(noise: torch.Generator, seed: int, step: int, batch: int, device)
     return z_d, alpha, z_g
 
 
+def _replicate(mesh: Mesh, generator, discriminator, g_opt: RMSprop, d_opt: RMSprop) -> None:
+    """Rank 0's networks and moments to every rank (``mesh`` spans them
+    all)."""
+    mesh.replicate([*generator.parameters(), *discriminator.parameters(),
+                    *g_opt.nu.values(), *d_opt.nu.values()])
+
+
 def train(config: Optional[TrainConfig] = None, curriculum=None) -> dict:
     """Run the curriculum; returns the models, the number of steps this call
     ran (``steps``; a resume skips the completed epochs' steps) and the D
     and G step times."""
     config = config or parse_cli()
-    device = resolve_device(config)
+    device = init_from_env(resolve_device(config))
     base = config.model_dir
     generator, discriminator = create_models(config.seed, device)
     if config.resume:
@@ -211,7 +239,7 @@ def train(config: Optional[TrainConfig] = None, curriculum=None) -> dict:
         _load_optimizers(g_opt, d_opt, base)
 
     dataset = resolve_point_dataset(config)
-    d_step, g_step = make_steps(generator, discriminator, g_opt, d_opt)
+    everyone = get_mesh(points=1)
     logger = CSVLogger(f"{config.plot_dir}/point_gan_training.csv", resume=config.resume)
     d_profiler, g_profiler = StepProfiler(device), StepProfiler(device)
     noise = torch.Generator(device=device)
@@ -229,9 +257,13 @@ def train(config: Optional[TrainConfig] = None, curriculum=None) -> dict:
                 print(f"skipping curriculum stage ({num_points} pts, batch {batch_size}): "
                       f"dataset has only {len(dataset)} shapes")
                 continue
+            # The stage's mesh: the batch decides how many ranks train it.
+            _replicate(everyone, generator, discriminator, g_opt, d_opt)
+            mesh = get_mesh(batch_size=batch_size)
+            d_step, g_step = make_steps(generator, discriminator, g_opt, d_opt, mesh)
             for epoch in range(1, stage_epochs + 1):
                 epoch_index += 1
-                if epoch_index <= completed_epochs:
+                if epoch_index <= completed_epochs or not mesh.member:
                     num_steps += len(loader)
                     continue
                 loader.set_epoch(epoch_index)
@@ -240,9 +272,10 @@ def train(config: Optional[TrainConfig] = None, curriculum=None) -> dict:
                     for uniform, _surface in loader:
                         num_steps += 1
                         steps_run += 1
-                        batch = to_device(uniform, device)
+                        batch = to_device(shard_batch(mesh, uniform), device)
                         u_pos, u_dist = batch[..., :3], batch[..., 3:]
-                        z_d, alpha, z_g = step_noise(noise, config.seed, num_steps, batch_size, device)
+                        z_d, alpha, z_g = step_noise(noise, config.seed, num_steps, batch_size,
+                                                     device)
                         with d_profiler:
                             metrics = d_step(u_pos, u_dist, z_d, alpha)
                         if num_steps % GENERATOR_UPDATE_EVERY == 0:
@@ -259,6 +292,7 @@ def train(config: Optional[TrainConfig] = None, curriculum=None) -> dict:
                 checkpoints.save(point_sdf_net.params_to_jax(dict(discriminator.named_parameters())),
                                  D_NAME, base=base)
                 checkpoints.save(_optimizer_tree(g_opt, d_opt), OPT_NAME, base=base)
+        _replicate(everyone, generator, discriminator, g_opt, d_opt)
     finally:
         logger.close()
     return {"generator": generator, "discriminator": discriminator, "steps": steps_run,

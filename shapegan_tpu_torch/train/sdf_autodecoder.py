@@ -26,14 +26,28 @@ trainer needs CUDA. The network starts from ``sdf_mlp.init`` with a
 ``torch.Generator`` seeded from ``seed`` and the table from one seeded from
 ``seed + 1``, so neither is the JAX trainer's draw.
 
-Not ported: the multi-chip epoch (``make_sharded_epoch``, the dataset and
-table sharded by shape), the GL viewer (``gui``), and ``lax.scan`` over the
-epoch: here each step is a Python call, the epoch's index batches go to the
-device once, and the losses stay there until the epoch's end.
+With several ranks (``python -m torch.distributed.run``, or
+:func:`shapegan_tpu_torch.parallel.mesh.spawn`) the epoch is sharded by
+shape, as the JAX trainer's ``make_sharded_epoch``: ``gcd(ranks, shapes,
+batch)`` ranks each hold their contiguous shapes' points, SDF values, latent
+rows and the code Adam's moments of those rows, draw sign-balanced batches
+of ``batch / shards`` from their own shapes (:func:`create_sharded_batches`,
+the same draws on every rank) and run the rowwise kernels on them; the loss
+and the network gradients are averaged over the ranks, the code gradients
+divided by the shard count with no collective. Where a shard holds samples
+of one sign only, the JAX trainer's rule prints "sharded epoch disabled"
+and every rank runs the single-device epoch alike. The saved table and its
+moments are gathered to rank 0 in global shape order; ``continue`` scatters
+them back.
+
+Not ported: the GL viewer (``gui``) and ``lax.scan`` over the epoch: here
+each step is a Python call, the epoch's index batches go to the device
+once, and the losses stay there until the epoch's end.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import time
 from itertools import count
@@ -49,7 +63,13 @@ from shapegan_tpu_torch.models.sdf_net import SDFNet
 from shapegan_tpu_torch.ops import sdf_mlp
 from shapegan_tpu_torch.ops.sdf_mlp_kernels import apply_rowwise
 from shapegan_tpu_torch.optim import Adam
-from shapegan_tpu_torch.train.common import CSVLogger, EpochTimer, effective_batch_size
+from shapegan_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, get_mesh, init_from_env, world
+from shapegan_tpu_torch.train.common import (
+    CSVLogger,
+    EpochTimer,
+    effective_batch_size,
+    idle_result,
+)
 
 POINTCLOUD_SIZE = 200000
 SYNTHETIC_POINTCLOUD_SIZE = 20000  # the JAX trainer's default for synthetic=N
@@ -107,6 +127,24 @@ def create_batches(signs: np.ndarray, batch_size: int,
         yield chunk
 
 
+def create_sharded_batches(signs: np.ndarray, batch_size: int, shards: int,
+                           rng: np.random.Generator) -> np.ndarray:
+    """Per-shard sign-balanced batches of LOCAL indices (the JAX trainer's
+    draws, in its order): shard ``s`` owns the contiguous slice ``[s * L,
+    (s + 1) * L)`` of ``signs`` and draws batches of ``batch_size //
+    shards`` from it with :func:`create_batches`; returns [num_batches,
+    shards, batch_size // shards], num_batches the smallest shard's count."""
+    local_n = signs.shape[0] // shards
+    local_batch = batch_size // shards
+    per_shard = [list(create_batches(signs[s * local_n: (s + 1) * local_n], local_batch, rng))
+                 for s in range(shards)]
+    num_batches = min(len(b) for b in per_shard)
+    if num_batches == 0:
+        return np.zeros((0, shards, local_batch), np.int64)
+    return np.stack([np.stack([per_shard[s][i] for s in range(shards)])
+                     for i in range(num_batches)])
+
+
 def loss_and_grads(params: Dict[str, torch.Tensor], latent_codes: torch.Tensor,
                    points: torch.Tensor, sdf: torch.Tensor, indices: torch.Tensor,
                    pointcloud_size: int, apply: Callable = apply_rowwise):
@@ -121,6 +159,60 @@ def loss_and_grads(params: Dict[str, torch.Tensor], latent_codes: torch.Tensor,
     loss = (output - batch_sdf).abs().mean() + SIGMA * (rows * rows).mean()
     grads = torch.autograd.grad(loss, [*params.values(), latent_codes])
     return loss.detach(), dict(zip(params, grads[:-1])), grads[-1]
+
+
+def run_epoch(params: Dict[str, torch.Tensor], latent_codes: torch.Tensor, net_opt, code_opt,
+              points: torch.Tensor, sdf: torch.Tensor, batches: torch.Tensor,
+              pointcloud_size: int, mesh: Optional[Mesh] = None,
+              apply: Callable = apply_rowwise) -> torch.Tensor:
+    """One epoch over index batches [num_batches, batch]: per batch
+    :func:`loss_and_grads`, then the network's and the table's optimizer
+    steps; returns the losses [num_batches] on the device.
+
+    With a ``mesh`` of shape shards (``make_sharded_epoch``): ``points``,
+    ``sdf``, ``latent_codes`` and ``code_opt`` hold this rank's shapes and
+    ``batches`` its local indices; the loss and the network gradients are
+    averaged over the data group (one all-reduce a step), and the code
+    gradients, which touch this rank's rows only, are divided by the shard
+    count without a collective."""
+    shards = 1 if mesh is None else mesh.shape[DATA_AXIS]
+    losses = []
+    for i in range(batches.shape[0]):
+        loss, net_grads, code_grad = loss_and_grads(params, latent_codes, points, sdf, batches[i],
+                                                    pointcloud_size, apply)
+        if shards > 1:
+            net_grads = mesh.mean_over_data({**net_grads, "": loss})
+            loss = net_grads.pop("")
+            code_grad = code_grad / shards
+        net_opt.step(net_grads)
+        code_opt.step({"codes": code_grad})
+        losses.append(loss)
+    return torch.stack(losses)
+
+
+def _code_rows(code_opt: Adam, latent_codes: torch.Tensor, rows: slice) -> Adam:
+    """An Adam over ``latent_codes`` (a rank's rows) holding ``rows`` of the
+    global table's moments and its step count."""
+    local = Adam({"codes": latent_codes}, code_opt.learning_rate)
+    local.load_state({"count": code_opt.count, "mu": {"codes": code_opt.mu["codes"][rows]},
+                      "nu": {"codes": code_opt.nu["codes"][rows]}})
+    return local
+
+
+def _gathered(mesh: Optional[Mesh], latent_codes: torch.Tensor, code_opt: Adam):
+    """The global table and an Adam over it with the global moments,
+    gathered in shape order on every rank (as they are without a mesh)."""
+    if mesh is None:
+        return latent_codes.detach(), code_opt
+
+    def gather(t):
+        return torch.cat(mesh.all_gather(t.detach(), mesh.data_group))
+
+    table = gather(latent_codes)
+    full = Adam({"codes": table}, code_opt.learning_rate)
+    full.load_state({"count": code_opt.count, "mu": {"codes": gather(code_opt.mu["codes"])},
+                     "nu": {"codes": gather(code_opt.nu["codes"])}})
+    return table, full
 
 
 def _optimizer_tree(net_opt: Adam, code_opt: Adam) -> dict:
@@ -142,12 +234,12 @@ def _load_optimizers(net_opt: Adam, code_opt: Adam, base: str) -> None:
 
 
 def train(config: Optional[TrainConfig] = None) -> dict:
-    """Train; returns the network, the latent table, and each epoch's step
-    count and mean step time."""
+    """Train; returns the network, the latent table, each epoch's step
+    count and mean step time, and the shard count of the epoch."""
     config = config or parse_cli()
     if not config.nogui:
         raise SystemExit("the GL viewer is not ported: run without 'gui' (nogui is the default)")
-    device = resolve_device(config)
+    device = init_from_env(resolve_device(config))
     base = config.model_dir
 
     points_np, sdf_np, pointcloud_size = load_pointcloud(config)
@@ -155,8 +247,25 @@ def train(config: Optional[TrainConfig] = None) -> dict:
     sdf_np = np.clip(sdf_np, -SDF_CUTOFF, SDF_CUTOFF)
     signs = sdf_np > 0
     batch_size = effective_batch_size(config.batch_size or BATCH_SIZE, points_np.shape[0])
-    points = torch.tensor(points_np, device=device)
-    sdf = torch.tensor(sdf_np, device=device)
+
+    # The shape-sharded epoch over the largest rank count that divides both
+    # the shape count and the batch (the JAX trainer's rule); each shard
+    # must hold both SDF signs, else every rank runs the single epoch.
+    shards = math.gcd(math.gcd(world(), model_count), batch_size)
+    mesh = None
+    if shards > 1:
+        try:
+            create_sharded_batches(signs, batch_size, shards, np.random.default_rng(0))
+        except ValueError as exc:
+            print(f"sharded epoch disabled ({exc}); using single-device epoch")
+            shards = 1
+        else:
+            mesh = get_mesh(data=shards, points=1)
+            if not mesh.member:
+                return idle_result(mesh)
+    rows = slice(None) if mesh is None else mesh.data_slice(points_np.shape[0])
+    points = torch.tensor(points_np[rows], device=device)
+    sdf = torch.tensor(sdf_np[rows], device=device)
 
     net = SDFNet(sdf_mlp.init(torch.Generator().manual_seed(config.seed), device=device))
     codes_gen = torch.Generator().manual_seed(config.seed + 1)
@@ -195,6 +304,10 @@ def train(config: Optional[TrainConfig] = None) -> dict:
     code_opt = Adam({"codes": latent_codes}, lr)
     if config.resume and checkpoints.exists(OPT_NAME, base=base):
         _load_optimizers(net_opt, code_opt, base)
+    if mesh is not None:
+        code_rows = mesh.data_slice(model_count)
+        latent_codes = latent_codes.detach()[code_rows].clone().requires_grad_(True)
+        code_opt = _code_rows(code_opt, latent_codes, code_rows)
 
     logger = CSVLogger(f"{config.plot_dir}/sdf_net_training.csv", resume=config.resume)
     epochs = range(logger.first_epoch, config.epochs) if config.epochs else count(logger.first_epoch)
@@ -203,31 +316,30 @@ def train(config: Optional[TrainConfig] = None) -> dict:
         for epoch in epochs:
             np_rng = np.random.default_rng((config.seed, epoch))
             with EpochTimer() as timer:
-                batches = torch.tensor(np.stack(list(create_batches(signs, batch_size, np_rng))),
-                                       dtype=torch.int64, device=device)
-                losses = torch.empty(batches.shape[0], dtype=torch.float32, device=device)
+                if mesh is None:
+                    drawn = np.stack(list(create_batches(signs, batch_size, np_rng)))
+                else:
+                    drawn = create_sharded_batches(signs, batch_size, shards,
+                                                   np_rng)[:, mesh.data_index]
+                batches = torch.tensor(drawn, dtype=torch.int64, device=device)
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
                 t0 = time.perf_counter()
-                for i in range(batches.shape[0]):
-                    loss, net_grads, code_grad = loss_and_grads(
-                        params, latent_codes, points, sdf, batches[i], pointcloud_size)
-                    net_opt.step(net_grads)
-                    code_opt.step({"codes": code_grad})
-                    losses[i] = loss
+                losses = run_epoch(params, latent_codes, net_opt, code_opt, points, sdf, batches,
+                                   pointcloud_size, mesh)
                 loss_values = losses.cpu().numpy()  # the epoch's one wait for the device
                 step_ms.append((time.perf_counter() - t0) * 1e3 / batches.shape[0])
                 steps.append(batches.shape[0])
 
-            latent_std = float(np.std(latent_codes.detach().cpu().numpy().reshape(-1)))
+            codes, full_code_opt = _gathered(mesh, latent_codes, code_opt)
+            latent_std = float(np.std(codes.cpu().numpy().reshape(-1)))
             mean_loss = float(np.mean(loss_values))
             print(f"Epoch {epoch}, {timer.duration:.1f}s ({step_ms[-1]:.1f} ms/step). "
                   f"Loss: {mean_loss:.8f}", flush=True)
 
-            codes = latent_codes.detach()
             checkpoints.save(params, NET_NAME, base=base)
             checkpoints.save_array(codes, LATENT_CODES_FILENAME, base=base)
-            checkpoints.save(_optimizer_tree(net_opt, code_opt), OPT_NAME, base=base)
+            checkpoints.save(_optimizer_tree(net_opt, full_code_opt), OPT_NAME, base=base)
             checkpoints.save(params, NET_NAME, epoch=epoch, base=base)
             checkpoints.save_array(codes, LATENT_CODES_FILENAME, epoch=epoch, base=base)
             logger.write(epoch, timer.duration, mean_loss, latent_std)
@@ -235,7 +347,8 @@ def train(config: Optional[TrainConfig] = None) -> dict:
         pass
     finally:
         logger.close()
-    return {"net": net, "latent_codes": latent_codes.detach(), "steps": steps, "step_ms": step_ms}
+    return {"net": net, "latent_codes": _gathered(mesh, latent_codes, code_opt)[0],
+            "steps": steps, "step_ms": step_ms, "shards": shards}
 
 
 if __name__ == "__main__":

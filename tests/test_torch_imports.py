@@ -58,5 +58,6 @@ def test_port_imports_nothing_of_jax():
                    "prepare_shapenet_dataset", "run_fixture_corpus", "make_examples", "demo_gan",
                    "demo_autoencoder", "demo_training", "demo_latent_space", "embedding",
                    "render.binary_voxels", "render.panel", "render.png", "render.colormaps",
-                   "render.font", "render.figure", "create_plot", "demo_data_preparation"):
+                   "render.font", "render.figure", "create_plot", "demo_data_preparation",
+                   "parallel.mesh", "parallel.rank_checks", "dryrun_multichip"):
         assert f"shapegan_tpu_torch.{module}" in names.split(), module
