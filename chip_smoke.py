@@ -201,8 +201,18 @@ Phases, each fatal on failure (nothing is caught):
      generate_volumes_inference at 16 x 64^3 under a 1 x 1 mesh, no
      sharded route, bit-equal to one process; (e) render_image_sequence on
      4 codes at 800^2 ssaa 2 with two workers on cuda:0, B4 launched, each
-     frame bit-equal to render_image's.
-Each run of a path in phases 5-7 and 9-17 starts with every launch count set to 0
+     frame bit-equal to render_image's; (f) the voxel GAN, WGAN, hybrid
+     WGAN, classifier and refinement entry points at micro budgets on the
+     pair of ranks of (b) and (c), each rank 0's first gradients against one
+     process (SHARDED_FIVE_BOUNDS), rank 0 alone writing the files, B1 and
+     B2 on each rank under the hybrid WGAN, B7 under the refinement;
+ 18. the live viewer (render/viewer.py) on the card's host: whether pygame,
+     PyOpenGL and libEGL are there; where headless EGL works, its frame
+     against the software twin; the hybrid WGAN (B1, B2) and the
+     autodecoder (B6a, B6b, B3 for its mesh) with gui, each ending with its
+     viewer holding the last mesh it was given and a frame with the model;
+     a set_voxels of a 32^3 volume timed.
+Each run of a path in phases 5-7 and 9-18 starts with every launch count set to 0
 and reads the counts just after; launches made to compare a kernel with its
 plain version or to time it are never counted. The kernels line gives each
 kernel's launches summed over the runs made at the shipped switch
@@ -213,6 +223,7 @@ limit, and {"ok": true, "device": {...}}. Without CUDA, or without the repo
 beside it, the script exits non-zero before printing any result.
 """
 
+import contextlib
 import json
 import os
 import shutil
@@ -2460,7 +2471,7 @@ def demos_path(chair, chair_code, device, kind: str, keep: str) -> dict:
             os.chdir(cwd)
 
     # (g)
-    viewer = MeshRenderer(size=512)
+    viewer = MeshRenderer(size=512, start_thread=False)
     frame, binary_s = run("binary voxels", lambda: (
         viewer.set_voxels(bundled["volumes"][0], use_marching_cubes=False), viewer.get_image())[1])
     covered = float((frame != 255).any(axis=2).mean())
@@ -2625,7 +2636,7 @@ def figures_path(chair, chair_code, device, kind: str, made: str) -> dict:
                 raise AssertionError("make_examples wrote no sdf_net snapshots")
             generator = create_plot._load_generator_fn(TrainConfig(), wgan=False)
             volumes = generator(create_plot._gan_latents(2, 3))
-            viewer = MeshRenderer(size=400)
+            viewer = MeshRenderer(size=400, start_thread=False)
             for i, volume in enumerate(volumes):
                 viewer.set_voxels(torch.as_tensor(volume, device=device))
                 os.makedirs("screenshots/wgan", exist_ok=True)
@@ -2730,6 +2741,276 @@ def figures_path(chair, chair_code, device, kind: str, made: str) -> dict:
     return paths
 
 
+# Phase 17f: the five trainers whose data-parallel branch came last, at
+# micro budgets, on the pair of ranks of 17b and 17c, with TF32 off on both
+# sides (module, argv, run_trainer's options; the refinement's curriculum:
+# one stage of 8 shapes x 4096 points, 5 epochs of one batch, so its G step
+# runs at global step 5; the hybrid WGAN at batch 4, so that each rank's 2
+# rows go through the grid kernel, where one row would take the points
+# kernel). With TF32 on, cuDNN's convolutions at half the batch moved the
+# GAN's first G gradients by 4.9e-2 of their scale on an H100, too near a
+# planted fault's 0.13 to bound; with TF32 off they read 1.7e-3.
+SHARDED_FIVE = [
+    ("gan", ["synthetic=8", "batch_size=4", "epochs=1", "nogui"], {"float32": True}),
+    ("wgan", ["synthetic=8", "batch_size=4", "epochs=1", "nogui"], {"float32": True}),
+    ("hybrid_wgan", ["synthetic=8", "batch_size=4", "epochs=1", "nogui"], {"float32": True}),
+    ("classifier", ["synthetic=2", "batch_size=4", "epochs=1"], {"float32": True}),
+    ("point_gan_ref", ["synthetic=8", "epochs=5"],
+     {"float32": True, "curriculum": [(4096, 8, 5)]}),
+]
+# The first-gradient bounds of 17f (max |d| over the scale of each
+# optimizer's first gradients, rank 0 against one process). The voxel
+# trainers and the hybrid WGAN: 17b's 2e-2 (an H100 read 1.7e-3 for the
+# GAN's G and D, cuDNN's float32 convolutions summing in another order at
+# half the batch; the CPU tests read up to 4.5e-4; planted faults 0.13 and
+# more). The refinement: the CPU test's 0.05 for its first D gradients
+# (bf16) and 0.15 for its first G gradients, after four RMSprop critic
+# steps (the CPU reads 8.0e-3 and 5.7e-2).
+SHARDED_FIVE_BOUNDS = {"gan": 2e-2, "wgan": 2e-2, "hybrid_wgan": 2e-2, "classifier": 2e-2,
+                       "point_gan_ref": (0.05, 0.15)}
+# The files only rank 0 may write, a trainer each.
+SHARDED_FIVE_FILES = {
+    "gan": ("plots/gan_training.csv", "models/generator.npz"),
+    "wgan": ("plots/wgan_training.csv", "models/wgan-generator.npz"),
+    "hybrid_wgan": ("plots/hybrid_wgan_training.csv", "models/hybrid_wgan_generator.npz"),
+    "classifier": ("plots/classifier_training.csv", "models/classifier.npz"),
+    "point_gan_ref": ("plots/point_gan_ref_training.csv", "models/point_gan_ref_generator.npz"),
+}
+
+
+def five_trainers_one_process(workdir: str) -> dict:
+    """17f's one-process side: each of SHARDED_FIVE in its own directory
+    under ``workdir`` with TF32 off, the first gradients its optimizers were
+    handed and its launches (the hybrid WGAN with the ranks' grid math)."""
+    import importlib
+
+    import torch
+    from shapegan_tpu_torch.core.config import parse_cli
+    from shapegan_tpu_torch.parallel.rank_checks import (
+        first_gradients,
+        float32_math,
+        ranks_grid_math,
+        to_numpy_tree,
+    )
+
+    out = {}
+    for name, argv, options in SHARDED_FIVE:
+        trainer = importlib.import_module(f"shapegan_tpu_torch.train.{name}")
+        base = os.path.join(workdir, name)
+        config = parse_cli(argv, model_dir=os.path.join(base, "models"),
+                           plot_dir=os.path.join(base, "plots"))
+        kw = {"curriculum": options["curriculum"]} if "curriculum" in options else {}
+        reset_counts()
+        t0 = time.perf_counter()
+        with (ranks_grid_math() if name == "hybrid_wgan" else contextlib.nullcontext()), \
+                float32_math(), first_gradients() as grads:
+            trainer.train(config, **kw)
+        torch.cuda.synchronize()
+        out[name] = {"first_grads": to_numpy_tree(grads), "counts": read_counts(),
+                     "seconds": time.perf_counter() - t0}
+    return out
+
+
+def check_five_trainers(ranks: list, single: dict, sharded_dir: str, kind: str) -> dict:
+    """17f's checks: each trainer's first gradients on rank 0 against one
+    process within SHARDED_FIVE_BOUNDS; rank 0 alone wrote its files; the
+    ranks' launches (B1 and B2 under the hybrid WGAN, B7 under the
+    refinement, no hand kernel under the voxel trainers). Returns each
+    rank's launch counts by path."""
+    from shapegan_tpu_torch.dryrun_multichip import _relative
+
+    paths = {}
+    offset = 2  # runs 0 and 1 are 17b and 17c
+    for i, (name, argv, *_) in enumerate(SHARDED_FIVE):
+        runs = [r["runs"][offset + i] for r in ranks]
+        got, want = runs[0]["first_grads"], single[name]["first_grads"]
+        if len(got) != len(want) or not got:
+            raise AssertionError(f"17f {name}: {len(got)} optimizers stepped on rank 0, "
+                                 f"{len(want)} in one process")
+        errs = [_relative(a, b) for a, b in zip(got, want)]
+        bounds = SHARDED_FIVE_BOUNDS[name]
+        bounds = bounds if isinstance(bounds, tuple) else (bounds,) * len(errs)
+        for rank, run in enumerate(runs):
+            counts = run["counts"]
+            if name == "hybrid_wgan":
+                steps, g_steps = len(run["result"]["step_s"]), run["result"]["g_steps"]
+                want_counts = dict.fromkeys(counts, 0)
+                want_counts.update(grid=steps + g_steps, grid_bwd=g_steps)
+                check_counts(f"17f rank {rank} hybrid_wgan", counts, launched=("grid", "grid_bwd"))
+                if counts != want_counts or run["sharded_calls"] != steps + g_steps:
+                    raise AssertionError(f"17f rank {rank} hybrid_wgan: launches {counts}, "
+                                         f"sharded calls {run['sharded_calls']}")
+            elif name == "point_gan_ref":
+                check_counts(f"17f rank {rank} point_gan_ref", counts, launched=("point_gen",))
+                if counts["point_gen"] != run["result"]["steps"]:
+                    raise AssertionError(f"17f rank {rank} point_gan_ref: {counts}, "
+                                         f"{run['result']['steps']} D steps")
+            else:
+                check_counts(f"17f rank {rank} {name}", counts, idle=list(counts))
+            paths[f"17f {name} rank {rank}"] = counts
+        if runs[1]["written"]:
+            raise AssertionError(f"17f {name}: rank 1 wrote {runs[1]['written']}")
+        missing = [f for f in SHARDED_FIVE_FILES[name] if f not in runs[0]["written"]]
+        if missing:
+            raise AssertionError(f"17f {name}: rank 0 did not write {missing}")
+        log(f"  17f: {name} {' '.join(argv)} on 2 ranks, TF32 off: "
+            f"{', '.join('%.1f' % r['seconds'] for r in runs)} s a rank, one process "
+            f"{single[name]['seconds']:.1f} s ({kind}); rank 0's first gradients against one "
+            f"process max|d|/scale = {', '.join('%.3e' % e for e in errs)} (bounds "
+            f"{', '.join('%g' % b for b in bounds)}); rank 0 alone wrote its "
+            f"{len(runs[0]['written'])} files; rank 0 launched {runs[0]['counts']}")
+        if not all(e < b for e, b in zip(errs, bounds)):
+            raise AssertionError(f"17f {name}: the ranks' first gradients disagree with one "
+                                 "process")
+    return paths
+
+
+def viewer_path(chair, chair_code, device, kind: str) -> dict:
+    """Phase 18: the live viewer on the card's host. Whether pygame,
+    PyOpenGL and libEGL are there; (a) where headless EGL works, its frame
+    of a box against the software twin's (the CPU test's bound); (b) the
+    hybrid WGAN's entry point with ``gui`` (B1 and B2), each set_voxels
+    timed (marching tetrahedra on the card, the mesh copied to the host);
+    (c) the autodecoder's with ``gui`` (B6a and B6b a step, B3 for the mesh
+    of the drawn shape), resumed from the fitted chair so the shape has a
+    surface. Each run must end with its viewer holding the last mesh it
+    was given, and get_image must show the model. Only the window itself
+    may be missing."""
+    import ctypes
+    import importlib.util
+
+    import numpy as np
+    import torch
+    from shapegan_tpu_torch import checkpoints
+    from shapegan_tpu_torch.core.config import parse_cli
+    from shapegan_tpu_torch.data.mesh_io import TriangleMesh
+    from shapegan_tpu_torch.models import LATENT_CODES_FILENAME
+    from shapegan_tpu_torch.ops.coords import voxel_coordinates
+    from shapegan_tpu_torch.render import viewer as V
+    from shapegan_tpu_torch.train import hybrid_wgan, sdf_autodecoder
+    from shapegan_tpu_torch.train.hybrid_gan import generate_volumes_inference
+
+    def red(image) -> int:
+        return int(((image[:, :, 0].astype(int) - image[:, :, 2].astype(int)) > 40).sum())
+
+    paths = {}
+    have = {"pygame": importlib.util.find_spec("pygame") is not None,
+            "PyOpenGL": importlib.util.find_spec("OpenGL") is not None}
+    try:
+        ctypes.CDLL("libEGL.so.1")
+        have["libEGL"] = True
+    except OSError:
+        have["libEGL"] = False
+    log(f"  18: the host's GL: {', '.join(f'{k} {v}' for k, v in have.items())} ({kind})")
+
+    t0 = time.perf_counter()
+    corners = np.array([[x, y, z] for x in (-0.4, 0.4) for y in (-0.4, 0.4) for z in (-0.4, 0.4)],
+                       np.float32)
+    faces = np.array([(0, 1, 3), (0, 3, 2), (4, 6, 7), (4, 7, 5), (0, 4, 5), (0, 5, 1),
+                      (2, 3, 7), (2, 7, 6), (0, 2, 6), (0, 6, 4), (1, 5, 7), (1, 7, 3)], np.int32)
+    probe = V.MeshRenderer(size=200, start_thread=False)
+    probe.set_mesh(TriangleMesh(corners, faces))
+    probe.ground_level = -0.8
+    try:
+        probe.use_headless_gl()
+    except Exception as e:
+        log(f"  18a: headless GL unavailable here ({type(e).__name__}: {e}); frames come from the "
+            f"software twin")
+    else:
+        gl, sw = probe.get_image(), probe._get_image_software()
+        diff = np.abs(gl.astype(int) - sw.astype(int))
+        log(f"  18a: headless EGL frame of a box at 200^2 against the software twin: mean |d| "
+            f"{diff.mean():.3f} (< 1), share above 16 {(diff > 16).mean():.4f} (< 0.01), "
+            f"{red(gl)} model pixels: {time.perf_counter() - t0:.1f} s")
+        if not (red(gl) > 1000 and diff.mean() < 1.0 and (diff > 16).mean() < 0.01):
+            raise AssertionError("18a: the headless GL frame disagrees with the software twin")
+
+    given, update_s = [], []
+    real_set_mesh, real_set_voxels = V.MeshRenderer.set_mesh, V.MeshRenderer.set_voxels
+
+    def set_mesh(self, mesh, *args, **kwargs):
+        given.append(None if mesh is None else mesh.triangles.reshape(-1, 3).astype(np.float32))
+        return real_set_mesh(self, mesh, *args, **kwargs)
+
+    def set_voxels(self, voxels, *args, **kwargs):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        real_set_voxels(self, voxels, *args, **kwargs)
+        torch.cuda.synchronize()
+        update_s.append(time.perf_counter() - start)
+
+    def holds_last(name: str, viewer) -> None:
+        vertices = viewer.scene()[0]
+        if not given or given[-1] is None or not np.array_equal(vertices, given[-1]):
+            raise AssertionError(f"18 {name}: the viewer does not hold the last mesh it was given")
+        image = viewer.get_image()
+        log(f"  18 {name}: the viewer holds the last of {len(given)} meshes "
+            f"({len(vertices) // 3} triangles); get_image {image.shape}, {red(image)} model pixels")
+        if red(image) < 500:
+            raise AssertionError(f"18 {name}: get_image shows no model")
+
+    cwd = os.getcwd()
+    V.MeshRenderer.set_mesh, V.MeshRenderer.set_voxels = set_mesh, set_voxels
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            t0 = time.perf_counter()
+            reset_counts()
+            result = hybrid_wgan.train(parse_cli(["synthetic=4", "batch_size=2", "epochs=1", "gui"]))
+            torch.cuda.synchronize()
+            counts = paths["18b hybrid_wgan gui"] = read_counts()
+            steps, g_steps = result["steps"], result["g_steps"]
+            want = dict.fromkeys(counts, 0)
+            want.update(grid=steps + g_steps, grid_bwd=g_steps)
+            check_counts("18b hybrid_wgan gui", counts, launched=("grid", "grid_bwd"))
+            if counts != want:
+                raise AssertionError(f"18b: launches {counts}, expected {want}")
+            holds_last("18b hybrid_wgan", result["viewer"])
+            trained = time.perf_counter() - t0
+            # A gui update's cost at 32^3: ten more set_voxels of a fake.
+            net = result["net"]
+            z = torch.randn((1, 128), generator=torch.Generator().manual_seed(18)).to(device)
+            volume = generate_volumes_inference(net, voxel_coordinates(32, device=device), z, 32)[0]
+            for _ in range(10):
+                result["viewer"].set_voxels(volume)
+            log(f"  18b: hybrid_wgan gui (synthetic=4, batch 2): {trained:.1f} s, {steps} critic "
+                f"and {g_steps} G steps (step {1e3 * statistics.median(result['step_s']):.1f} ms "
+                f"median), launches {counts}; a set_voxels of a 32^3 fake (extract_mesh on the "
+                f"card, the mesh to the host, the scene swapped): "
+                f"{1e3 * statistics.median(update_s[-10:]):.2f} ms median of 10 "
+                f"({1e3 * min(update_s[-10:]):.2f}-{1e3 * max(update_s[-10:]):.2f}) ({kind})")
+
+            os.chdir(cwd)
+            t0 = time.perf_counter()
+            given.clear()
+            models = os.path.join(tmp, "ad", "models")
+            checkpoints.save({k: v.cpu() for k, v in chair.items()}, "sdf_net", base=models)
+            checkpoints.save_array(np.repeat(chair_code.reshape(1, -1).cpu().numpy(), 4, axis=0),
+                                   LATENT_CODES_FILENAME, base=models)
+            os.chdir(os.path.join(tmp, "ad"))
+            reset_counts()
+            result = sdf_autodecoder.train(parse_cli(
+                ["synthetic=4", "pointcloud_size=20000", "batch_size=20000", "epochs=1", "continue",
+                 "gui"]))
+            torch.cuda.synchronize()
+            counts = paths["18c sdf_autodecoder gui"] = read_counts()
+            steps = sum(result["steps"])
+            check_counts("18c sdf_autodecoder gui", counts,
+                         launched=("rowwise", "rowwise_bwd", "points"))
+            if counts["rowwise"] != steps or counts["rowwise_bwd"] != steps or result["shards"] != 1:
+                raise AssertionError(f"18c: launches {counts}, {steps} steps, shards "
+                                     f"{result['shards']}")
+            holds_last("18c sdf_autodecoder", result["viewer"])
+            log(f"  18c: sdf_autodecoder gui from the fitted chair (4 shapes x 20,000 points, "
+                f"batch 20,000): {time.perf_counter() - t0:.1f} s, {steps} steps at "
+                f"{result['step_ms'][0]:.1f} ms a step with the meshing, launches {counts} ({kind})")
+            os.chdir(cwd)
+    finally:
+        os.chdir(cwd)
+        V.MeshRenderer.set_mesh, V.MeshRenderer.set_voxels = real_set_mesh, real_set_voxels
+    return paths
+
+
 def multichip_path(chair, chair_code, device, kind: str) -> dict:
     """Phase 17: the sharded branch on the one card. (a) the multichip dryrun
     on two gloo ranks sharing cuda:0; (b) the progressive trainer's entry
@@ -2774,8 +3055,8 @@ def multichip_path(chair, chair_code, device, kind: str) -> dict:
     log(f"  17a: dryrun_multichip on 2 gloo ranks sharing cuda:0: {time.perf_counter() - t0:.1f} s "
         f"({kind})")
 
-    # (b) and (c): the two trainers in turn on one pair of ranks; the
-    # progressive trainer's one-process run here while they run.
+    # (b), (c) and (f): the trainers in turn on one pair of ranks; their
+    # one-process runs here while the ranks run.
     t0 = time.perf_counter()
     prog_argv = ["iteration=3", "epochs=1", "synthetic=32", "batch_size=16", "nogui"]
     ad_argv = ["synthetic=4", "pointcloud_size=20000", "batch_size=20000", "epochs=1", "nogui"]
@@ -2791,14 +3072,17 @@ def multichip_path(chair, chair_code, device, kind: str) -> dict:
             torch.cuda.synchronize()
             single["counts"] = read_counts()
             single["first_grads"] = to_numpy_tree(grads)
+            single["17f"] = five_trainers_one_process(workdir)
         finally:
             os.chdir(cwd)
 
+    runs = [("hybrid_progressive_gan", prog_argv), ("sdf_autodecoder", ad_argv)] + SHARDED_FIVE
     with tempfile.TemporaryDirectory() as sharded_dir, tempfile.TemporaryDirectory() as one_dir:
-        ranks = spawn(run_trainer, 2, "cuda:0", "gloo",
-                      args=([("hybrid_progressive_gan", prog_argv), ("sdf_autodecoder", ad_argv)],
-                            sharded_dir),
+        ranks = spawn(run_trainer, 2, "cuda:0", "gloo", args=(runs, sharded_dir),
                       while_running=lambda: one_process(one_dir))
+        t17f = time.perf_counter()
+        paths.update(check_five_trainers(ranks, single["17f"], sharded_dir, kind))
+        log(f"  17f: checks {time.perf_counter() - t17f:.1f} s ({kind})")
         for rank, r in enumerate(ranks):
             run = r["runs"][0]
             g_steps, d_steps = len(run["result"]["g_step_s"]), len(run["result"]["d_step_s"])
@@ -3386,6 +3670,11 @@ def main() -> int:
     t0 = time.perf_counter()
     paths.update(multichip_path(chair, chair_code, device, f"{kind}; {smi}"))
     log(f"  phase 17: {time.perf_counter() - t0:.1f} s")
+    log(f"== 18. the live viewer on the card's host: headless EGL against the software twin, "
+        f"the hybrid WGAN and the autodecoder with gui ({kind}; {smi})")
+    t0 = time.perf_counter()
+    paths.update(viewer_path(chair, chair_code, device, f"{kind}; {smi}"))
+    log(f"  phase 18: {time.perf_counter() - t0:.1f} s")
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         raise AssertionError("jax was imported")
 

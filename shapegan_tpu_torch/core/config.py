@@ -24,7 +24,7 @@ import torch
 @dataclasses.dataclass
 class TrainConfig:
     resume: bool = False          # 'continue'
-    nogui: bool = True            # 'gui' asks for the viewer, which is not ported
+    nogui: bool = True            # 'gui' asks for the live viewer (train.common.make_viewer)
     show_slice: bool = False
     verbose: bool = False
     classic: bool = False         # the autoencoder trainer: the classic AE instead of the VAE

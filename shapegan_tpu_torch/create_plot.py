@@ -226,7 +226,7 @@ class ImageGrid:
         if create_viewer:
             from shapegan_tpu_torch.render.viewer import MeshRenderer
 
-            self.viewer = MeshRenderer(size=render_size)
+            self.viewer = MeshRenderer(size=render_size, start_thread=False)
 
     def set_image(self, image, x=0, y=0):
         image = np.asarray(image)
@@ -265,7 +265,7 @@ def _thumbnails(voxels, colors=None, device="cpu"):
     """Cropped 96-pixel renders of volumes (128-pixel frames)."""
     from shapegan_tpu_torch.render.viewer import MeshRenderer
 
-    viewer = MeshRenderer(size=128)
+    viewer = MeshRenderer(size=128, start_thread=False)
     images = []
     for i, volume in enumerate(voxels):
         if colors is not None:
@@ -547,7 +547,7 @@ def autoencoder_examples(args, config):
     voxels = _dataset_voxels(config, _extra_int(config, "count", 8))
     codes = _ae_encode(model, voxels)
     recon = _ae_decode(model, codes)
-    viewer = MeshRenderer(size=256)
+    viewer = MeshRenderer(size=256, start_thread=False)
     fig, axs = _figure((10, 3.2 * len(voxels)), 120, len(voxels), 3)
     for i in range(len(voxels)):
         viewer.set_voxels(torch.as_tensor(voxels[i], device=device))
@@ -771,7 +771,7 @@ def model_images(args, config):
     if not files:
         files = [example_chair_path(device=device)]
     ensure_directory("screenshots/sdf_meshes")
-    viewer = MeshRenderer(size=_extra_int(config, "res", 400))
+    viewer = MeshRenderer(size=_extra_int(config, "res", 400), start_thread=False)
     written = []
     for index, filename in enumerate(files):
         out = f"screenshots/sdf_meshes/{index}.png"

@@ -6,20 +6,22 @@ Loads a trained (V)AE (``models/autoencoder-128.npz`` with ``classic``,
 else ``variational-autoencoder-128``; the bundled example when the file is
 missing), encodes the dataset's volumes in the order
 ``np.random.default_rng(0).permutation`` gives, and morphs from each code
-to the next over 30 decoded frames, in eval mode. Headless runs take
-``epochs=N`` transitions (all of them without it); ``show_slice`` prints
-the last frame of each.
+to the next over 30 decoded frames, in eval mode. With ``gui`` the live
+viewer (``train.common.make_viewer``) shows every frame, 1/30 s apart, and
+the tour runs every transition; headless runs take ``epochs=N``
+transitions (all of them without it). ``show_slice`` prints the last frame
+of each.
 
     python -m shapegan_tpu_torch.demo_autoencoder [classic] [synthetic=N] [epochs=N]
-        [show_slice] [cpu]
+        [show_slice] [gui] [cpu]
 
-Without the ``cpu`` token it runs on CUDA and fails if there is none. The
-GL viewer is not ported: ``gui`` is refused.
+Without the ``cpu`` token it runs on CUDA and fails if there is none.
 """
 
 from __future__ import annotations
 
 import sys
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -28,7 +30,12 @@ import torch
 from shapegan_tpu_torch.core.config import parse_cli, resolve_device
 from shapegan_tpu_torch.models.autoencoder import Autoencoder
 from shapegan_tpu_torch.train.autoencoder import create_state
-from shapegan_tpu_torch.train.common import load_module, maybe_print_slice, resolve_voxel_dataset
+from shapegan_tpu_torch.train.common import (
+    load_module,
+    make_viewer,
+    maybe_print_slice,
+    resolve_voxel_dataset,
+)
 
 TRANSITION_FRAMES = 30
 
@@ -63,15 +70,14 @@ def main(argv: Optional[List[str]] = None) -> dict:
     """Run the tour; returns the order, the codes of the visited volumes
     [T + 1, 128] and the last frame of each transition [T, 32, 32, 32]."""
     config = parse_cli(argv)
-    if not config.nogui:
-        raise SystemExit("the GL viewer is not ported: run without 'gui' (nogui is the default)")
     device = resolve_device(config)
     model = load_model(config.classic, config.model_dir, device)
     dataset = resolve_voxel_dataset(config, resolution=32)
+    viewer = make_viewer(config.nogui)
     order = tour_order(len(dataset))
     codes = [encode(model, dataset[int(order[0])])]
     transitions = order[1:]
-    if config.epochs:
+    if viewer is None and config.epochs:
         transitions = transitions[:config.epochs]
     last_frames = []
     for index in transitions:
@@ -79,9 +85,14 @@ def main(argv: Optional[List[str]] = None) -> dict:
         for frame in range(TRANSITION_FRAMES):
             t = frame / TRANSITION_FRAMES
             voxels = decode(model, previous * (1 - t) + target * t)
+            if viewer is not None:
+                viewer.set_voxels(voxels)
+                time.sleep(1 / 30)
         maybe_print_slice(voxels, config.show_slice)
         codes.append(target)
         last_frames.append(voxels)
+    if viewer is not None:
+        viewer.stop()
     return {"order": order, "codes": torch.stack(codes),
             "last_frames": torch.stack(last_frames) if last_frames else None}
 

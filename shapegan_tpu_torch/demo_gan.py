@@ -7,18 +7,19 @@ Loads a trained voxel-GAN generator (``models/generator.npz``, or
 missing), walks a straight line between random latent codes (a new target
 every 40 frames, the codes drawn from ``np.random.default_rng(0)`` exactly
 as the JAX demo draws them) and decodes each frame's code with the
-generator in eval mode (flax's running statistics). Headless: with
-``show_slice`` a frame's ASCII slice is printed every 40 frames.
+generator in eval mode (flax's running statistics). With ``gui`` the live
+viewer (``train.common.make_viewer``) shows every frame, 1/30 s apart;
+headless, ``show_slice`` prints a frame's ASCII slice every 40 frames.
 
-    python -m shapegan_tpu_torch.demo_gan [wgan] [frames=N] [show_slice] [cpu]
+    python -m shapegan_tpu_torch.demo_gan [wgan] [frames=N] [show_slice] [gui] [cpu]
 
-Without the ``cpu`` token it runs on CUDA and fails if there is none. The
-GL viewer is not ported: ``gui`` is refused.
+Without the ``cpu`` token it runs on CUDA and fails if there is none.
 """
 
 from __future__ import annotations
 
 import sys
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -27,7 +28,7 @@ import torch
 from shapegan_tpu_torch import LATENT_CODE_SIZE
 from shapegan_tpu_torch.core.config import parse_cli, resolve_device
 from shapegan_tpu_torch.models.gan import Generator
-from shapegan_tpu_torch.train.common import load_module, maybe_print_slice
+from shapegan_tpu_torch.train.common import load_module, make_viewer, maybe_print_slice
 from shapegan_tpu_torch.train.gan import create_states
 
 TRANSITION_FRAMES = 40
@@ -67,18 +68,22 @@ def main(argv: Optional[List[str]] = None) -> dict:
     """Decode every frame; returns the codes [frames, 128] and the volumes
     [frames, 32, 32, 32] on the device."""
     config = parse_cli(argv)
-    if not config.nogui:
-        raise SystemExit("the GL viewer is not ported: run without 'gui' (nogui is the default)")
     name = "wgan-generator" if config.extras.get("wgan") else "generator"
     frames = int(config.extras.get("frames", 200))
     device = resolve_device(config)
     generator = load_generator(name, config.model_dir, device)
     codes = code_sequence(frames)
+    viewer = make_viewer(config.nogui)
     volumes = []
     for frame, code in enumerate(codes):
         volumes.append(decode(generator, code))
-        if frame % TRANSITION_FRAMES == 0:
+        if viewer is not None:
+            viewer.set_voxels(volumes[-1])
+            time.sleep(1 / 30)
+        elif frame % TRANSITION_FRAMES == 0:
             maybe_print_slice(volumes[-1], config.show_slice)
+    if viewer is not None:
+        viewer.stop()
     return {"codes": codes, "volumes": torch.stack(volumes) if volumes else None}
 
 

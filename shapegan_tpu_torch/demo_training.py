@@ -10,14 +10,16 @@ the loss ``mean |SDF - target|`` of the float32 network
 kernel lies on its path). The batches' indices come from
 ``np.random.default_rng(0).integers`` in the JAX demo's calls and shapes:
 headless, one ``(k, 16384)`` draw per chunk of up to 100 steps, the loss
-read once a chunk; with ``show_slice``, one draw a step, and every 100th
-step the loss and the ASCII slice of the 32^3 volume (the points kernel).
+read once a chunk; with ``show_slice`` or ``gui``, one draw a step, and
+every 100th step the loss, the live viewer's mesh of the 48^3 volume
+(``train.common.make_viewer``) and the ASCII slice of the 32^3 volume (the
+points kernel).
 
-    python -m shapegan_tpu_torch.demo_training [show_slice] [steps=N] [cpu]
+    python -m shapegan_tpu_torch.demo_training [show_slice] [gui] [steps=N] [cpu]
 
 The chair's samples are drawn from ``default_rng(seed)`` (the JAX demo's
 are unseeded). Without the ``cpu`` token it runs on CUDA and fails if there
-is none. The GL viewer is not ported: ``gui`` is refused.
+is none.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from shapegan_tpu_torch.data.mesh_to_sdf import sample_sdf_near_surface
 from shapegan_tpu_torch.examples import example_chair_path
 from shapegan_tpu_torch.models.sdf_net import SDFNet
 from shapegan_tpu_torch.ops import sdf_mlp
-from shapegan_tpu_torch.train.common import maybe_print_slice
+from shapegan_tpu_torch.train.common import make_viewer, maybe_print_slice
 
 SAMPLES = 200000
 BATCH_SIZE = 16384
@@ -85,8 +87,6 @@ def main(argv: Optional[List[str]] = None) -> dict:
     """Sample and train; returns the losses printed, the sampling's and
     the steps' seconds (host clock, the device synchronized)."""
     config = parse_cli(argv)
-    if not config.nogui:
-        raise SystemExit("the GL viewer is not ported: run without 'gui' (nogui is the default)")
     steps = int(config.extras.get("steps", 2000))
     device = resolve_device(config)
 
@@ -101,8 +101,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
     step = make_step(net, optimizer, points_d, sdf_d)
     code = torch.zeros(0, device=device)
     losses = []
+    viewer = make_viewer(config.nogui)
     t0 = time.perf_counter()
-    if not config.show_slice:
+    if viewer is None and not config.show_slice:
         done = 0
         for chunk in index_batches(len(points), steps, per_step=False):
             chunk = torch.as_tensor(chunk, device=device)
@@ -117,12 +118,19 @@ def main(argv: Optional[List[str]] = None) -> dict:
             if i % CHUNK == 0:
                 losses.append(float(loss))
                 print(f"step {i}: loss {losses[-1]:.5f}")
-                maybe_print_slice(net.get_voxels(code, voxel_resolution=32), True,
-                                  scale=SDF_CUTOFF)
+                if viewer is not None:
+                    mesh = net.get_mesh(code, voxel_resolution=48)
+                    if mesh is not None:
+                        viewer.set_mesh(mesh)
+                if config.show_slice:
+                    maybe_print_slice(net.get_voxels(code, voxel_resolution=32), True,
+                                      scale=SDF_CUTOFF)
+        if viewer is not None:
+            viewer.stop()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     return {"losses": losses, "sample_s": sample_s, "train_s": time.perf_counter() - t0,
-            "net": net}
+            "net": net, "viewer": viewer}
 
 
 if __name__ == "__main__":

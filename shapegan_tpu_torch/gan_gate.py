@@ -268,7 +268,7 @@ def render_sample_sheet(data_voxels, gan_voxels, net, codes, mesh_resolution: in
     generator ``net`` at ``codes``) of ``tile``-pixel renders from the
     headless viewer, cropped and area-resized; a code with an empty mesh
     gets a white tile."""
-    viewer = MeshRenderer(size=2 * tile)
+    viewer = MeshRenderer(size=2 * tile, start_thread=False)
     rows = []
     for color, volumes in (((0.25, 0.45, 0.8), data_voxels), ((0.8, 0.1, 0.1), gan_voxels)):
         viewer.model_color = color

@@ -23,7 +23,9 @@ the copy and copies the result back. That copy is explicit here, never a
 retry after a failure; no collective's failure is caught.
 
 :func:`init_from_env` starts the process group of a ``python -m
-torch.distributed.run`` launch; :func:`spawn` starts ranks itself through
+torch.distributed.run`` launch, and a trainer's ``train`` decorated with
+:func:`tears_down_launch` destroys that group when it returns or raises;
+:func:`spawn` starts ranks itself through
 a ``FileStore`` (no TCP rendezvous, so runs in parallel never contend for a
 port). Without a process group :func:`get_mesh` gives a 1 x 1 mesh on
 which every operation is the identity, so a single process runs exactly as
@@ -33,6 +35,7 @@ it would without a mesh.
 from __future__ import annotations
 
 import contextvars
+import functools
 import math
 import os
 import tempfile
@@ -328,6 +331,28 @@ def init_from_env(device) -> torch.device:
     return device
 
 
+def tears_down_launch(train: Callable) -> Callable:
+    """Decorate a trainer's ``train``: a process group that the call starts
+    (:func:`init_from_env` under ``torch.distributed.run``) is destroyed
+    when it returns or raises, with the meshes made over it. A group that
+    was there before the call stays: :func:`spawn`'s ranks, or a caller's
+    that runs several trainers on one set of ranks."""
+
+    @functools.wraps(train)
+    def wrapper(*args, **kwargs):
+        started = dist.is_initialized()
+        try:
+            return train(*args, **kwargs)
+        finally:
+            if not started and dist.is_initialized():
+                world_id = id(dist.group.WORLD)
+                for key in [k for k in _MESHES if k[2] == world_id]:
+                    del _MESHES[key]
+                dist.destroy_process_group()
+
+    return wrapper
+
+
 def _rank_main(index: int, fn: Callable, world_size: int, device: str, backend: str,
                store_path: str, out_dir: str, args: tuple) -> None:
     """A spawned rank: join the process group through the FileStore, run
@@ -377,4 +402,5 @@ def spawn(fn: Callable, world_size: int, device: str = "cpu", backend: Optional[
 
 
 __all__ = ["DATA_AXIS", "POINTS_AXIS", "Mesh", "ambient_mesh", "get_mesh", "init_from_env",
-           "is_writer", "rank", "shard_batch", "spawn", "sum_over_data", "world"]
+           "is_writer", "rank", "shard_batch", "spawn", "sum_over_data", "tears_down_launch",
+           "world"]

@@ -12,7 +12,7 @@ import contextlib
 import importlib
 import os
 import time
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -208,37 +208,94 @@ def autodecoder_epochs(rank: int, world: int, params: dict, codes: np.ndarray,
 def _summary(value):
     """A trainer's return value as numpy: modules as their parameters (an
     SDF network's under its :meth:`param_dict` keys)."""
+    if hasattr(value, "set_voxels"):  # a viewer stays with its rank
+        return None
     if hasattr(value, "param_dict"):
         return {k: v.detach() for k, v in value.param_dict().items()}
     if isinstance(value, torch.nn.Module):
-        return {k: v.detach() for k, v in value.named_parameters()}
+        return {k: v.detach() for k, v in (*value.named_parameters(), *value.named_buffers())}
     if isinstance(value, dict):
         return {k: _summary(v) for k, v in value.items()}
     return value
 
 
-def run_trainer(rank: int, world: int, runs: Sequence[Tuple[str, Sequence[str]]], workdir: str,
+@contextlib.contextmanager
+def float32_math():
+    """Inside the block, cuDNN's convolutions and cuBLAS's matmuls in full
+    float32 (TF32 off), so a run on part of a batch and a run on all of it
+    differ by reduction order only."""
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+
+@contextlib.contextmanager
+def written_files():
+    """Inside the block, the files under the working directory that this
+    process opens for writing or renames into place (the CSV logs, the
+    checkpoints' final names), as relative paths in the order written."""
+    import builtins
+
+    paths = []
+    real_open, real_replace = builtins.open, os.replace
+
+    def note(path) -> None:
+        relative = os.path.relpath(os.path.abspath(os.fspath(path)))
+        if not relative.startswith(".."):
+            paths.append(relative)
+
+    def recording_open(file, mode="r", *args, **kwargs):
+        if isinstance(file, (str, os.PathLike)) and any(c in mode for c in "wax+"):
+            note(file)
+        return real_open(file, mode, *args, **kwargs)
+
+    def recording_replace(src, dst, *args, **kwargs):
+        note(dst)
+        return real_replace(src, dst, *args, **kwargs)
+
+    builtins.open, os.replace = recording_open, recording_replace
+    try:
+        yield paths
+    finally:
+        builtins.open, os.replace = real_open, real_replace
+
+
+def run_trainer(rank: int, world: int, runs: Sequence[tuple], workdir: str,
                 curriculum: Optional[list] = None) -> dict:
     """``python -m shapegan_tpu_torch.train.<module> <argv>`` on this rank
     for each ``(module, argv)`` of ``runs`` in turn, in ``workdir``: each
     run's result (parameters as numpy), the gradients of each optimizer's
     first step (:func:`first_gradients`), the kernels it launched and its
-    seconds (host clock, the card synchronized)."""
+    seconds (host clock, the card synchronized), the files it wrote
+    (:func:`written_files`) and its calls of ``apply_grid_sharded``. A run
+    given as ``(module, argv, options)`` takes ``options["curriculum"]`` as
+    its curriculum (the ``curriculum`` argument gives every run one) and,
+    with ``options["float32"]``, runs with TF32 off in cuDNN and cuBLAS."""
     from shapegan_tpu_torch.core.config import parse_cli
+    from shapegan_tpu_torch.ops import sdf_mlp_kernels as K
 
     os.chdir(workdir)
     out = []
-    for module, argv in runs:
+    for module, argv, *own in runs:
+        options = own[0] if own else {}
+        calls = K.sharded_call_count
         trainer = importlib.import_module(f"shapegan_tpu_torch.train.{module}")
         reset_kernel_counts()
-        kw = {} if curriculum is None else {"curriculum": curriculum}
+        stages = options.get("curriculum", curriculum)
+        kw = {} if stages is None else {"curriculum": stages}
         t0 = time.perf_counter()
-        with first_gradients() as grads:
+        with first_gradients() as grads, written_files() as written, \
+                (float32_math() if options.get("float32") else contextlib.nullcontext()):
             result = trainer.train(parse_cli(list(argv)), **kw)
         if torch.cuda.is_available():
             torch.cuda.synchronize()
         out.append({"result": to_numpy_tree(_summary(result)), "first_grads": to_numpy_tree(grads),
-                    "counts": kernel_counts(), "seconds": time.perf_counter() - t0})
+                    "counts": kernel_counts(), "seconds": time.perf_counter() - t0,
+                    "written": sorted(set(written)),
+                    "sharded_calls": K.sharded_call_count - calls})
     return {"runs": out}
 
 

@@ -20,8 +20,10 @@ restores the file and resumes at its ``epoch`` + 1.
 The VAE's reparameterization noise is drawn on the device from a
 ``torch.Generator`` seeded per epoch (not the JAX trainer's); the step takes
 it as an argument, so a test can hand both packages the same. The
-convolutions are cuDNN's (no hand kernel runs). The GL viewer is not
-ported.
+convolutions are cuDNN's (no hand kernel runs). With ``gui`` the live
+viewer (``train.common.make_viewer``, rank 0's) shows the first
+reconstruction of an epoch's first batch, and with ``verbose`` also every
+20th batch's.
 
 Data-parallel under ``python -m torch.distributed.run --nproc_per_node=N``,
 as the JAX trainer's mesh: ``gcd(N, B)`` ranks each take their rows of
@@ -42,7 +44,13 @@ from shapegan_tpu_torch.core.config import TrainConfig, parse_cli, resolve_devic
 from shapegan_tpu_torch.models.autoencoder import Autoencoder
 from shapegan_tpu_torch.ops.losses import kld_loss, sdf_reconstruction_loss, voxel_sign_difference
 from shapegan_tpu_torch.optim import Adam
-from shapegan_tpu_torch.parallel.mesh import Mesh, get_mesh, init_from_env, shard_batch
+from shapegan_tpu_torch.parallel.mesh import (
+    Mesh,
+    get_mesh,
+    init_from_env,
+    shard_batch,
+    tears_down_launch,
+)
 from shapegan_tpu_torch.train.common import (
     CSVLogger,
     EpochTimer,
@@ -52,6 +60,7 @@ from shapegan_tpu_torch.train.common import (
     effective_batch_size,
     idle_result,
     load_network,
+    make_viewer,
     make_voxel_batches,
     maybe_print_slice,
     network_payload,
@@ -99,12 +108,11 @@ def make_step(model: Autoencoder, opt: Adam, mesh: Optional[Mesh] = None):
     return train_step
 
 
+@tears_down_launch
 def train(config: Optional[TrainConfig] = None) -> dict:
     """Train until ``epochs``; returns the model, its optimizer, the number
     of steps and their times."""
     config = config or parse_cli()
-    if not config.nogui:
-        raise SystemExit("the GL viewer is not ported: run without 'gui' (nogui is the default)")
     device = init_from_env(resolve_device(config))
     base = config.model_dir
     model, opt = create_state(not config.classic, config.seed, device)
@@ -123,6 +131,7 @@ def train(config: Optional[TrainConfig] = None) -> dict:
 
     prefix = "variational_" if model.is_variational else ""
     logger = CSVLogger(f"{config.plot_dir}/{prefix}autoencoder_training.csv", resume=config.resume)
+    viewer = make_viewer(config.nogui)
     recon_history, kld_history = RollingHistory(batch_size), RollingHistory(batch_size)
     profiler = StepProfiler(device)
     noise = torch.Generator(device=device)
@@ -142,6 +151,10 @@ def train(config: Optional[TrainConfig] = None) -> dict:
                         steps += 1
                         recon_history.append(metrics["reconstruction_loss"])
                         kld_history.append(metrics["kld_loss"])
+                        if viewer is not None and (
+                                batch_index == 0
+                                or ((batch_index + 1) % VIEWER_UPDATE_STEP == 0 and config.verbose)):
+                            viewer.set_voxels(output[0])
                         if config.verbose and (batch_index + 1) % VIEWER_UPDATE_STEP == 0:
                             print(f"epoch {epoch}, batch {batch_index}, reconstruction loss: "
                                   f"{float(metrics['reconstruction_loss']):.4f} (average: "
@@ -161,7 +174,10 @@ def train(config: Optional[TrainConfig] = None) -> dict:
         pass
     finally:
         logger.close()
-    return {"model": model, "opt": opt, "steps": steps, "step_s": list(profiler.times)}
+        if viewer is not None:
+            viewer.stop()
+    return {"model": model, "opt": opt, "steps": steps, "step_s": list(profiler.times),
+            "viewer": viewer}
 
 
 if __name__ == "__main__":

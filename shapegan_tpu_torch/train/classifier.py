@@ -12,7 +12,15 @@ saves the flax parameters as ``classifier`` and the Adam's state as
 a line ``epoch time loss accuracy`` of ``plots/classifier_training.csv``.
 ``continue`` restores both files and appends to the CSV; the epochs count
 from 0 again (the JAX trainer's rule). The convolutions are cuDNN's (no
-hand kernel runs).
+hand kernel runs). There is no viewer: ``gui`` and ``nogui`` change
+nothing, as in the JAX trainer.
+
+Data-parallel under ``python -m torch.distributed.run --nproc_per_node=N``,
+as the JAX trainer's mesh: ``gcd(N, B)`` ranks each take their rows of
+every batch (the batches in the dataset's order, as without ranks; the
+network has no BatchNorm, so no statistic crosses the ranks in the
+forward); the gradients, the loss and the accuracy are averaged over the
+data group before they are logged; rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -32,7 +40,21 @@ from shapegan_tpu_torch.models import flax_layers
 from shapegan_tpu_torch.models.classifier import Classifier
 from shapegan_tpu_torch.ops.coords import voxel_coordinate_grid
 from shapegan_tpu_torch.optim import Adam, load_optimizer_tree, optimizer_tree
-from shapegan_tpu_torch.train.common import CSVLogger, EpochTimer, StepProfiler, effective_batch_size
+from shapegan_tpu_torch.parallel.mesh import (
+    Mesh,
+    get_mesh,
+    init_from_env,
+    shard_batch,
+    tears_down_launch,
+)
+from shapegan_tpu_torch.train.common import (
+    CSVLogger,
+    EpochTimer,
+    StepProfiler,
+    average_over_data,
+    effective_batch_size,
+    idle_result,
+)
 
 BATCH_SIZE = 32
 LEARNING_RATE = 1e-4
@@ -58,17 +80,20 @@ def make_synthetic_class_dataset(count_per_class: int, resolution: int = 32, see
             np.asarray(labels, dtype=np.int32)[order], len(primitives))
 
 
-def make_step(model: Classifier, opt: Adam):
+def make_step(model: Classifier, opt: Adam, mesh: Optional[Mesh] = None):
     """``train_step(batch, labels)``: one update; returns the loss and the
-    accuracy."""
+    accuracy. Under a ``mesh`` (entered by the caller) ``batch`` and
+    ``labels`` are this rank's rows; the gradients, the loss and the
+    accuracy are averaged over the data group."""
     params = dict(model.named_parameters())
 
     def train_step(batch: torch.Tensor, labels: torch.Tensor) -> Dict[str, torch.Tensor]:
         logits = model(batch, return_logits=True)
         loss = F.cross_entropy(logits, labels.long())
-        opt.step(dict(zip(params, torch.autograd.grad(loss, list(params.values())))))
+        grads = torch.autograd.grad(loss, list(params.values()))
+        opt.step(average_over_data(mesh, dict(zip(params, grads))))
         accuracy = (logits.detach().argmax(dim=1) == labels).float().mean()
-        return {"loss": loss.detach(), "accuracy": accuracy}
+        return average_over_data(mesh, {"loss": loss.detach(), "accuracy": accuracy})
 
     return train_step
 
@@ -85,17 +110,19 @@ def restore(model: Classifier, opt: Adam, base: str) -> None:
         load_optimizer_tree(opt, restored, functools.partial(flax_layers.from_jax, model))
 
 
+@tears_down_launch
 def train(config: Optional[TrainConfig] = None) -> dict:
     """Train for ``epochs``; returns the model, its optimizer, the number of
     steps and their times."""
     config = config or parse_cli()
-    if not config.nogui:
-        raise SystemExit("the GL viewer is not ported: run without 'gui' (nogui is the default)")
-    device = resolve_device(config)
+    device = init_from_env(resolve_device(config))
     base = config.model_dir
     volumes, labels, label_count = make_synthetic_class_dataset(config.synthetic or 64,
                                                                 seed=config.seed)
     batch_size = effective_batch_size(config.batch_size or BATCH_SIZE, len(volumes))
+    mesh = get_mesh(batch_size=batch_size)
+    if not mesh.member:
+        return idle_result(mesh)
     model = Classifier(label_count, torch.Generator().manual_seed(config.seed), device)
     opt = Adam(dict(model.named_parameters()), LEARNING_RATE)
     if config.resume:
@@ -103,27 +130,30 @@ def train(config: Optional[TrainConfig] = None) -> dict:
     to_jax = functools.partial(flax_layers.to_jax, model)
     volumes = torch.tensor(volumes, device=device)
     labels = torch.tensor(labels, device=device)
-    train_step = make_step(model, opt)
+    train_step = make_step(model, opt, mesh)
 
     logger = CSVLogger(f"{config.plot_dir}/classifier_training.csv", resume=config.resume)
     profiler = StepProfiler(device)
     steps = 0
     try:
-        for epoch in range(config.epochs) if config.epochs else itertools.count():
-            losses, accuracies = [], []
-            with EpochTimer() as timer:
-                for start in range(0, len(volumes) - batch_size + 1, batch_size):
-                    with profiler:
-                        metrics = train_step(volumes[start:start + batch_size],
-                                             labels[start:start + batch_size])
-                    steps += 1
-                    losses.append(float(metrics["loss"]))
-                    accuracies.append(float(metrics["accuracy"]))
-            print(f"Epoch {epoch} ({timer.duration:.1f}s): loss {np.mean(losses):.4f}, "
-                  f"accuracy {np.mean(accuracies):.3f}", flush=True)
-            checkpoints.save(to_jax(dict(model.named_parameters())), NAME, base=base)
-            checkpoints.save(optimizer_tree(opt, to_jax), NAME + "_optimizer", base=base)
-            logger.write(epoch, timer.duration, float(np.mean(losses)), float(np.mean(accuracies)))
+        with mesh:
+            for epoch in range(config.epochs) if config.epochs else itertools.count():
+                losses, accuracies = [], []
+                with EpochTimer() as timer:
+                    for start in range(0, len(volumes) - batch_size + 1, batch_size):
+                        rows = slice(start, start + batch_size)
+                        with profiler:
+                            metrics = train_step(shard_batch(mesh, volumes[rows]),
+                                                 shard_batch(mesh, labels[rows]))
+                        steps += 1
+                        losses.append(float(metrics["loss"]))
+                        accuracies.append(float(metrics["accuracy"]))
+                print(f"Epoch {epoch} ({timer.duration:.1f}s): loss {np.mean(losses):.4f}, "
+                      f"accuracy {np.mean(accuracies):.3f}", flush=True)
+                checkpoints.save(to_jax(dict(model.named_parameters())), NAME, base=base)
+                checkpoints.save(optimizer_tree(opt, to_jax), NAME + "_optimizer", base=base)
+                logger.write(epoch, timer.duration, float(np.mean(losses)),
+                             float(np.mean(accuracies)))
     except KeyboardInterrupt:
         pass
     finally:

@@ -10,7 +10,8 @@ batch gathered there, when it fits :data:`RESIDENT_MAX_BYTES`; otherwise
 streamed from the host through pinned buffers. Both give the JAX package's
 shuffle order. Under a mesh of ranks (:mod:`shapegan_tpu_torch.parallel.mesh`)
 every rank draws the same global order and takes its rows of each batch;
-the CSV logs and checkpoints are written by rank 0 alone.
+the CSV logs and checkpoints are written by rank 0 alone, and only rank 0
+opens the live viewer (:func:`make_viewer`).
 """
 
 from __future__ import annotations
@@ -67,6 +68,25 @@ def idle_result(mesh: Mesh) -> dict:
     divides over fewer ranks than were started): it trains nothing."""
     print(f"rank {mesh.rank} is outside the {mesh}: idle", flush=True)
     return {"idle": True}
+
+
+def make_viewer(nogui: bool):
+    """The live viewer of a training run (the JAX package's rule): None
+    under ``nogui``, else a :class:`~shapegan_tpu_torch.render.viewer.MeshRenderer`
+    with its window's render thread, or None with a printed reason where
+    one cannot be made; it never raises, so a host without GL trains
+    headless (where only the window is missing, the render thread prints
+    why and the viewer keeps its scene). Under ranks only the writer rank
+    gets one."""
+    if nogui or not is_writer():
+        return None
+    try:
+        from shapegan_tpu_torch.render.viewer import MeshRenderer
+
+        return MeshRenderer()
+    except Exception as e:
+        print(f"Viewer unavailable ({type(e).__name__}: {e}); continuing headless.")
+        return None
 
 
 def effective_batch_size(requested: int, dataset_len: int) -> int:

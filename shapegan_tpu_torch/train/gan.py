@@ -23,7 +23,15 @@ restores both files and resumes at the epoch count the CSV records; without
 The latents are drawn on the device from a ``torch.Generator`` seeded per
 epoch (not the JAX trainer's noise); the steps take them as arguments, so a
 test can hand both packages the same. The convolutions are cuDNN's (no hand
-kernel runs). The sharded branch and the GL viewer are not ported.
+kernel runs). With ``gui`` the live viewer (``train.common.make_viewer``)
+shows the G step's first fake volume after every batch.
+
+Data-parallel under ``python -m torch.distributed.run --nproc_per_node=N``,
+as the JAX trainer's mesh: ``gcd(N, B)`` ranks each draw the global batch's
+latents from the same seeded generator and take their rows of them and of
+every voxel batch; the generator's BatchNorm takes the global batch's
+statistics (summed over the data group); the gradients and the predictions
+are averaged over the data group; rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -36,13 +44,23 @@ from shapegan_tpu_torch import LATENT_CODE_SIZE, checkpoints
 from shapegan_tpu_torch.core.config import TrainConfig, parse_cli, resolve_device
 from shapegan_tpu_torch.models.gan import Discriminator, Generator
 from shapegan_tpu_torch.optim import Adam
+from shapegan_tpu_torch.parallel.mesh import (
+    Mesh,
+    get_mesh,
+    init_from_env,
+    shard_batch,
+    tears_down_launch,
+)
 from shapegan_tpu_torch.train.common import (
     CSVLogger,
     EpochTimer,
     RollingHistory,
     StepProfiler,
+    average_over_data,
     effective_batch_size,
+    idle_result,
     load_network,
+    make_viewer,
     make_voxel_batches,
     maybe_print_slice,
     network_payload,
@@ -69,7 +87,8 @@ def create_states(seed: int = 0, device="cpu") -> Tuple[Generator, Discriminator
             Adam(dict(d_net.named_parameters()), DISCRIMINATOR_LR))
 
 
-def make_steps(g_net: Generator, d_net: Discriminator, g_opt: Adam, d_opt: Adam):
+def make_steps(g_net: Generator, d_net: Discriminator, g_opt: Adam, d_opt: Adam,
+               mesh: Optional[Mesh] = None):
     """The trainer's steps, one of each a batch, in this order:
 
     * ``g_step(z)`` — one generator update from latents ``z`` [B, 128];
@@ -77,23 +96,30 @@ def make_steps(g_net: Generator, d_net: Discriminator, g_opt: Adam, d_opt: Adam)
     * ``d_step(batch, z)`` — two discriminator updates, on fakes from ``z``
       (the updated generator, its BatchNorm update thrown away), then on the
       real ``batch``; returns the mean predictions.
+
+    Under a ``mesh`` (entered by the caller, so BatchNorm takes the global
+    batch's statistics) ``z`` is the global batch's and ``batch`` this
+    rank's rows; the fakes are this rank's rows, and the gradients and the
+    predictions are averaged over the data group.
     """
     g_params = dict(g_net.named_parameters())
 
     def g_step(z: torch.Tensor) -> torch.Tensor:
-        fake = g_net(z, train=True)
+        fake = g_net(shard_batch(mesh, z), train=True)
         loss = -torch.log(d_net(fake).clamp(1e-7, 1.0)).mean()
-        g_opt.step(dict(zip(g_params, torch.autograd.grad(loss, list(g_params.values())))))
+        grads = torch.autograd.grad(loss, list(g_params.values()))
+        g_opt.step(average_over_data(mesh, dict(zip(g_params, grads))))
         return fake.detach()
 
     def d_step(batch: torch.Tensor, z: torch.Tensor) -> Dict[str, torch.Tensor]:
         with torch.no_grad():
-            fake = g_net(z, train=True, update_stats=False)
+            fake = g_net(shard_batch(mesh, z), train=True, update_stats=False)
         grads, pred_fake = bce_grads(d_net, fake, 0.0)
-        d_opt.step(grads)
+        d_opt.step(average_over_data(mesh, grads))
         grads, pred_real = bce_grads(d_net, batch, 1.0)
-        d_opt.step(grads)
-        return {"pred_fake": pred_fake.mean(), "pred_real": pred_real.mean()}
+        d_opt.step(average_over_data(mesh, grads))
+        return average_over_data(mesh, {"pred_fake": pred_fake.mean(),
+                                        "pred_real": pred_real.mean()})
 
     return g_step, d_step
 
@@ -123,13 +149,12 @@ def print_sample(g_net: Generator, noise: torch.Generator, device) -> None:
         maybe_print_slice(g_net(z, train=False)[0], True)
 
 
+@tears_down_launch
 def train(config: Optional[TrainConfig] = None) -> dict:
     """Train until ``epochs``; returns the networks, their optimizers, the
     number of steps and their times."""
     config = config or parse_cli()
-    if not config.nogui:
-        raise SystemExit("the GL viewer is not ported: run without 'gui' (nogui is the default)")
-    device = resolve_device(config)
+    device = init_from_env(resolve_device(config))
     base = config.model_dir
     g_net, d_net, g_opt, d_opt = create_states(config.seed, device)
     if config.resume:
@@ -137,50 +162,61 @@ def train(config: Optional[TrainConfig] = None) -> dict:
 
     dataset = resolve_voxel_dataset(config, resolution=32)
     batch_size = effective_batch_size(config.batch_size or BATCH_SIZE, len(dataset))
-    batches = make_voxel_batches(dataset, batch_size, config.seed, config.extras, device)
-    g_step, d_step = make_steps(g_net, d_net, g_opt, d_opt)
+    mesh = get_mesh(batch_size=batch_size)
+    if not mesh.member:
+        return idle_result(mesh)
+    batches = make_voxel_batches(dataset, batch_size, config.seed, config.extras, device, mesh)
+    g_step, d_step = make_steps(g_net, d_net, g_opt, d_opt, mesh)
     save_every = int(config.extras.get("save_every", 1))
 
     logger = CSVLogger(f"{config.plot_dir}/gan_training.csv", resume=config.resume)
+    viewer = make_viewer(config.nogui)
     history_fake, history_real = RollingHistory(), RollingHistory()
     profiler = StepProfiler(device)
     noise = torch.Generator(device=device)
     steps = 0
     try:
-        for epoch in epoch_range(config, logger.first_epoch):
-            # Epoch-deterministic noise, so a resumed run replays its epochs.
-            noise.manual_seed((config.seed + 1) * 1_000_003 + epoch)
-            batches.set_epoch(epoch)
-            with EpochTimer() as timer:
-                for batch_index, batch in enumerate(batches):
-                    z_g = torch.randn((batch_size, LATENT_CODE_SIZE), generator=noise, device=device)
-                    z_d = torch.randn((batch_size, LATENT_CODE_SIZE), generator=noise, device=device)
-                    with profiler:
-                        g_step(z_g)
-                        metrics = d_step(batch, z_d)
-                    steps += 1
-                    history_fake.append(metrics["pred_fake"])
-                    history_real.append(metrics["pred_real"])
-                    if config.verbose:
-                        print(f"Epoch {epoch}, batch {batch_index}: prediction on fake samples: "
-                              f"{history_fake.mean:.4f}, prediction on valid samples: "
-                              f"{history_real.mean:.4f}")
+        with mesh:
+            for epoch in epoch_range(config, logger.first_epoch):
+                # Epoch-deterministic noise, so a resumed run replays its epochs.
+                noise.manual_seed((config.seed + 1) * 1_000_003 + epoch)
+                batches.set_epoch(epoch)
+                with EpochTimer() as timer:
+                    for batch_index, batch in enumerate(batches):
+                        z_g = torch.randn((batch_size, LATENT_CODE_SIZE), generator=noise,
+                                          device=device)
+                        z_d = torch.randn((batch_size, LATENT_CODE_SIZE), generator=noise,
+                                          device=device)
+                        with profiler:
+                            fake = g_step(z_g)
+                            metrics = d_step(batch, z_d)
+                        steps += 1
+                        history_fake.append(metrics["pred_fake"])
+                        history_real.append(metrics["pred_real"])
+                        if viewer is not None:
+                            viewer.set_voxels(fake[0])
+                        if config.verbose:
+                            print(f"Epoch {epoch}, batch {batch_index}: prediction on fake "
+                                  f"samples: {history_fake.mean:.4f}, prediction on valid "
+                                  f"samples: {history_real.mean:.4f}")
 
-            snapshot = epoch % SNAPSHOT_EVERY == 0
-            if (epoch + 1) % save_every == 0 or snapshot or epoch == (config.epochs or 0) - 1:
-                save(g_net, d_net, g_opt, d_opt, G_NAME, D_NAME, base, epoch, snapshot)
-            if config.show_slice:
-                print_sample(g_net, noise, device)
-            print(f"Epoch {epoch} ({timer.duration:.1f}s, {profiler.mean_step_time * 1000:.1f} "
-                  f"ms/step), prediction on fake: {history_fake.mean:.4f}, on real: "
-                  f"{history_real.mean:.4f}", flush=True)
-            logger.write(epoch, timer.duration, history_fake.mean, history_real.mean)
+                snapshot = epoch % SNAPSHOT_EVERY == 0
+                if (epoch + 1) % save_every == 0 or snapshot or epoch == (config.epochs or 0) - 1:
+                    save(g_net, d_net, g_opt, d_opt, G_NAME, D_NAME, base, epoch, snapshot)
+                if config.show_slice:
+                    print_sample(g_net, noise, device)
+                print(f"Epoch {epoch} ({timer.duration:.1f}s, "
+                      f"{profiler.mean_step_time * 1000:.1f} ms/step), prediction on fake: "
+                      f"{history_fake.mean:.4f}, on real: {history_real.mean:.4f}", flush=True)
+                logger.write(epoch, timer.duration, history_fake.mean, history_real.mean)
     except KeyboardInterrupt:
         pass
     finally:
         logger.close()
+        if viewer is not None:
+            viewer.stop()
     return {"generator": g_net, "discriminator": d_net, "g_opt": g_opt, "d_opt": d_opt,
-            "steps": steps, "step_s": list(profiler.times)}
+            "steps": steps, "step_s": list(profiler.times), "viewer": viewer}
 
 
 if __name__ == "__main__":

@@ -35,8 +35,9 @@ as the JAX trainer's mesh: ``get_mesh(batch_size=B)`` takes ``gcd(N, B)``
 ranks, each draws the global batch's latents from the same seeded
 generator, evaluates its rows of the batch through
 :func:`~shapegan_tpu_torch.ops.sdf_mlp_kernels.apply_grid_sharded` and
-averages the gradients over the data group; rank 0 writes the files. The
-GL viewer is not ported.
+averages the gradients over the data group; rank 0 writes the files. With
+``gui`` the live viewer (``train.common.make_viewer``, rank 0's) shows the
+G step's first fake volume every 20th batch.
 """
 
 from __future__ import annotations
@@ -68,6 +69,7 @@ from shapegan_tpu_torch.parallel.mesh import (
     ambient_mesh,
     get_mesh,
     init_from_env,
+    tears_down_launch,
 )
 from shapegan_tpu_torch.train.common import (
     CSVLogger,
@@ -79,6 +81,7 @@ from shapegan_tpu_torch.train.common import (
     idle_result,
     load_critic,
     load_generator,
+    make_viewer,
     make_voxel_batches,
     maybe_print_slice,
     resolve_voxel_dataset,
@@ -255,12 +258,11 @@ def epoch_range(config: TrainConfig, first_epoch: int):
     return range(first_epoch, config.epochs) if config.epochs else itertools.count(first_epoch)
 
 
+@tears_down_launch
 def train(config: Optional[TrainConfig] = None) -> dict:
     """Train until ``epochs`` (or the divergence guard); returns the models,
     the number of steps (each a G step and a D step) and their times."""
     config = config or parse_cli()
-    if not config.nogui:
-        raise SystemExit("the GL viewer is not ported: run without 'gui' (nogui is the default)")
     device = init_from_env(resolve_device(config))
     base = config.model_dir
     net, discriminator, g_opt, d_opt = create_states(config.seed, device)
@@ -283,6 +285,7 @@ def train(config: Optional[TrainConfig] = None) -> dict:
     g_step, d_step = make_steps(net, discriminator, g_opt, d_opt, mesh=mesh)
 
     logger = CSVLogger(f"{config.plot_dir}/hybrid_gan_training.csv", resume=config.resume)
+    viewer = make_viewer(config.nogui)
     history_fake, history_real = RollingHistory(), RollingHistory()
     profiler = StepProfiler(device)
     noise = torch.Generator(device=device)
@@ -306,6 +309,8 @@ def train(config: Optional[TrainConfig] = None) -> dict:
                         history_fake.append(metrics["pred_fake"])
                         history_real.append(metrics["pred_real"])
                         if batch_index % SLICE_EVERY == 0:
+                            if viewer is not None:
+                                viewer.set_voxels(fake[0])
                             maybe_print_slice(fake[0], config.show_slice, scale=SDF_CLIPPING)
                         if config.verbose:
                             print(f"Epoch {epoch}, batch {batch_index}: prediction on fake "
@@ -326,8 +331,10 @@ def train(config: Optional[TrainConfig] = None) -> dict:
         pass
     finally:
         logger.close()
+        if viewer is not None:
+            viewer.stop()
     return {"net": net, "discriminator": discriminator, "steps": steps,
-            "step_s": list(profiler.times)}
+            "step_s": list(profiler.times), "viewer": viewer}
 
 
 if __name__ == "__main__":

@@ -22,8 +22,9 @@ a stash set, the stash forward and stash backward kernels). With ``cpu``
 their plain versions run on the CPU; without it the trainer needs CUDA. The noise (latents and
 the penalty's interpolation coefficients) is drawn on the device from a
 ``torch.Generator`` seeded per epoch, so it is not the JAX trainer's noise;
-the steps take it as arguments, so a test can hand both the same. The GL
-viewer is not ported: ``nogui`` is the only mode.
+the steps take it as arguments, so a test can hand both the same. With
+``gui`` the live viewer (``train.common.make_viewer``, rank 0's) shows the
+G step's first fake volume every 50th batch.
 
 Data-parallel under ``python -m torch.distributed.run --nproc_per_node=N``
 (NCCL, one card a rank; gloo with ``cpu``), as the JAX trainer under its
@@ -50,7 +51,13 @@ from shapegan_tpu_torch.ops import sdf_mlp
 from shapegan_tpu_torch.ops.coords import voxel_coordinates
 from shapegan_tpu_torch.ops.losses import gradient_penalty
 from shapegan_tpu_torch.optim import RMSprop
-from shapegan_tpu_torch.parallel.mesh import Mesh, get_mesh, init_from_env, shard_batch
+from shapegan_tpu_torch.parallel.mesh import (
+    Mesh,
+    get_mesh,
+    init_from_env,
+    shard_batch,
+    tears_down_launch,
+)
 from shapegan_tpu_torch.train.common import (
     CSVLogger,
     EpochTimer,
@@ -61,6 +68,7 @@ from shapegan_tpu_torch.train.common import (
     idle_result,
     load_critic,
     load_generator,
+    make_viewer,
     make_voxel_batches,
     maybe_print_slice,
     resolve_voxel_dataset,
@@ -161,11 +169,10 @@ def _optimizer_tree(g_opt: RMSprop, d_opt: RMSprop) -> dict:
     return {"g": ({"nu": g_opt.nu},), "d": ({"nu": progressive_gan.params_to_jax(d_opt.nu)},)}
 
 
+@tears_down_launch
 def train(config: Optional[TrainConfig] = None) -> dict:
     """Train one growth iteration; returns the models and the step times."""
     config = config or parse_cli()
-    if not config.nogui:
-        raise SystemExit("the GL viewer is not ported: run without 'gui' (nogui is the default)")
     device = init_from_env(resolve_device(config))
     iteration = config.iteration
     resolution = RESOLUTIONS[iteration]
@@ -206,6 +213,7 @@ def train(config: Optional[TrainConfig] = None) -> dict:
 
     logger = CSVLogger(f"{config.plot_dir}/hybrid_gan_training_{iteration}.csv",
                        resume=config.resume)
+    viewer = make_viewer(config.nogui)
     history_fake, history_real, history_gp = RollingHistory(), RollingHistory(), RollingHistory()
     g_profiler, d_profiler = StepProfiler(device), StepProfiler(device)
     noise = torch.Generator(device=device)
@@ -227,6 +235,8 @@ def train(config: Optional[TrainConfig] = None) -> dict:
                             with g_profiler:
                                 fake = g_step(z, fade)
                             if batch_index % 50 == 0:
+                                if viewer is not None:
+                                    viewer.set_voxels(fake[0])
                                 maybe_print_slice(fake[0], config.show_slice, scale=SDF_CLIPPING)
                         z = torch.randn((batch_size, LATENT_CODE_SIZE), generator=noise,
                                         device=device)
@@ -265,7 +275,9 @@ def train(config: Optional[TrainConfig] = None) -> dict:
         pass
     finally:
         logger.close()
-    return {"net": net, "discriminator": discriminator,
+        if viewer is not None:
+            viewer.stop()
+    return {"net": net, "discriminator": discriminator, "viewer": viewer,
             "g_step_s": list(g_profiler.times), "d_step_s": list(d_profiler.times)}
 
 

@@ -58,7 +58,13 @@ from shapegan_tpu_torch.models.point_sdf_net import PointNet, SDFGenerator
 from shapegan_tpu_torch.ops.losses import gradient_penalty
 from shapegan_tpu_torch.ops.point_gen_kernels import generate_best
 from shapegan_tpu_torch.optim import RMSprop
-from shapegan_tpu_torch.parallel.mesh import Mesh, get_mesh, init_from_env, shard_batch
+from shapegan_tpu_torch.parallel.mesh import (
+    Mesh,
+    get_mesh,
+    init_from_env,
+    shard_batch,
+    tears_down_launch,
+)
 from shapegan_tpu_torch.train.common import (
     CSVLogger,
     EpochTimer,
@@ -220,6 +226,7 @@ def _replicate(mesh: Mesh, generator, discriminator, g_opt: RMSprop, d_opt: RMSp
                     *g_opt.nu.values(), *d_opt.nu.values()])
 
 
+@tears_down_launch
 def train(config: Optional[TrainConfig] = None, curriculum=None) -> dict:
     """Run the curriculum; returns the models, the number of steps this call
     ran (``steps``; a resume skips the completed epochs' steps) and the D

@@ -34,8 +34,19 @@ through :func:`~shapegan_tpu_torch.ops.point_gen_kernels.generate_best`
 module). The G step differentiates :func:`refine` itself in float32: the
 loss's gradient flows through the spatial gradient, a double backward
 through the module (no kernel). The steps take their noise as arguments,
-so a test can hand both packages the same. Not ported: the per-stage
-device mesh (one card).
+so a test can hand both packages the same.
+
+Data-parallel under ``python -m torch.distributed.run --nproc_per_node=N``,
+as the JAX trainer's per-stage mesh and the point GAN's
+(:mod:`shapegan_tpu_torch.train.point_gan`): each curriculum stage trains
+on ``gcd(N, stage batch)`` ranks, each on its rows of every batch and of
+the step's noise (drawn for the global batch from the same seeded
+generator); the D step's second evaluation runs the generator kernel on a
+rank's rows, the G step's double backward too, and the gradients and the
+metrics are averaged over the data group. Ranks outside a stage's mesh
+wait through it and keep the step count; rank 0's networks and moments go
+to every rank at each stage change and at the end; rank 0 writes the
+files.
 """
 
 from __future__ import annotations
@@ -52,7 +63,19 @@ from shapegan_tpu_torch.models.point_sdf_net import PointNet, SDFGenerator
 from shapegan_tpu_torch.ops.losses import gradient_penalty
 from shapegan_tpu_torch.ops.point_gen_kernels import generate_best
 from shapegan_tpu_torch.optim import RMSprop
-from shapegan_tpu_torch.train.common import CSVLogger, EpochTimer, StepProfiler
+from shapegan_tpu_torch.parallel.mesh import (
+    Mesh,
+    get_mesh,
+    init_from_env,
+    shard_batch,
+    tears_down_launch,
+)
+from shapegan_tpu_torch.train.common import (
+    CSVLogger,
+    EpochTimer,
+    StepProfiler,
+    average_over_data,
+)
 from shapegan_tpu_torch.train.point_gan import D_NAME as STAGE1_D_NAME
 from shapegan_tpu_torch.train.point_gan import G_NAME as STAGE1_G_NAME
 from shapegan_tpu_torch.train.point_gan import (
@@ -62,6 +85,7 @@ from shapegan_tpu_torch.train.point_gan import (
     _load_module,
     _load_optimizers,
     _optimizer_tree,
+    _replicate,
     create_models,
     resolve_point_dataset,
     to_device,
@@ -157,7 +181,8 @@ def generator_grads(generator: SDFGenerator, discriminator: PointNet, u_pos: tor
     return dict(zip(params, grads)), loss.detach()
 
 
-def make_steps(generator: SDFGenerator, discriminator: PointNet, g_opt: RMSprop, d_opt: RMSprop):
+def make_steps(generator: SDFGenerator, discriminator: PointNet, g_opt: RMSprop, d_opt: RMSprop,
+               mesh: Optional[Mesh] = None):
     """The two steps:
 
     * ``d_step(real, noise)`` — one critic update on the real cloud (u_pos,
@@ -166,10 +191,15 @@ def make_steps(generator: SDFGenerator, discriminator: PointNet, g_opt: RMSprop,
       ``keep_real``, ``keep_fake``, ``alpha``); returns the metrics;
     * ``g_step(u_pos, noise)`` — one generator update (``noise``: ``z``,
       ``jitter``, ``keep``); returns its loss.
+
+    Under a ``mesh`` the clouds are this rank's rows and the noise the
+    global batch's; the gradients and the metrics are averaged over the
+    data group.
     """
     g_params = dict(generator.named_parameters())
 
     def d_step(real: Cloud, noise: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        noise = {k: shard_batch(mesh, v) for k, v in noise.items()}
         z = noise["z"]
         with torch.no_grad():  # refine's spatial gradient turns autograd on for itself
             fake = refine(generator, real[0], z, noise["jitter"],
@@ -177,14 +207,15 @@ def make_steps(generator: SDFGenerator, discriminator: PointNet, g_opt: RMSprop,
         fake = tuple(t.detach() for t in fake)
         grads, metrics = critic_grads(discriminator, real, fake, noise["keep_real"],
                                       noise["keep_fake"], noise["alpha"])
-        d_opt.step(grads)
-        return metrics
+        d_opt.step(average_over_data(mesh, grads))
+        return average_over_data(mesh, metrics)
 
     def g_step(u_pos: torch.Tensor, noise: Dict[str, torch.Tensor]) -> torch.Tensor:
+        noise = {k: shard_batch(mesh, v) for k, v in noise.items()}
         grads, loss = generator_grads(generator, discriminator, u_pos, noise["z"], noise["jitter"],
                                       noise["keep"])
-        g_opt.step(grads)
-        return loss
+        g_opt.step(average_over_data(mesh, grads))
+        return average_over_data(mesh, {"loss": loss})["loss"]
 
     return d_step, g_step
 
@@ -221,12 +252,13 @@ def restore_models(generator: SDFGenerator, discriminator: PointNet, base: str,
     return loaded
 
 
+@tears_down_launch
 def train(config: Optional[TrainConfig] = None, curriculum=None) -> dict:
     """Run the curriculum; returns the models, the files the run started
     from (``loaded``), the number of steps this call ran (``steps``; a
     resume skips the completed epochs' steps) and the D and G step times."""
     config = config or parse_cli()
-    device = resolve_device(config)
+    device = init_from_env(resolve_device(config))
     base = config.model_dir
     generator, discriminator = create_models(config.seed, device)
     loaded = restore_models(generator, discriminator, base, config.resume)
@@ -237,7 +269,7 @@ def train(config: Optional[TrainConfig] = None, curriculum=None) -> dict:
         loaded.append(OPT_NAME)
 
     dataset = resolve_point_dataset(config)
-    d_step, g_step = make_steps(generator, discriminator, g_opt, d_opt)
+    everyone = get_mesh(points=1)
     logger = CSVLogger(f"{config.plot_dir}/point_gan_ref_training.csv", resume=config.resume)
     d_profiler, g_profiler = StepProfiler(device), StepProfiler(device)
     noise = torch.Generator(device=device)
@@ -255,9 +287,13 @@ def train(config: Optional[TrainConfig] = None, curriculum=None) -> dict:
                 print(f"skipping curriculum stage ({num_points} pts, batch {batch_size}): "
                       f"dataset has only {len(dataset)} shapes")
                 continue
+            # The stage's mesh: the batch decides how many ranks train it.
+            _replicate(everyone, generator, discriminator, g_opt, d_opt)
+            mesh = get_mesh(batch_size=batch_size)
+            d_step, g_step = make_steps(generator, discriminator, g_opt, d_opt, mesh)
             for epoch in range(1, stage_epochs + 1):
                 epoch_index += 1
-                if epoch_index <= completed_epochs:
+                if epoch_index <= completed_epochs or not mesh.member:
                     num_steps += len(loader)
                     continue
                 loader.set_epoch(epoch_index)
@@ -266,7 +302,8 @@ def train(config: Optional[TrainConfig] = None, curriculum=None) -> dict:
                     for uniform, surface in loader:
                         num_steps += 1
                         steps_run += 1
-                        u, s = to_device(uniform, device), to_device(surface, device)
+                        u = to_device(shard_batch(mesh, uniform), device)
+                        s = to_device(shard_batch(mesh, surface), device)
                         real = (u[..., :3], u[..., 3:], s[..., :3], s[..., 3:])
                         d_noise, g_noise = step_noise(noise, config.seed, num_steps, batch_size,
                                                       num_points, device)
@@ -286,6 +323,7 @@ def train(config: Optional[TrainConfig] = None, curriculum=None) -> dict:
                 checkpoints.save(point_sdf_net.params_to_jax(dict(discriminator.named_parameters())),
                                  D_NAME, base=base)
                 checkpoints.save(_optimizer_tree(g_opt, d_opt), OPT_NAME, base=base)
+        _replicate(everyone, generator, discriminator, g_opt, d_opt)
     finally:
         logger.close()
     return {"generator": generator, "discriminator": discriminator, "loaded": loaded,

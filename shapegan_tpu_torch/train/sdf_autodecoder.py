@@ -40,9 +40,18 @@ and every rank runs the single-device epoch alike. The saved table and its
 moments are gathered to rank 0 in global shape order; ``continue`` scatters
 them back.
 
-Not ported: the GL viewer (``gui``) and ``lax.scan`` over the epoch: here
-each step is a Python call, the epoch's index batches go to the device
-once, and the losses stay there until the epoch's end.
+With ``gui`` the run takes the JAX trainer's viewer branch: never the
+sharded epoch; the batches are drawn lazily, and every 400th batch (from
+the first) a shape index is drawn from the same generator, between the
+batches' own draws (so the padded last batch is the JAX gui run's, not the
+headless run's), and rank 0's live viewer (``train.common.make_viewer``)
+shows that shape's mesh at 64^3 (the points kernel, then marching
+tetrahedra on the device). Every rank draws the index, so the ranks' runs
+stay alike.
+
+Not ported: ``lax.scan`` over the epoch: here each step is a Python call,
+the epoch's index batches go to the device once, and the losses stay there
+until the epoch's end.
 """
 
 from __future__ import annotations
@@ -63,12 +72,20 @@ from shapegan_tpu_torch.models.sdf_net import SDFNet
 from shapegan_tpu_torch.ops import sdf_mlp
 from shapegan_tpu_torch.ops.sdf_mlp_kernels import apply_rowwise
 from shapegan_tpu_torch.optim import Adam
-from shapegan_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, get_mesh, init_from_env, world
+from shapegan_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    Mesh,
+    get_mesh,
+    init_from_env,
+    tears_down_launch,
+    world,
+)
 from shapegan_tpu_torch.train.common import (
     CSVLogger,
     EpochTimer,
     effective_batch_size,
     idle_result,
+    make_viewer,
 )
 
 POINTCLOUD_SIZE = 200000
@@ -77,6 +94,7 @@ BATCH_SIZE = 20000
 SDF_CUTOFF = 0.1
 SIGMA = 0.01
 LEARNING_RATE = 1e-5
+VIEWER_UPDATE_BATCHES = 400
 
 NET_NAME = "sdf_net"
 OPT_NAME = "sdf_net_optimizer"
@@ -190,6 +208,35 @@ def run_epoch(params: Dict[str, torch.Tensor], latent_codes: torch.Tensor, net_o
     return torch.stack(losses)
 
 
+def _viewer_epoch(net: SDFNet, latent_codes: torch.Tensor, net_opt, code_opt,
+                  points: torch.Tensor, sdf: torch.Tensor, signs: np.ndarray, batch_size: int,
+                  pointcloud_size: int, np_rng: np.random.Generator, viewer, step_ms: list,
+                  steps: list) -> np.ndarray:
+    """The JAX trainer's viewer epoch: one step a batch, the batches drawn
+    lazily from ``np_rng``, and after every :data:`VIEWER_UPDATE_BATCHES`-th
+    batch (from the first) a shape index drawn from ``np_rng`` too, whose
+    mesh at 64^3 goes to ``viewer`` (when there is one: the index is drawn
+    on every rank). Appends the epoch's mean step time (the meshing
+    included) and step count; returns the losses."""
+    model_count = latent_codes.shape[0]
+    losses = []
+    t0 = time.perf_counter()
+    for batch_index, drawn in enumerate(create_batches(signs, batch_size, np_rng)):
+        batch = torch.tensor(drawn[None], dtype=torch.int64, device=points.device)
+        losses.append(run_epoch(net.param_dict(), latent_codes, net_opt, code_opt, points, sdf,
+                                batch, pointcloud_size))
+        if batch_index % VIEWER_UPDATE_BATCHES == 0:
+            shape = int(np_rng.integers(model_count))
+            if viewer is not None:
+                mesh = net.get_mesh(latent_codes.detach()[shape], voxel_resolution=64)
+                if mesh is not None:
+                    viewer.set_mesh(mesh)
+    loss_values = torch.cat(losses).cpu().numpy()
+    step_ms.append((time.perf_counter() - t0) * 1e3 / len(losses))
+    steps.append(len(losses))
+    return loss_values
+
+
 def _code_rows(code_opt: Adam, latent_codes: torch.Tensor, rows: slice) -> Adam:
     """An Adam over ``latent_codes`` (a rank's rows) holding ``rows`` of the
     global table's moments and its step count."""
@@ -233,12 +280,11 @@ def _load_optimizers(net_opt: Adam, code_opt: Adam, base: str) -> None:
                          "nu": {"codes": codes["nu"]}})
 
 
+@tears_down_launch
 def train(config: Optional[TrainConfig] = None) -> dict:
     """Train; returns the network, the latent table, each epoch's step
     count and mean step time, and the shard count of the epoch."""
     config = config or parse_cli()
-    if not config.nogui:
-        raise SystemExit("the GL viewer is not ported: run without 'gui' (nogui is the default)")
     device = init_from_env(resolve_device(config))
     base = config.model_dir
 
@@ -250,8 +296,9 @@ def train(config: Optional[TrainConfig] = None) -> dict:
 
     # The shape-sharded epoch over the largest rank count that divides both
     # the shape count and the batch (the JAX trainer's rule); each shard
-    # must hold both SDF signs, else every rank runs the single epoch.
-    shards = math.gcd(math.gcd(world(), model_count), batch_size)
+    # must hold both SDF signs, else every rank runs the single epoch. A
+    # gui run never takes it.
+    shards = math.gcd(math.gcd(world(), model_count), batch_size) if config.nogui else 1
     mesh = None
     if shards > 1:
         try:
@@ -310,26 +357,32 @@ def train(config: Optional[TrainConfig] = None) -> dict:
         code_opt = _code_rows(code_opt, latent_codes, code_rows)
 
     logger = CSVLogger(f"{config.plot_dir}/sdf_net_training.csv", resume=config.resume)
+    viewer = make_viewer(config.nogui)
     epochs = range(logger.first_epoch, config.epochs) if config.epochs else count(logger.first_epoch)
     step_ms, steps = [], []
     try:
         for epoch in epochs:
             np_rng = np.random.default_rng((config.seed, epoch))
             with EpochTimer() as timer:
-                if mesh is None:
-                    drawn = np.stack(list(create_batches(signs, batch_size, np_rng)))
+                if not config.nogui:
+                    loss_values = _viewer_epoch(net, latent_codes, net_opt, code_opt, points,
+                                                sdf, signs, batch_size, pointcloud_size, np_rng,
+                                                viewer, step_ms, steps)
                 else:
-                    drawn = create_sharded_batches(signs, batch_size, shards,
-                                                   np_rng)[:, mesh.data_index]
-                batches = torch.tensor(drawn, dtype=torch.int64, device=device)
-                if device.type == "cuda":
-                    torch.cuda.synchronize(device)
-                t0 = time.perf_counter()
-                losses = run_epoch(params, latent_codes, net_opt, code_opt, points, sdf, batches,
-                                   pointcloud_size, mesh)
-                loss_values = losses.cpu().numpy()  # the epoch's one wait for the device
-                step_ms.append((time.perf_counter() - t0) * 1e3 / batches.shape[0])
-                steps.append(batches.shape[0])
+                    if mesh is None:
+                        drawn = np.stack(list(create_batches(signs, batch_size, np_rng)))
+                    else:
+                        drawn = create_sharded_batches(signs, batch_size, shards,
+                                                       np_rng)[:, mesh.data_index]
+                    batches = torch.tensor(drawn, dtype=torch.int64, device=device)
+                    if device.type == "cuda":
+                        torch.cuda.synchronize(device)
+                    t0 = time.perf_counter()
+                    losses = run_epoch(params, latent_codes, net_opt, code_opt, points, sdf,
+                                       batches, pointcloud_size, mesh)
+                    loss_values = losses.cpu().numpy()  # the epoch's one wait for the device
+                    step_ms.append((time.perf_counter() - t0) * 1e3 / batches.shape[0])
+                    steps.append(batches.shape[0])
 
             codes, full_code_opt = _gathered(mesh, latent_codes, code_opt)
             latent_std = float(np.std(codes.cpu().numpy().reshape(-1)))
@@ -347,8 +400,10 @@ def train(config: Optional[TrainConfig] = None) -> dict:
         pass
     finally:
         logger.close()
+        if viewer is not None:
+            viewer.stop()
     return {"net": net, "latent_codes": _gathered(mesh, latent_codes, code_opt)[0],
-            "steps": steps, "step_ms": step_ms, "shards": shards}
+            "steps": steps, "step_ms": step_ms, "shards": shards, "viewer": viewer}
 
 
 if __name__ == "__main__":

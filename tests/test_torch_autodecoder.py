@@ -29,6 +29,9 @@ from shapegan_tpu_torch.optim import Adam
 from shapegan_tpu_torch.train import sdf_autodecoder as trainer
 
 MICRO = ["cpu", "synthetic=3", "pointcloud_size=1024", "batch_size=512"]
+# The gui epoch's loss against the JAX gui run's from the same files: read
+# 1.6e-4 (the rowwise plain versions' bf16 rounding; the CSV's 6 decimals).
+GUI_LOSS_RTOL = 1e-3
 
 
 @pytest.fixture(autouse=True)
@@ -179,12 +182,52 @@ def test_checkpoints_and_scale_lr_line_interchange_with_jax(tmp_path, monkeypatc
 
 
 def test_entry_point_needs_cuda_or_cpu(tmp_path, monkeypatch):
-    """Without ``cpu`` the trainer runs on CUDA or raises; ``gui`` (the
-    viewer) is refused."""
+    """Without ``cpu`` the trainer runs on CUDA or raises. ``gui`` is no
+    longer refused: with the live viewer a recorder in both packages and
+    both resuming epoch 1 from the JAX package's epoch-0 files, the port
+    takes the JAX viewer branch: batch by batch, the shape after batch 0
+    drawn from the batches' generator between their draws (the same row of
+    the table shown), and the epoch's loss of the JAX gui run."""
+    import shutil
+
+    from shapegan_tpu.models.sdf_net import SDFNet as JaxSDFNet
+    from shapegan_tpu_torch.models.sdf_net import SDFNet
+
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         trainer.train(parse_cli(MICRO[1:] + ["epochs=1"]))
-    with pytest.raises(SystemExit, match="viewer"):
-        trainer.train(parse_cli(MICRO + ["epochs=1", "gui"]))
     assert not os.path.exists("models")
+
+    jax_dir, port_dir = tmp_path / "jax", tmp_path / "port"
+    jax_dir.mkdir()
+    monkeypatch.chdir(jax_dir)
+    config = dict(synthetic=3, batch_size=512, extras={"pointcloud_size": 1024})
+    jax_trainer.train(JaxTrainConfig(epochs=1, nogui=True, **config))
+    shutil.copytree(jax_dir, port_dir)
+
+    shown = {"jax": [], "port": []}
+
+    class Recorder:
+        def __init__(self, side):
+            self.side = side
+
+        def set_mesh(self, mesh):
+            shown[self.side].append(mesh)
+
+        def stop(self):
+            shown[self.side].append("stop")
+
+    monkeypatch.setattr(jax_trainer, "make_viewer", lambda nogui: None if nogui else Recorder("jax"))
+    monkeypatch.setattr(trainer, "make_viewer", lambda nogui: None if nogui else Recorder("port"))
+    monkeypatch.setattr(JaxSDFNet, "get_mesh", lambda self, params, code, **kw: np.asarray(code))
+    monkeypatch.setattr(SDFNet, "get_mesh", lambda self, code, **kw: code.detach().numpy())
+    jax_trainer.train(JaxTrainConfig(epochs=2, nogui=False, resume=True, **config))
+    monkeypatch.chdir(port_dir)
+    result = trainer.train(parse_cli(MICRO + ["epochs=2", "continue", "gui"]))
+
+    assert result["shards"] == 1 and len(result["steps"]) == 1
+    assert len(shown["port"]) == len(shown["jax"]) == 2 and shown["port"][1] == shown["jax"][1] == "stop"
+    np.testing.assert_allclose(shown["port"][0], shown["jax"][0], atol=1e-3)
+    losses = [float(_csv(d)[1][2]) for d in (port_dir, jax_dir)]
+    np.testing.assert_allclose(losses[0], losses[1], rtol=GUI_LOSS_RTOL)

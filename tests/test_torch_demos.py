@@ -105,10 +105,120 @@ def test_entry_points_need_cuda_unless_cpu(module, argv, tmp_path, monkeypatch):
     assert not os.listdir(tmp_path)
 
 
+class _Recorder:
+    """A stand-in for the live viewer: keeps what it is shown."""
+
+    def __init__(self):
+        self.calls = []
+
+    def set_voxels(self, voxels, *args, **kwargs):
+        if isinstance(voxels, torch.Tensor):
+            voxels = voxels.detach().cpu()
+        self.calls.append(("voxels", np.asarray(voxels)))
+
+    def set_mesh(self, mesh, *args, **kwargs):
+        self.calls.append(("mesh", mesh))
+
+    def stop(self):
+        self.calls.append(("stop", None))
+
+
+def _gui_demo_training(monkeypatch, steps):
+    """Both training demos with ``gui`` on 1000 stand-in samples, their
+    steps recording the index batches and ``get_mesh`` a stand-in: the
+    viewer calls and the index batches of each."""
+    theirs, ours, their_idx, our_idx = _Recorder(), _Recorder(), [], []
+    monkeypatch.setattr(jax_demo_training, "make_viewer", lambda nogui: theirs)
+    monkeypatch.setattr(demo_training, "make_viewer", lambda nogui: ours)
+
+    class Mesh:
+        def scaled_to_unit_sphere(self):
+            return self
+
+    samples = (np.zeros((1000, 3), np.float32), np.zeros(1000, np.float32))
+    monkeypatch.setattr(jax_demo_training, "example_chair_path", lambda: "chair.obj")
+    monkeypatch.setattr(jax_demo_training, "load_mesh", lambda path: Mesh())
+    monkeypatch.setattr(jax_demo_training, "sample_sdf_near_surface", lambda mesh, n: samples)
+    calls = _recording_jit(monkeypatch, {"step"}, {"step": lambda p, o, idx: (p, o, jnp.float32(0))})
+    monkeypatch.setattr(JaxSDFNet, "get_mesh", lambda self, params, code, **kw: "mesh")
+    monkeypatch.setattr(sys, "argv", ["demo_training.py", "gui", f"steps={steps}"])
+    jax_demo_training.main()
+    their_idx = [args[2] for args in calls["step"]]
+
+    monkeypatch.setattr(demo_training, "chair_samples", lambda count, seed, device: samples)
+    monkeypatch.setattr(demo_training, "make_step", lambda *args: (
+        lambda idx: (our_idx.append(idx.numpy()), torch.zeros(()))[1]))
+    monkeypatch.setattr(SDFNet, "get_mesh", lambda self, code, **kw: "mesh")
+    demo_training.main(["gui", "cpu", f"steps={steps}"])
+    return theirs.calls, ours.calls, their_idx, our_idx
+
+
 @pytest.mark.parametrize("module", [demo_gan, demo_autoencoder, demo_training])
-def test_demos_refuse_gui(module):
-    with pytest.raises(SystemExit, match="viewer is not ported"):
-        module.main(["gui", "cpu"])
+def test_demos_refuse_gui(module, tmp_path, monkeypatch):
+    """``gui`` is no longer refused: with ``make_viewer`` a recorder in
+    both packages, each demo shows at the root script's frames what the
+    root script would show (the GAN's volumes and the AE's, every
+    transition, against the flax models on the root script's codes within
+    the file's bounds; the training demo's meshes at steps 0 and 100, the
+    same index batches), then stops its viewer."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr("time.sleep", lambda seconds: None)
+    if module is demo_training:
+        theirs, ours, their_idx, our_idx = _gui_demo_training(monkeypatch, 101)
+        assert ours == theirs == [("mesh", "mesh"), ("mesh", "mesh"), ("stop", None)]
+        assert len(our_idx) == len(their_idx) == 101
+        for a, b in zip(our_idx, their_idx):
+            np.testing.assert_array_equal(a, b)
+        return
+    theirs, ours = _Recorder(), _Recorder()
+    if module is demo_gan:
+        # The root script's decode records its codes; the flax generator
+        # gives their volumes afterwards.
+        calls = _recording_jit(monkeypatch, {"decode"}, {"decode": lambda z: jnp.zeros((32,) * 3)})
+        state = types.SimpleNamespace(params={}, batch_stats={})
+        monkeypatch.setattr(jax_demo_gan, "create_states", lambda key: (None, None, state, None))
+        monkeypatch.setattr(jax_checkpoints, "load", lambda template, name, base: template)
+        monkeypatch.setattr(jax_demo_gan, "make_viewer", lambda nogui: theirs)
+        monkeypatch.setattr(demo_gan, "make_viewer", lambda nogui: ours)
+        monkeypatch.setattr(sys, "argv", ["demo_gan.py", "gui", "frames=3"])
+        jax_demo_gan.main()
+        demo_gan.main(["gui", "cpu", "frames=3"])
+        codes = np.stack([args[0] for args in calls["decode"]])
+        want = np.asarray(_jax_generator(_npz_variables("generator"), jnp.asarray(codes)))
+        frames, checked, bound = 3, range(3), GEN_ATOL
+    else:
+        import demo_autoencoder as jax_demo_autoencoder
+
+        # The root script encodes with the flax model on the bundle's
+        # variables (its own set-up stood in for) and its decode records the
+        # mixed codes; two frames are decoded afterwards.
+        model, variables = JaxAutoencoder(is_variational=False), _npz_variables("autoencoder-128")
+        calls = _recording_jit(monkeypatch, {"encode", "decode"}, {
+            "encode": lambda x: model.apply(variables, x[None], train=False,
+                                            method=JaxAutoencoder.encode)[0],
+            "decode": lambda z: jnp.zeros((32,) * 3)})
+        monkeypatch.setattr(jax_demo_autoencoder, "create_state",
+                            lambda model, key: types.SimpleNamespace(params={}, batch_stats={}))
+        monkeypatch.setattr(jax_checkpoints, "load", lambda template, name, base: variables)
+        monkeypatch.setattr(jax_demo_autoencoder, "make_viewer", lambda nogui: theirs)
+        monkeypatch.setattr(demo_autoencoder, "make_viewer", lambda nogui: ours)
+        argv = ["gui", "classic", "synthetic=3", "epochs=1"]  # epochs bounds headless runs only
+        monkeypatch.setattr(sys, "argv", ["demo_autoencoder.py"] + argv)
+        jax_demo_autoencoder.main()
+        demo_autoencoder.main(argv + ["cpu"])
+        codes = np.stack([args[0] for args in calls["decode"]])
+        frames = 2 * demo_autoencoder.TRANSITION_FRAMES
+        checked = [0, frames - 1]
+        want = np.asarray(model.apply(variables, jnp.asarray(codes[checked]), train=False,
+                                      method=JaxAutoencoder.decode))
+        bound = AE_REL * np.abs(want).max()
+    assert len(codes) == frames
+    assert ([kind for kind, _ in ours.calls] == [kind for kind, _ in theirs.calls]
+            == ["voxels"] * frames + ["stop"])
+    for i, w in zip(checked, want):
+        got = ours.calls[i][1]
+        assert got.shape == w.shape == (32, 32, 32)
+        assert np.abs(got - w).max() <= bound
 
 
 def test_bundle_examples_matches_jax(tmp_path, monkeypatch):

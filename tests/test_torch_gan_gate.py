@@ -88,7 +88,7 @@ def test_sheet_tiles_match_jax_viewer(scene):
     128^2) against the JAX viewer's software route (its GL route is forced
     off) on the same volume or mesh."""
     volume = jax_make_voxel_dataset(1, 32, rescale=False, seed=2)[0]
-    ours, theirs = MeshRenderer(size=256), JaxMeshRenderer(size=256, start_thread=False)
+    ours, theirs = MeshRenderer(size=256, start_thread=False), JaxMeshRenderer(size=256, start_thread=False)
     theirs._gl_failed = True
     for viewer in (ours, theirs):
         viewer.model_color = (0.25, 0.45, 0.8)

@@ -168,7 +168,7 @@ def test_viewer_binary_voxels_match_jax():
     """``set_voxels(use_marching_cubes=False)``: the JAX viewer's mesh (its
     transform into [-1, 1]^3), and a frame of it."""
     vol = np.random.default_rng(4).uniform(-0.5, 1.0, (10, 10, 10)).astype(np.float32)
-    ours, theirs = MeshRenderer(size=96), JaxMeshRenderer(size=96, start_thread=False)
+    ours, theirs = MeshRenderer(size=96, start_thread=False), JaxMeshRenderer(size=96, start_thread=False)
     theirs._gl_failed = True
     ours.set_voxels(vol, use_marching_cubes=False)
     theirs.set_voxels(vol, use_marching_cubes=False)

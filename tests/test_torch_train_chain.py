@@ -1,6 +1,7 @@
 """The port's progressive WGAN-GP trainer on the CPU: checkpoints in both
 directions between the port and the JAX package, and a micro chain through
-the trainer's entry point (iterations 0 -> 1, resume, the viewer refused).
+the trainer's entry point (iterations 0 -> 1, resume, the live viewer's
+calls against the JAX trainer's).
 Iterations 2-3 run on the card (chip_smoke.py, phase 6)."""
 
 import os
@@ -9,10 +10,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
-import pytest
 import torch
 
 from shapegan_tpu import checkpoints as jax_checkpoints
+from shapegan_tpu.core.config import TrainConfig as JaxTrainConfig
 from shapegan_tpu.train import hybrid_progressive_gan as jax_trainer
 from shapegan_tpu_torch import checkpoints
 from shapegan_tpu_torch.core.config import parse_cli
@@ -108,5 +109,28 @@ def test_micro_chain_cpu(tmp_path, monkeypatch):
     assert len(resumed["d_step_s"]) == 2
     with open("plots/hybrid_gan_training_1.csv") as f:
         assert [line.split()[0] for line in f] == ["0", "1"]
-    with pytest.raises(SystemExit, match="viewer is not ported"):
-        trainer.train(parse_cli(base + ["gui"]))
+    # ``gui`` is no longer refused: with the live viewer a recorder in both
+    # packages, iteration 0 shows the G step's first fake volume at the JAX
+    # trainer's batches (their latents are each package's own draws), then
+    # stops the viewer.
+    shown = {"jax": [], "port": []}
+
+    class Recorder:
+        def __init__(self, side):
+            self.side = side
+
+        def set_voxels(self, voxels):
+            volume = np.asarray(voxels.detach() if isinstance(voxels, torch.Tensor) else voxels)
+            shown[self.side].append(volume.shape)
+            assert np.isfinite(volume).all() and np.abs(volume).max() <= 0.1 + 1e-6
+
+        def stop(self):
+            shown[self.side].append("stop")
+
+    monkeypatch.setattr(jax_trainer, "make_viewer", lambda nogui: None if nogui else Recorder("jax"))
+    monkeypatch.setattr(trainer, "make_viewer", lambda nogui: None if nogui else Recorder("port"))
+    dirs = ["--model_dir=gui/models", "--plot_dir=gui/plots"]
+    trainer.train(parse_cli(base + ["iteration=0", "gui"] + dirs))
+    jax_trainer.train(JaxTrainConfig(iteration=0, synthetic=4, batch_size=2, epochs=1, nogui=False,
+                                     model_dir="gui_jax/models", plot_dir="gui_jax/plots"))
+    assert shown["port"] == shown["jax"] == [(8, 8, 8), "stop"]
