@@ -640,8 +640,9 @@ def profiled_call(fn, needed=()):
     """torch.profiler's key_averages() of one call of fn, in which some CUDA
     kernel's name holds each part in ``needed``. The profiler can drop
     kernels of the recorded call, even in the step after a warm-up step, and
-    drops them less with the card idle around the call
-    (``python -m shapegan_tpu_torch.profiler_probe`` counts both ways). So
+    drops them less with the card idle around the call (PERF.md, section 6,
+    counts both ways: 3 of 40 bare recordings of a B6b call lacked its rows
+    pass, none of 80 padded ones). So
     the call is recorded in the step after a warm-up step with PROFILE_PAD_S
     of idle card on either side, and anew, up to PROFILE_TRIES times, while
     a part in ``needed`` is missing; then this fails."""

@@ -8,7 +8,8 @@ One hand-written CUDA kernel (``csrc/point_gen.cu``, replaces ``_kernel`` /
 chip (in registers, on the wgmma trunk of ``csrc/sdf_trunk_sm90.cuh``).
 Laid out as :mod:`~shapegan_tpu_torch.ops.sdf_mlp_kernels`: a wrapper
 (:func:`generate_cuda`: checks, allocates, launches on the current stream,
-counts its launches in ``launch_count``), a plain PyTorch version
+counts its launches in ``launch_count``, is the span ``sg.kernel.generate``
+in a traced run), a plain PyTorch version
 (:func:`generate_plain`) at the Pallas kernel's rounding points, and a
 dispatcher (:func:`generate`) that takes the plain version only for CPU
 tensors; a CUDA tensor goes to the kernel, which raises if it cannot run.
@@ -36,6 +37,7 @@ from typing import Dict
 import torch
 from torch.func import functional_call
 
+from shapegan_tpu_torch import tracing
 from shapegan_tpu_torch.ops import _build
 
 BF16 = torch.bfloat16
@@ -129,6 +131,7 @@ def _check(name: str, device: torch.device, tensor: torch.Tensor, shape, dtype) 
         raise ValueError(f"{name}: not contiguous")
 
 
+@tracing.kernel
 def generate_cuda(pos, zz1, zz2, w0p, w4p, w, b, gamma, beta, w7) -> torch.Tensor:
     """Launch the generator kernel (``csrc/point_gen.cu``) → [B, N] float32."""
     if pos.device.type != "cuda":

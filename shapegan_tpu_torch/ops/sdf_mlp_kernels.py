@@ -36,7 +36,8 @@ Six hand-written CUDA kernels (sources in ``ops/csrc/``):
   :func:`apply_grid_trainable_stash`.
 
 Each kernel has a thin wrapper (``*_cuda``: checks, allocates, launches on
-the current stream, counts its launches in ``launch_count``) and a plain
+the current stream, counts its launches in ``launch_count``; a traced run
+sees each call as the span ``sg.kernel.<name>``) and a plain
 PyTorch version (``*_plain``) of the same math at the same bf16 rounding
 points. The dispatchers (``grid_forward``, ``points_forward``,
 ``grid_backward``, ``trace_steps``, ``rowwise_forward``,
@@ -58,6 +59,7 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
+from shapegan_tpu_torch import tracing
 from shapegan_tpu_torch.ops import _build, sdf_mlp
 from shapegan_tpu_torch.ops.sdf_mlp import PARAM_KEYS, Params
 
@@ -424,6 +426,7 @@ def _check_grid(pp1, pp5, zz1, zz5, w, b, w8):
     return device, points, batch
 
 
+@tracing.kernel
 def grid_forward_cuda(pp1, pp5, zz1, zz5, w, b, w8) -> torch.Tensor:
     """Launch the grid kernel (``csrc/sdf_grid.cu``) → [B, P] float32."""
     device, points, batch = _check_grid(pp1, pp5, zz1, zz5, w, b, w8)
@@ -443,6 +446,7 @@ def grid_forward_cuda(pp1, pp5, zz1, zz5, w, b, w8) -> torch.Tensor:
 grid_forward_cuda.launch_count = 0
 
 
+@tracing.kernel
 def points_forward_cuda(pts, w1p, w5p, zz1, zz5, w, b, w8) -> torch.Tensor:
     """Launch the points kernel (``csrc/sdf_points.cu``) → [N] float32."""
     device = _cuda_device(pts)
@@ -469,6 +473,7 @@ def points_forward_cuda(pts, w1p, w5p, zz1, zz5, w, b, w8) -> torch.Tensor:
 points_forward_cuda.launch_count = 0
 
 
+@tracing.kernel
 def grid_backward_cuda(pp1, pp5, zz1, zz5, w, b, w8, g):
     """Launch the grid backward kernel (``csrc/sdf_grid_bwd.cu``); returns
     what :func:`grid_backward_plain` returns. The scratch it needs (about
@@ -493,6 +498,7 @@ def grid_backward_cuda(pp1, pp5, zz1, zz5, w, b, w8, g):
 grid_backward_cuda.launch_count = 0
 
 
+@tracing.kernel
 def grid_backward_rows_cuda(pp1, pp5, zz1, zz5, w, b, w8, g):
     """Launch the grid backward kernel's rows pass alone
     (``csrc/sdf_grid_bwd_sm90.cuh``, the C entry point
@@ -528,6 +534,7 @@ def grid_backward_rows_cuda(pp1, pp5, zz1, zz5, w, b, w8, g):
 grid_backward_rows_cuda.launch_count = 0
 
 
+@tracing.kernel
 def grid_backward_passes_cuda(h, dz, dx1, gz, shapes: int, points: int, s0: int = 0):
     """Launch the grid backward kernel's passes 2-4 alone
     (``csrc/sdf_bwd_passes_sm90.cuh``, the C entry point
@@ -581,6 +588,7 @@ def _stash_pointers(stash: Tuple[int, ...], planes) -> ctypes.Array:
     return (ctypes.c_void_p * HIDDEN)(*pointers)
 
 
+@tracing.kernel
 def grid_forward_stash_cuda(pp1, pp5, zz1, zz5, w, b, w8, stash):
     """Launch the stash forward kernel (``csrc/sdf_grid.cu``); returns
     what :func:`grid_forward_stash_plain` returns. The planes (B·P·512 bytes
@@ -604,6 +612,7 @@ def grid_forward_stash_cuda(pp1, pp5, zz1, zz5, w, b, w8, stash):
 grid_forward_stash_cuda.launch_count = 0
 
 
+@tracing.kernel
 def grid_backward_stash_cuda(pp1, pp5, zz1, zz5, w, b, w8, g, stashed, stash):
     """Launch the stash backward kernel (``csrc/sdf_grid_bwd.cu``);
     returns what :func:`grid_backward_stash_plain` returns. Its scratch is
@@ -635,6 +644,7 @@ def grid_backward_stash_cuda(pp1, pp5, zz1, zz5, w, b, w8, g, stashed, stash):
 grid_backward_stash_cuda.launch_count = 0
 
 
+@tracing.kernel
 def trace_steps_cuda(pts, dirs, status, escape, w1p, w5p, zz1, zz5, w, b, w8, *, k: int,
                      shadow: bool, threshold: float, step_clamp: float, sdf_offset: float,
                      radius: float):
@@ -691,6 +701,7 @@ def _check_rowwise(pts, w1p, w5p, zz1, zz5, w, b, w8):
     return device, n
 
 
+@tracing.kernel
 def rowwise_forward_cuda(pts, w1p, w5p, zz1, zz5, w, b, w8) -> torch.Tensor:
     """Launch the rowwise kernel (``csrc/sdf_rowwise.cu``) → [N] float32."""
     device, n = _check_rowwise(pts, w1p, w5p, zz1, zz5, w, b, w8)
@@ -710,6 +721,7 @@ def rowwise_forward_cuda(pts, w1p, w5p, zz1, zz5, w, b, w8) -> torch.Tensor:
 rowwise_forward_cuda.launch_count = 0
 
 
+@tracing.kernel
 def rowwise_backward_cuda(pts, w1p, w5p, zz1, zz5, w, b, w8, g):
     """Launch the rowwise backward kernel (``csrc/sdf_rowwise_bwd.cu``: the
     grid backward's Hopper rows pass and weight kernel, then the d_w8 / d_b8
@@ -843,10 +855,15 @@ def apply_points_fused(params: Params, points: torch.Tensor, latent: torch.Tenso
 def apply_grid_best(params: Params, grid_points: torch.Tensor, latents: torch.Tensor) -> torch.Tensor:
     """Forward-only grid evaluation [P, 3] x [B, L] → [B, P]: the points
     kernel when B == 1, the grid kernel otherwise (the JAX package's
-    dispatch on a TPU). On CPU tensors each runs its plain version."""
+    dispatch on a TPU). On CPU tensors each runs its plain version. The
+    operands are made anew each call, in the span ``sg.generate.operands``."""
     if latents.shape[0] == 1:
-        return apply_points_fused(params, grid_points, latents[0])
-    return apply_grid_fused(params, grid_points, latents)
+        with tracing.span("sg.generate.operands"):
+            operands = points_operands(params, grid_points, latents[0])
+        return points_forward(*operands)[None, :]
+    with tracing.span("sg.generate.operands"):
+        operands = grid_operands(params, grid_points, latents)
+    return grid_forward(*operands)
 
 
 def trace_steps_fused(params: Params, latent: torch.Tensor, points: torch.Tensor,

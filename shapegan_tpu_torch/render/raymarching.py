@@ -23,6 +23,12 @@ iteration is one points-kernel launch and a few element-wise operations.
 The frame's latent code is folded into the biases first, so every
 evaluation runs the latent-free network. On CPU tensors the kernels' plain
 versions run instead.
+
+A traced run sees the frame's four phases, each host test between trace
+stages and the frame's copy to the host as spans (``sg.render.*``,
+:mod:`shapegan_tpu_torch.tracing`); the counter ``render.lane_steps`` adds
+the lanes times the iterations of every trace launch, ``render.host_waits``
+each host test and each copy.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from shapegan_tpu_torch import tracing
 from shapegan_tpu_torch.ops import sdf_mlp
 from shapegan_tpu_torch.ops import sdf_mlp_kernels as K
 from shapegan_tpu_torch.render.camera import camera_position_from_transform, get_camera_transform
@@ -126,7 +133,11 @@ CAMERA_POSITION, LIGHT_POSITION = get_default_coordinates()
 
 
 def _any_active(status: torch.Tensor) -> bool:
-    return bool((status == _ACTIVE).any())
+    """Whether a lane is still active: a host test that waits for the
+    device (``sg.render.host_wait``, counted in ``render.host_waits``)."""
+    tracing.count("render.host_waits")
+    with tracing.span("sg.render.host_wait"):
+        return bool((status == _ACTIVE).any())
 
 
 @torch.no_grad()
@@ -154,10 +165,12 @@ def _run_stages(weights, trace_kw, points, dirs, status, budget, schedule, tail_
     fused = _FORCE_FUSED_TRACE and points.shape[0] >= FUSED_MIN_LANES
 
     def step(points, status):  # one iteration through the points kernel
+        tracing.count("render.lane_steps", points.shape[0])
         sdf = K.points_forward(points, *weights)
         return K.trace_update(points, dirs, status, sdf, escape=escape, **trace_kw)
 
     def fused_steps(k, points, status):
+        tracing.count("render.lane_steps", points.shape[0] * k)
         return K.trace_steps(points, dirs, status, escape, *weights, k=k, **trace_kw)
 
     def run_fori(k, points, status):
@@ -204,7 +217,9 @@ def _run_stages(weights, trace_kw, points, dirs, status, budget, schedule, tail_
     # bucket. Overflow lanes keep riding as ACTIVE in the source and come
     # out as hits, like budget exhaustion. Fill lanes start as MISS at the
     # origin with a zero direction, so they never move.
-    idx = torch.nonzero(status == _ACTIVE).flatten()[:size]
+    tracing.count("render.host_waits")
+    with tracing.span("sg.render.host_wait"):  # nonzero's count waits for the device
+        idx = torch.nonzero(status == _ACTIVE).flatten()[:size]
     count = idx.shape[0]
 
     def take(x):
@@ -381,75 +396,84 @@ def _render_pixels(params, latent, camera_position, camera_right, camera_up, cam
                    on_phase: Optional[Callable[[str], None]] = None) -> torch.Tensor:
     """One frame on the parameters' device: [size/ssaa, size/ssaa, 3] uint8.
     ``on_phase(name)``, when given, is called as each phase ends (primary
-    trace, normals, shadow trace, shading) — the profiler's hook."""
+    trace, normals, shadow trace, shading) — the profiler's hook. Each
+    phase is also the span ``sg.render.<phase>``."""
     on_phase = on_phase or (lambda name: None)
-    # One fixed code for the whole frame: fold it into the biases so every
-    # evaluation runs the latent-free network.
-    params = sdf_mlp.fold_latent(params, latent)
-    latent = latent[:0]
-    n = size * size
+    with tracing.span("sg.render.primary_trace"):
+        # One fixed code for the whole frame: fold it into the biases so
+        # every evaluation runs the latent-free network.
+        params = sdf_mlp.fold_latent(params, latent)
+        latent = latent[:0]
+        n = size * size
 
-    points, ray_directions, entered = camera_rays(
-        camera_position, size, radius=radius, basis=(camera_right, camera_up, camera_forward))
+        points, ray_directions, entered = camera_rays(
+            camera_position, size, radius=radius,
+            basis=(camera_right, camera_up, camera_forward))
 
-    # Primary trace: lanes that never enter the sphere start as misses.
-    status = torch.where(entered, _ACTIVE, _MISS).to(torch.int32)
-    primary_schedule = _default_schedule("primary", n, iterations)
-    points, status = _trace_staged(
-        "primary", params, latent, points, ray_directions, status, iterations, threshold, 0.02,
-        sdf_offset, radius, primary_schedule,
-        tail_cap=TAIL_ITERS if primary_schedule else None)
-    model_mask = (status == _HIT) | (status == _ACTIVE)
-    if vertical_cutoff is not None:
-        model_mask &= points[:, 1].abs() <= vertical_cutoff
-    any_hit = model_mask.any()
+        # Primary trace: lanes that never enter the sphere start as misses.
+        status = torch.where(entered, _ACTIVE, _MISS).to(torch.int32)
+        primary_schedule = _default_schedule("primary", n, iterations)
+        points, status = _trace_staged(
+            "primary", params, latent, points, ray_directions, status, iterations, threshold,
+            0.02, sdf_offset, radius, primary_schedule,
+            tail_cap=TAIL_ITERS if primary_schedule else None)
+        model_mask = (status == _HIT) | (status == _ACTIVE)
+        if vertical_cutoff is not None:
+            model_mask &= points[:, 1].abs() <= vertical_cutoff
+        any_hit = model_mask.any()
     on_phase("primary trace")
 
-    # Surface normals for every lane, masked at their uses.
-    normal = _points_gradient(params, points, latent)
-    normal = normal / torch.linalg.norm(normal, dim=1, keepdim=True).clamp_min(1e-12)
+    with tracing.span("sg.render.normals"):
+        # Surface normals for every lane, masked at their uses.
+        normal = _points_gradient(params, points, latent)
+        normal = normal / torch.linalg.norm(normal, dim=1, keepdim=True).clamp_min(1e-12)
     on_phase("normals")
 
-    # Ground-plane points under the model; model-surface and ground shadow
-    # rays run as one trace (the lane sets are disjoint), with per-lane
-    # escape heights when the caller's radius is not 1.0.
-    ground_plane = torch.where(model_mask, points[:, 1], math.inf).min()
-    down = ray_directions[:, 1] < 0
-    ground = down & ~model_mask & any_hit
-    t = (points[:, 1] - ground_plane) / torch.where(down, ray_directions[:, 1], -1.0)
-    g_pts = points - ray_directions * t[:, None]
-    ground &= torch.sqrt(g_pts[:, 0] ** 2 + g_pts[:, 2] ** 2) < 3
+    with tracing.span("sg.render.shadow_trace"):
+        # Ground-plane points under the model; model-surface and ground
+        # shadow rays run as one trace (the lane sets are disjoint), with
+        # per-lane escape heights when the caller's radius is not 1.0.
+        ground_plane = torch.where(model_mask, points[:, 1], math.inf).min()
+        down = ray_directions[:, 1] < 0
+        ground = down & ~model_mask & any_hit
+        t = (points[:, 1] - ground_plane) / torch.where(down, ray_directions[:, 1], -1.0)
+        g_pts = points - ray_directions * t[:, None]
+        ground &= torch.sqrt(g_pts[:, 0] ** 2 + g_pts[:, 2] ** 2) < 3
 
-    shadow_mask = model_mask | ground
-    shadow_points = torch.where(model_mask[:, None], points,
-                                torch.where(ground[:, None], g_pts, 2.0 + radius))
-    shadow_escape = None if radius == 1.0 else torch.where(model_mask, float(radius), 1.0)
-    shadow = _shadow_factor(params, latent, shadow_points, shadow_mask, light_position, 0.001,
-                            sdf_offset, radius, first_bucket=shadow_bucket, escape=shadow_escape)
+        shadow_mask = model_mask | ground
+        shadow_points = torch.where(model_mask[:, None], points,
+                                    torch.where(ground[:, None], g_pts, 2.0 + radius))
+        shadow_escape = None if radius == 1.0 else torch.where(model_mask, float(radius), 1.0)
+        shadow = _shadow_factor(params, latent, shadow_points, shadow_mask, light_position,
+                                0.001, sdf_offset, radius, first_bucket=shadow_bucket,
+                                escape=shadow_escape)
     on_phase("shadow trace")
-    seen_by_light = 1.0 - shadow
 
-    light_direction = light_position[None, :] - points
-    light_direction = light_direction / torch.linalg.norm(light_direction, dim=1, keepdim=True)
-    l_dot_n = (light_direction * normal).sum(1)
-    diffuse = l_dot_n.clamp(0, 1) * seen_by_light
-    reflect = light_direction - 2.0 * l_dot_n[:, None] * normal
-    reflect = reflect / torch.linalg.norm(reflect, dim=1, keepdim=True).clamp_min(1e-12)
-    specular = (reflect * ray_directions).sum(1).clamp(0, 1)
-    specular = specular.pow(20) * seen_by_light
-    rim = 1.0 - (-(normal * ray_directions).sum(1)).clamp(0, 1)
-    rim = rim.pow(4) * 0.3
+    with tracing.span("sg.render.shading"):
+        seen_by_light = 1.0 - shadow
 
-    shaded = torch.tensor(color, dtype=torch.float32, device=points.device)[None, :] \
-        * (diffuse * 0.5 + 0.5)[:, None]
-    shaded = shaded + (specular * 0.3 + rim)[:, None]
-    pixels = torch.where(model_mask[:, None], shaded.clamp(0, 1), 1.0)
-    pixels = pixels - torch.where(ground, (1.0 - 0.65) * shadow, 0.0)[:, None]
+        light_direction = light_position[None, :] - points
+        light_direction = light_direction / torch.linalg.norm(light_direction, dim=1,
+                                                              keepdim=True)
+        l_dot_n = (light_direction * normal).sum(1)
+        diffuse = l_dot_n.clamp(0, 1) * seen_by_light
+        reflect = light_direction - 2.0 * l_dot_n[:, None] * normal
+        reflect = reflect / torch.linalg.norm(reflect, dim=1, keepdim=True).clamp_min(1e-12)
+        specular = (reflect * ray_directions).sum(1).clamp(0, 1)
+        specular = specular.pow(20) * seen_by_light
+        rim = 1.0 - (-(normal * ray_directions).sum(1)).clamp(0, 1)
+        rim = rim.pow(4) * 0.3
 
-    pixels = pixels.clamp(0.0, 1.0).reshape(size, size, 3)
-    if ssaa != 1:
-        pixels = _lanczos3_downsample(pixels, ssaa).clamp(0.0, 1.0)
-    pixels = torch.round(pixels * 255.0).to(torch.uint8)
+        shaded = torch.tensor(color, dtype=torch.float32, device=points.device)[None, :] \
+            * (diffuse * 0.5 + 0.5)[:, None]
+        shaded = shaded + (specular * 0.3 + rim)[:, None]
+        pixels = torch.where(model_mask[:, None], shaded.clamp(0, 1), 1.0)
+        pixels = pixels - torch.where(ground, (1.0 - 0.65) * shadow, 0.0)[:, None]
+
+        pixels = pixels.clamp(0.0, 1.0).reshape(size, size, 3)
+        if ssaa != 1:
+            pixels = _lanczos3_downsample(pixels, ssaa).clamp(0.0, 1.0)
+        pixels = torch.round(pixels * 255.0).to(torch.uint8)
     on_phase("shading and downsample")
     return pixels
 
@@ -501,7 +525,9 @@ def render_image(net, latent_code, resolution: int = 800, threshold: float = 0.0
             vertical_cutoff=vertical_cutoff, color=tuple(color), ssaa=device_ssaa,
             shadow_bucket=_shadow_mask_capacity(camera_position, size, radius),
             on_phase=on_phase)
-    pixels = pixels.cpu().numpy()
+    tracing.count("render.host_waits")
+    with tracing.span("sg.render.to_host"):
+        pixels = pixels.cpu().numpy()
     return crop_frame(pixels, resolution, ssaa) if crop else pixels
 
 

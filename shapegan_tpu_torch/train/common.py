@@ -103,17 +103,26 @@ def effective_batch_size(requested: int, dataset_len: int) -> int:
 
 
 class RollingHistory:
-    """Rolling mean over the last N steps (the reference's deque(maxlen=50))."""
+    """Rolling mean over the last N steps (the reference's deque(maxlen=50)).
+    A tensor is kept on its device as it is appended and read back only
+    when :attr:`mean` is read, so appending never waits for the device."""
 
     def __init__(self, maxlen: int = 50):
         self._values = collections.deque(maxlen=maxlen)
 
     def append(self, value) -> None:
-        self._values.append(float(value))
+        self._values.append(value.detach() if torch.is_tensor(value) else float(value))
 
     @property
     def mean(self) -> float:
-        return float(np.mean(self._values)) if self._values else float("nan")
+        if not self._values:
+            return float("nan")
+        values = list(self._values)
+        tensors = [v.reshape(()) for v in values if torch.is_tensor(v)]
+        if tensors:  # one copy to the host for all of them
+            host = iter(torch.stack(tensors).double().cpu().tolist())
+            values = [next(host) if torch.is_tensor(v) else v for v in values]
+        return float(np.mean(values))
 
     def __len__(self):
         return len(self._values)
@@ -130,34 +139,48 @@ class EpochTimer:
 
 
 class StepProfiler:
-    """Host-clock time of each step, taken after synchronizing the device,
-    so it covers the device work the step queued."""
+    """The time of each step. On a CUDA device, a pair of CUDA events around
+    the step on the current stream, resolved when :attr:`times` is read
+    (the epoch's print), so a step never waits for the device: it covers
+    the device's work from the step's first queued operation to its last,
+    and the device's idle time between them. On the CPU, the host clock."""
 
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
-        self.times = collections.deque(maxlen=200)
+        self._steps = collections.deque(maxlen=200)   # seconds, or a pending event pair
 
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    def _mark(self):
+        if self.device.type != "cuda":
+            return time.perf_counter()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(torch.cuda.current_stream(self.device))
+        return event
 
     def __enter__(self):
-        self._sync()
-        self._t0 = time.perf_counter()
+        self._t0 = self._mark()
         return self
 
     def __exit__(self, *exc):
-        self._sync()
-        self.times.append(time.perf_counter() - self._t0)
+        end = self._mark()
+        self._steps.append(end - self._t0 if self.device.type != "cuda" else (self._t0, end))
         return False
+
+    @property
+    def times(self) -> list:
+        """Each recent step's seconds (the last 200)."""
+        for i, step in enumerate(self._steps):
+            if isinstance(step, tuple):
+                step[1].synchronize()
+                self._steps[i] = step[0].elapsed_time(step[1]) * 1e-3
+        return list(self._steps)
 
     @property
     def mean_step_time(self) -> float:
         """Mean over recent steps, without first-call outliers (samples more
         than 20x the median: kernel builds, cuDNN algorithm searches)."""
-        if not self.times:
-            return float("nan")
         times = np.asarray(self.times)
+        if not times.size:
+            return float("nan")
         return float(times[times <= 20 * np.median(times)].mean())
 
 

@@ -47,7 +47,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from shapegan_tpu_torch import LATENT_CODE_SIZE, SDF_CLIPPING, checkpoints
+from shapegan_tpu_torch import LATENT_CODE_SIZE, SDF_CLIPPING, checkpoints, tracing
 from shapegan_tpu_torch.core.config import TrainConfig, parse_cli, resolve_device
 from shapegan_tpu_torch.models import gan
 from shapegan_tpu_torch.models.gan import Discriminator
@@ -156,13 +156,14 @@ def generate_volumes_inference(net: SDFNet, grid_points: torch.Tensor,
     """Latents [B, L] over grid points [res^3, 3] → SDF volumes
     [B, res, res, res], forward only: the grid kernel on CUDA (the points
     kernel when B == 1). Under a mesh of ranks, this rank's rows of the
-    global batch, as :func:`generate_volumes`."""
-    mesh = _shardable_mesh(grid_points, latent_codes)
-    if mesh is not None:
-        flat = apply_grid_sharded(net.param_dict(), grid_points, latent_codes, mesh)
-    else:
-        flat = apply_grid_best(net.param_dict(), grid_points, latent_codes)
-    return flat.reshape(-1, resolution, resolution, resolution)
+    global batch, as :func:`generate_volumes`. The span ``sg.generate``."""
+    with tracing.span("sg.generate"):
+        mesh = _shardable_mesh(grid_points, latent_codes)
+        if mesh is not None:
+            flat = apply_grid_sharded(net.param_dict(), grid_points, latent_codes, mesh)
+        else:
+            flat = apply_grid_best(net.param_dict(), grid_points, latent_codes)
+        return flat.reshape(-1, resolution, resolution, resolution)
 
 
 def create_states(seed: int = 0, device="cpu", g_lr: float = GENERATOR_LR,

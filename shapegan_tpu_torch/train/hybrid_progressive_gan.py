@@ -42,7 +42,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from shapegan_tpu_torch import LATENT_CODE_SIZE, SDF_CLIPPING, checkpoints
+from shapegan_tpu_torch import LATENT_CODE_SIZE, SDF_CLIPPING, checkpoints, tracing
 from shapegan_tpu_torch.core.config import TrainConfig, parse_cli, resolve_device
 from shapegan_tpu_torch.models import progressive_gan
 from shapegan_tpu_torch.models.progressive_gan import RESOLUTIONS, ProgressiveDiscriminator
@@ -104,9 +104,12 @@ def generator_grads(net: SDFNet, discriminator: ProgressiveDiscriminator, grid: 
     """Gradients of the generator loss ``-mean(D(G(z)))`` for the generator's
     parameters, and the fake volumes."""
     params = net.param_dict()
-    fake = generate_volumes(net, grid, z, RESOLUTIONS[iteration])
-    loss = -discriminator(fake, iteration, fade).mean()
-    grads = torch.autograd.grad(loss, list(params.values()))
+    with tracing.span("sg.g_step.generate"):
+        fake = generate_volumes(net, grid, z, RESOLUTIONS[iteration])
+    with tracing.span("sg.g_step.critic"):
+        loss = -discriminator(fake, iteration, fade).mean()
+    with tracing.span("sg.g_step.backward"):
+        grads = torch.autograd.grad(loss, list(params.values()))
     return dict(zip(params, grads)), fake.detach()
 
 
@@ -120,13 +123,16 @@ def critic_grads(discriminator: ProgressiveDiscriminator, fake: torch.Tensor, ba
     def critic(x):
         return discriminator(x, iteration, fade)
 
-    pred_fake = critic(fake).mean()
-    pred_real = critic(batch).mean()
-    gp = gradient_penalty(critic, alpha, batch, fake, weight=GRADIENT_PENALTY_WEIGHT)
-    loss = pred_fake - pred_real + gp
-    grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-    grads = {k: torch.zeros_like(p) if g is None else g
-             for (k, p), g in zip(params.items(), grads)}
+    with tracing.span("sg.d_step.critic"):
+        pred_fake = critic(fake).mean()
+        pred_real = critic(batch).mean()
+    with tracing.span("sg.d_step.penalty"):
+        gp = gradient_penalty(critic, alpha, batch, fake, weight=GRADIENT_PENALTY_WEIGHT)
+    with tracing.span("sg.d_step.backward"):
+        loss = pred_fake - pred_real + gp
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        grads = {k: torch.zeros_like(p) if g is None else g
+                 for (k, p), g in zip(params.items(), grads)}
     return grads, {"pred_fake": pred_fake.detach(), "pred_real": pred_real.detach(),
                    "gradient_penalty": gp.detach()}
 
@@ -144,21 +150,31 @@ def make_steps(net: SDFNet, discriminator: ProgressiveDiscriminator, g_opt: RMSp
     Under a ``mesh`` (entered by the caller) ``z`` and ``alpha`` are the
     global batch's and ``batch`` this rank's rows; each step averages its
     gradients, and the D step its metrics, over the data group.
+
+    Each step is the span ``sg.g_step`` / ``sg.d_step`` and its phases are
+    spans within it: ``.generate``, ``.critic``, ``.backward``,
+    ``.optimizer`` (G); ``.fakes``, ``.critic``, ``.penalty``,
+    ``.backward``, ``.optimizer`` (D).
     """
     resolution = RESOLUTIONS[iteration]
     grid = voxel_coordinates(resolution, device=net.device)
 
     def g_step(z: torch.Tensor, fade) -> torch.Tensor:
-        grads, fake = generator_grads(net, discriminator, grid, z, iteration, fade)
-        g_opt.step(average_over_data(mesh, grads))
-        return fake
+        with tracing.span("sg.g_step"):
+            grads, fake = generator_grads(net, discriminator, grid, z, iteration, fade)
+            with tracing.span("sg.g_step.optimizer"):
+                g_opt.step(average_over_data(mesh, grads))
+            return fake
 
     def d_step(batch: torch.Tensor, z: torch.Tensor, alpha: torch.Tensor, fade):
-        fake = generate_volumes_inference(net, grid, z, resolution)
-        grads, metrics = critic_grads(discriminator, fake, batch, shard_batch(mesh, alpha),
-                                      iteration, fade)
-        d_opt.step(average_over_data(mesh, grads))
-        return average_over_data(mesh, metrics)
+        with tracing.span("sg.d_step"):
+            with tracing.span("sg.d_step.fakes"):
+                fake = generate_volumes_inference(net, grid, z, resolution)
+            grads, metrics = critic_grads(discriminator, fake, batch, shard_batch(mesh, alpha),
+                                          iteration, fade)
+            with tracing.span("sg.d_step.optimizer"):
+                d_opt.step(average_over_data(mesh, grads))
+            return average_over_data(mesh, metrics)
 
     return g_step, d_step
 
