@@ -120,12 +120,28 @@ def build_log() -> str:
 # card each (render.raymarching.render_image_sequence).
 _LOAD_LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()
+_COUNTED = set()   # every wrapper that has counted a launch
 
 
 def count_launch(wrapper) -> None:
     """Add one to a kernel wrapper's ``launch_count`` (under a lock)."""
     with _COUNT_LOCK:
         wrapper.launch_count += 1
+        _COUNTED.add(wrapper)
+
+
+def launch_counts() -> dict:
+    """Each wrapper that has counted a launch, with its ``launch_count``."""
+    with _COUNT_LOCK:
+        return {wrapper: wrapper.launch_count for wrapper in _COUNTED}
+
+
+def add_launches(launches: dict) -> None:
+    """Add to wrappers' ``launch_count`` (wrapper -> count): a CUDA graph's
+    replay launches again what its capture counted."""
+    with _COUNT_LOCK:
+        for wrapper, n in launches.items():
+            wrapper.launch_count += n
 
 
 def load() -> ctypes.CDLL:

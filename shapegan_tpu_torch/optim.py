@@ -25,7 +25,9 @@ EPS = 1e-8
 
 
 class RMSprop:
-    """Updates the given tensors in place from gradients keyed alike."""
+    """Updates the given tensors in place from gradients keyed alike. Its
+    moments are updated in place too, so a CUDA graph that captured a step
+    reads and writes the same tensors on every replay."""
 
     def __init__(self, params: Dict[str, torch.Tensor], learning_rate: float):
         self.params = params
@@ -36,8 +38,8 @@ class RMSprop:
     def step(self, grads: Dict[str, torch.Tensor]) -> None:
         for key, param in self.params.items():
             g = grads[key]
-            nu = (1.0 - DECAY) * (g * g) + DECAY * self.nu[key]
-            self.nu[key] = nu
+            nu = self.nu[key]
+            torch.add((1.0 - DECAY) * (g * g), DECAY * nu, out=nu)
             param.add_((torch.rsqrt(nu + EPS) * g) * -self.learning_rate)
 
     def state(self) -> dict:
@@ -45,7 +47,10 @@ class RMSprop:
         return {"nu": self.nu}
 
     def load_state(self, state: dict) -> None:
-        self.nu = dict(state["nu"])
+        """Copy ``state["nu"]`` into the moments in place."""
+        with torch.no_grad():
+            for key, nu in self.nu.items():
+                nu.copy_(state["nu"][key])
 
 
 class SGD:

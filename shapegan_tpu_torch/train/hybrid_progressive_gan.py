@@ -22,7 +22,9 @@ a stash set, the stash forward and stash backward kernels). With ``cpu``
 their plain versions run on the CPU; without it the trainer needs CUDA. The noise (latents and
 the penalty's interpolation coefficients) is drawn on the device from a
 ``torch.Generator`` seeded per epoch, so it is not the JAX trainer's noise;
-the steps take it as arguments, so a test can hand both the same. With
+the steps take it as arguments, so a test can hand both the same. On one
+card each step is dispatched as the replay of a CUDA graph of its whole
+body (``make_steps``), so the host issues a batch in a few launches. With
 ``gui`` the live viewer (``train.common.make_viewer``, rank 0's) shows the
 G step's first fake volume every 50th batch.
 
@@ -47,7 +49,7 @@ from shapegan_tpu_torch.core.config import TrainConfig, parse_cli, resolve_devic
 from shapegan_tpu_torch.models import progressive_gan
 from shapegan_tpu_torch.models.progressive_gan import RESOLUTIONS, ProgressiveDiscriminator
 from shapegan_tpu_torch.models.sdf_net import SDFNet
-from shapegan_tpu_torch.ops import sdf_mlp
+from shapegan_tpu_torch.ops import _build, sdf_mlp
 from shapegan_tpu_torch.ops.coords import voxel_coordinates
 from shapegan_tpu_torch.ops.losses import gradient_penalty
 from shapegan_tpu_torch.optim import RMSprop
@@ -73,6 +75,7 @@ from shapegan_tpu_torch.train.common import (
     maybe_print_slice,
     resolve_voxel_dataset,
 )
+from shapegan_tpu_torch.train import hybrid_gan
 from shapegan_tpu_torch.train.hybrid_gan import generate_volumes, generate_volumes_inference
 
 FADE_IN_EPOCHS = 10
@@ -147,36 +150,140 @@ def make_steps(net: SDFNet, discriminator: ProgressiveDiscriminator, g_opt: RMSp
       ``batch``, fakes generated (forward only) from ``z``, and penalty
       coefficients ``alpha`` [B, 1, 1, 1]; returns the metrics.
 
-    Under a ``mesh`` (entered by the caller) ``z`` and ``alpha`` are the
-    global batch's and ``batch`` this rank's rows; each step averages its
-    gradients, and the D step its metrics, over the data group.
+    Under a ``mesh`` of several ranks (entered by the caller) ``z`` and
+    ``alpha`` are the global batch's and ``batch`` this rank's rows; each
+    step averages its gradients, and the D step its metrics, over the data
+    group.
 
-    Each step is the span ``sg.g_step`` / ``sg.d_step`` and its phases are
-    spans within it: ``.generate``, ``.critic``, ``.backward``,
-    ``.optimizer`` (G); ``.fakes``, ``.critic``, ``.penalty``,
-    ``.backward``, ``.optimizer`` (D).
+    On CUDA with no collective to make (no mesh, or a mesh of one rank),
+    each step is dispatched as replays of CUDA graphs (:class:`_Replayed`):
+    the same body, its kernels in the same order, one ``cudaGraphLaunch`` a
+    call; ``fade`` reaches the critic as a 0-dim float32 device tensor,
+    filled before every call. The returned tensors are the caller's own.
+    On the CPU and under a mesh of several ranks, the steps run eagerly.
+
+    Each step is the span ``sg.g_step`` / ``sg.d_step``; a replay is the
+    span ``.replay`` within it, and an eager call (or a capture) has the
+    phases: ``.generate``, ``.critic``, ``.backward``, ``.optimizer`` (G);
+    ``.fakes``, ``.critic``, ``.penalty``, ``.backward``, ``.optimizer``
+    (D).
     """
     resolution = RESOLUTIONS[iteration]
     grid = voxel_coordinates(resolution, device=net.device)
 
+    def g_body(z: torch.Tensor, fade) -> torch.Tensor:
+        grads, fake = generator_grads(net, discriminator, grid, z, iteration, fade)
+        with tracing.span("sg.g_step.optimizer"):
+            g_opt.step(average_over_data(mesh, grads))
+        return fake
+
+    def d_body(batch: torch.Tensor, z: torch.Tensor, alpha: torch.Tensor, fade):
+        with tracing.span("sg.d_step.fakes"):
+            fake = generate_volumes_inference(net, grid, z, resolution)
+        grads, metrics = critic_grads(discriminator, fake, batch, shard_batch(mesh, alpha),
+                                      iteration, fade)
+        with tracing.span("sg.d_step.optimizer"):
+            d_opt.step(average_over_data(mesh, grads))
+        return average_over_data(mesh, metrics)
+
+    if net.device.type != "cuda" or (mesh is not None and mesh.size > 1):
+        def g_step(z: torch.Tensor, fade) -> torch.Tensor:
+            with tracing.span("sg.g_step"):
+                return g_body(z, fade)
+
+        def d_step(batch: torch.Tensor, z: torch.Tensor, alpha: torch.Tensor, fade):
+            with tracing.span("sg.d_step"):
+                return d_body(batch, z, alpha, fade)
+
+        return g_step, d_step
+
+    fade_now = torch.zeros((), dtype=torch.float32, device=net.device)
+    g_graphs = _Replayed("sg.g_step", lambda z: g_body(z, fade_now))
+    d_graphs = _Replayed("sg.d_step", lambda batch, z, alpha: d_body(batch, z, alpha, fade_now))
+
     def g_step(z: torch.Tensor, fade) -> torch.Tensor:
         with tracing.span("sg.g_step"):
-            grads, fake = generator_grads(net, discriminator, grid, z, iteration, fade)
-            with tracing.span("sg.g_step.optimizer"):
-                g_opt.step(average_over_data(mesh, grads))
-            return fake
+            fade_now.fill_(fade)
+            return g_graphs(z)
 
     def d_step(batch: torch.Tensor, z: torch.Tensor, alpha: torch.Tensor, fade):
         with tracing.span("sg.d_step"):
-            with tracing.span("sg.d_step.fakes"):
-                fake = generate_volumes_inference(net, grid, z, resolution)
-            grads, metrics = critic_grads(discriminator, fake, batch, shard_batch(mesh, alpha),
-                                          iteration, fade)
-            with tracing.span("sg.d_step.optimizer"):
-                d_opt.step(average_over_data(mesh, grads))
-            return average_over_data(mesh, metrics)
+            fade_now.fill_(fade)
+            return d_graphs(batch, z, alpha)
 
     return g_step, d_step
+
+
+class _Replayed:
+    """A step body dispatched as replays of CUDA graphs, one graph for each
+    key of what the body observes: the inputs' shapes and dtypes, cuDNN's
+    and matmuls' TF32 flags, and the grid VJP that ``hybrid_gan._GRID_STASH``
+    picks (a graph keeps the kernels and the math it was captured with).
+
+    A key's first call runs the body eagerly: the warm-up a capture needs
+    (the kernels' build, cuDNN's algorithm choice, the allocator's blocks).
+    Its second call copies the inputs into static tensors and captures the
+    body on a side stream into the graph's own memory pool; that call and
+    every later one then replay it, the later ones after copying their
+    inputs in. A capture that fails raises.
+
+    The body's outputs (a tensor, or a dict of tensors) are returned as
+    clones, never as the graph's static tensors, which the next replay
+    overwrites. The counters ``train.graph_captures`` and
+    ``train.graph_replays`` count captures and replays (a capture's own
+    replay is one); a later replay adds to each hand kernel's
+    ``launch_count`` the launches that its capture counted."""
+
+    def __init__(self, name: str, body):
+        self._name = name
+        self._body = body
+        self._warm = set()
+        self._graphs: Dict[tuple, _Graph] = {}
+
+    def __call__(self, *inputs: torch.Tensor):
+        key = (tuple((t.shape, t.dtype, t.device) for t in inputs),
+               torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+               hybrid_gan._GRID_STASH)
+        graph = self._graphs.get(key)
+        if graph is None:
+            if key not in self._warm:
+                self._warm.add(key)
+                return self._body(*inputs)
+            graph = self._graphs[key] = _Graph(self._body, inputs)
+            tracing.count("train.graph_captures")
+        else:
+            for static, value in zip(graph.inputs, inputs):
+                static.copy_(value)
+            _build.add_launches(graph.launches)
+        with tracing.span(f"{self._name}.replay"):
+            graph.graph.replay()
+        tracing.count("train.graph_replays")
+        if isinstance(graph.outputs, dict):
+            return {k: v.clone() for k, v in graph.outputs.items()}
+        return graph.outputs.clone()
+
+
+class _Graph:
+    """``body`` captured from static copies of ``inputs``: the graph, its
+    static inputs and outputs, and the hand kernels' launches that the
+    capture counted (wrapper -> count)."""
+
+    def __init__(self, body, inputs):
+        self.inputs = [t.clone() for t in inputs]
+        before = _build.launch_counts()
+        self.graph, self.outputs = _record_graph(body, self.inputs)
+        self.launches = {w: n - before.get(w, 0) for w, n in _build.launch_counts().items()
+                         if n != before.get(w, 0)}
+
+
+def _record_graph(body, inputs):
+    """``body(*inputs)`` captured into a new CUDA graph (on
+    ``torch.cuda.graph``'s side stream, into the graph's own memory pool):
+    the graph and the body's outputs, its static tensors."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outputs = body(*inputs)
+    return graph, outputs
 
 
 def _optimizer_tree(g_opt: RMSprop, d_opt: RMSprop) -> dict:
@@ -215,8 +322,9 @@ def train(config: Optional[TrainConfig] = None) -> dict:
     if config.resume and checkpoints.exists(OPT_NAME.format(iteration), base=base):
         restored = checkpoints.load_tree(_optimizer_tree(g_opt, d_opt), OPT_NAME.format(iteration),
                                          base=base)
-        g_opt.nu = restored["g"][0]["nu"]
-        d_opt.nu = progressive_gan.params_from_jax(restored["d"][0]["nu"], device=device)
+        g_opt.load_state({"nu": restored["g"][0]["nu"]})
+        d_opt.load_state({"nu": progressive_gan.params_from_jax(restored["d"][0]["nu"],
+                                                                device=device)})
 
     dataset = resolve_voxel_dataset(config, resolution=resolution, rescale_sdf=False)
     batch_size = effective_batch_size(config.batch_size or BATCH_SIZE, len(dataset))
