@@ -20,6 +20,8 @@ from typing import Dict
 
 import torch
 
+from shapegan_tpu_torch import tracing
+
 DECAY = 0.9
 EPS = 1e-8
 
@@ -74,7 +76,8 @@ B2 = 0.999
 class Adam:
     """Updates the given tensors in place from gradients keyed alike. The
     step count is a tensor on the parameters' device, so a step never waits
-    for the host."""
+    for the host. Each step adds the number of tensors it updates to the
+    counter ``optim.adam_tensor_updates``."""
 
     def __init__(self, params: Dict[str, torch.Tensor], learning_rate: float):
         self.params = params
@@ -86,6 +89,7 @@ class Adam:
 
     @torch.no_grad()
     def step(self, grads: Dict[str, torch.Tensor]) -> None:
+        tracing.count("optim.adam_tensor_updates", len(self.params))
         self.count += 1
         correction_mu = 1 - torch.pow(B1, self.count)  # float32, as optax's decay**count
         correction_nu = 1 - torch.pow(B2, self.count)

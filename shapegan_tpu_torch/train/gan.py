@@ -40,7 +40,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from shapegan_tpu_torch import LATENT_CODE_SIZE, checkpoints
+from shapegan_tpu_torch import LATENT_CODE_SIZE, checkpoints, tracing
 from shapegan_tpu_torch.core.config import TrainConfig, parse_cli, resolve_device
 from shapegan_tpu_torch.models.gan import Discriminator, Generator
 from shapegan_tpu_torch.optim import Adam
@@ -101,25 +101,44 @@ def make_steps(g_net: Generator, d_net: Discriminator, g_opt: Adam, d_opt: Adam,
     batch's statistics) ``z`` is the global batch's and ``batch`` this
     rank's rows; the fakes are this rank's rows, and the gradients and the
     predictions are averaged over the data group.
+
+    Each step is the span ``sg.g_step`` / ``sg.d_step`` (the progressive
+    trainer's names): the G step's ``.generate``, ``.critic``, ``.backward``
+    and ``.optimizer``; the D step's ``.fakes``, then for each of its two
+    updates ``.critic`` (the discriminator's forward and backward) and
+    ``.optimizer``.
     """
     g_params = dict(g_net.named_parameters())
 
     def g_step(z: torch.Tensor) -> torch.Tensor:
-        fake = g_net(shard_batch(mesh, z), train=True)
-        loss = -torch.log(d_net(fake).clamp(1e-7, 1.0)).mean()
-        grads = torch.autograd.grad(loss, list(g_params.values()))
-        g_opt.step(average_over_data(mesh, dict(zip(g_params, grads))))
-        return fake.detach()
+        with tracing.span("sg.g_step"):
+            with tracing.span("sg.g_step.generate"):
+                fake = g_net(shard_batch(mesh, z), train=True)
+            with tracing.span("sg.g_step.critic"):
+                loss = -torch.log(d_net(fake).clamp(1e-7, 1.0)).mean()
+            with tracing.span("sg.g_step.backward"):
+                grads = torch.autograd.grad(loss, list(g_params.values()))
+                grads = average_over_data(mesh, dict(zip(g_params, grads)))
+            with tracing.span("sg.g_step.optimizer"):
+                g_opt.step(grads)
+            return fake.detach()
+
+    def d_update(volumes: torch.Tensor, target: float) -> torch.Tensor:
+        with tracing.span("sg.d_step.critic"):
+            grads, pred = bce_grads(d_net, volumes, target)
+            grads = average_over_data(mesh, grads)
+        with tracing.span("sg.d_step.optimizer"):
+            d_opt.step(grads)
+        return pred
 
     def d_step(batch: torch.Tensor, z: torch.Tensor) -> Dict[str, torch.Tensor]:
-        with torch.no_grad():
-            fake = g_net(shard_batch(mesh, z), train=True, update_stats=False)
-        grads, pred_fake = bce_grads(d_net, fake, 0.0)
-        d_opt.step(average_over_data(mesh, grads))
-        grads, pred_real = bce_grads(d_net, batch, 1.0)
-        d_opt.step(average_over_data(mesh, grads))
-        return average_over_data(mesh, {"pred_fake": pred_fake.mean(),
-                                        "pred_real": pred_real.mean()})
+        with tracing.span("sg.d_step"):
+            with tracing.span("sg.d_step.fakes"), torch.no_grad():
+                fake = g_net(shard_batch(mesh, z), train=True, update_stats=False)
+            pred_fake = d_update(fake, 0.0)
+            pred_real = d_update(batch, 1.0)
+            return average_over_data(mesh, {"pred_fake": pred_fake.mean(),
+                                            "pred_real": pred_real.mean()})
 
     return g_step, d_step
 
